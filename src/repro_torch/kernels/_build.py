@@ -1,0 +1,132 @@
+"""Builds the port's CUDA kernels and loads them with ctypes.
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (one process per
+source, all started together) and linked into one shared library with a
+plain C interface. The library lands in ``build/repro_torch/<hash>/`` at the
+repository root, keyed by a hash of the sources and flags, so a changed
+source rebuilds and an unchanged one loads the cached file. The build runs at
+the first launch of any kernel, never at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-lineinfo"]
+LIB_NAME = "librepro_torch_kernels.so"
+
+# the launchers' dtype codes (ReproDtype in csrc/common.cuh)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
+# C signatures of the exported launchers (see csrc/*.cu); every launcher
+# returns a cudaError_t as int
+SIGNATURES = {
+    "rmsnorm_launch": [_P, _P, _P, _LL, _I, _LL, _F, _I, _I, _P],
+    "flash_attention_launch": [
+        _P, _P, _P, _P, _P,                 # q, k, v, kv_pos, out
+        _I, _I, _I, _I, _I, _I,             # B, Sq, Skv, Hq, Hkv, hd
+        _LL, _LL, _LL,                      # q strides (b, s, h)
+        _LL, _LL, _LL,                      # k strides
+        _LL, _LL, _LL,                      # v strides
+        _I, _I, _I, _F, _I, _P],            # q_offset, causal, window, softcap, dtype, stream
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None        # wall time of the last build; None if loaded from cache
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    cands = [shutil.which("nvcc")]
+    if CUDA_HOME:
+        cands.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):     # .cu and .cuh
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(out_dir: pathlib.Path) -> pathlib.Path:
+    nvcc = _nvcc()
+    sources = _sources()
+    tmp = pathlib.Path(tempfile.mkdtemp(dir=out_dir.parent))
+    try:
+        objs = [tmp / (s.stem + ".o") for s in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                 for s, o in zip(sources, objs)]
+        errors = []
+        for s, p in zip(sources, procs):
+            out, _ = p.communicate()
+            if p.returncode:
+                errors.append(f"{s.name}:\n{out.decode(errors='replace')}")
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        lib = tmp / LIB_NAME
+        subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib),
+                        *map(str, objs)], check=True, capture_output=True)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        os.replace(lib, out_dir / LIB_NAME)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out_dir / LIB_NAME
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if the sources changed) and load the kernel library."""
+    global _lib, build_seconds
+    with _lock:
+        if _lib is not None:
+            return _lib
+        out_dir = BUILD_ROOT / _digest()
+        path = out_dir / LIB_NAME
+        if not path.exists():
+            BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+            t0 = time.perf_counter()
+            path = _compile(out_dir)
+            build_seconds = time.perf_counter() - t0
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launcher reported a CUDA error."""
+    if err:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err}: {msg}")

@@ -5,3 +5,7 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "timeout(seconds): per-test watchdog (pytest-timeout plugin)")
+    # tests of the port's CUDA kernels: they need an NVIDIA GPU and nvcc and
+    # skip elsewhere (tests/test_torch_cuda.py)
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA GPU and nvcc; skipped without one")

@@ -1,0 +1,76 @@
+"""Rules of the port: it imports nothing of JAX or of the JAX package, and
+its entry points never fall back to the CPU when the GPU is missing."""
+import ast
+import pathlib
+import re
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from repro_torch.models.model import init_cache  # noqa: E402
+from repro_torch.models.schema import init_params  # noqa: E402
+from repro_torch.serving.engine import ServingEngine  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = re.compile(r"^(jax|jaxlib|repro)(\.|$)")
+
+
+def _port_files():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    assert files, "no port sources found"
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_nothing_of_repro(path):
+    bad = [m for m in _imports(path) if FORBIDDEN.match(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_forbidden_pattern():
+    for name in ("jax", "jax.numpy", "jaxlib", "repro", "repro.models.layers"):
+        assert FORBIDDEN.match(name), name
+    for name in ("repro_torch", "repro_torch.models", "jaxtyping", "torch"):
+        assert not FORBIDDEN.match(name), name
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_gpu(no_gpu):
+    cfg = get_config("gemma2-2b").reduced()
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_cache(cfg, 1, 16)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServingEngine(cfg, params, batch_size=1, max_seq=16)
+    tree = {"embed": np.zeros((2, 2), np.float32)}
+    with pytest.raises(RuntimeError, match="cuda"):
+        params_from_numpy(tree, cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "gemma2-2b", "--reduced"])
+
+
+def test_engine_refuses_params_on_another_device():
+    cfg = get_config("gemma2-2b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu").to("meta")
+    with pytest.raises(ValueError, match="params live on"):
+        ServingEngine(cfg, params, batch_size=1, max_seq=16, device="cpu")
