@@ -336,7 +336,10 @@ def main() -> int:
         if window:
             valid &= kpos[None, :] > qpos[:, None] - window
         flops = 4 * hd * int(valid.sum()) * B * Hq
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + (4 * Skv if kp is not None else 0)
+        # K/V of a slot no query attends to (unwritten, or masked for all) is
+        # never read: the kernel skips such tiles before loading them
+        read = int(valid.any(axis=0).sum())
+        nbytes = 2 * (2 * q.numel() + 2 * B * Hkv * hd * read) + (4 * Skv if kp is not None else 0)
         b_ms, b_by = bound(nbytes, flops, "bfloat16")
         kw = dict(causal=True, window=window, softcap=cfg.attn_softcap, q_offset=q_offset)
         res = {"shape": f"B{B} Sq{Sq} Skv{Skv} Hq{Hq} Hkv{Hkv} hd{hd} bf16 w{window} "

@@ -40,7 +40,7 @@ class ModelConfig:
     window: int = 0                  # sliding window size for 'attn_local' (0 = full)
     attn_softcap: float = 0.0        # gemma2-style logit soft capping
     final_softcap: float = 0.0
-    attn_chunk: int = 512            # kv chunk of the plain chunked attention
+    attn_chunk: int = 512            # kv chunk of the plain attention (CPU tensors)
 
     # MoE
     n_experts: int = 0

@@ -20,13 +20,15 @@ from repro_torch.kernels.flash_attention.ref import chunked_attention
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, softcap: float = 0.0,
-                    q_offset: int = 0, kv_pos: Optional[torch.Tensor] = None):
+                    q_offset: int = 0, kv_pos: Optional[torch.Tensor] = None,
+                    chunk: int = 512):
     """q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, hd); kv_pos: (Skv,) int32
-    absolute key positions (default ``arange(Skv)``)."""
+    absolute key positions (default ``arange(Skv)``). ``chunk`` is the KV
+    chunk of the plain version; the kernel tiles KV its own way."""
     if q.device.type == "cpu":
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  softcap=softcap, q_offset=q_offset,
-                                 kv_positions=kv_pos)
+                                 kv_positions=kv_pos, chunk=chunk)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     out = flash_attention_cuda(q, k, v, causal=causal, window=window,

@@ -37,8 +37,8 @@ def _split_heads(t, hd):
 
 
 def attn_block(cfg: ModelConfig, p, x, *, mode: str, pos: int, cache,
-               window: int, causal: bool = True):
-    """Self attention with an optional ring KV cache.
+               window: int):
+    """Causal self attention with an optional ring KV cache.
 
     mode: 'train' (no cache), 'prefill' (build cache), 'decode' (1 token).
     pos:  absolute position of x[:, 0] (python int).
@@ -59,12 +59,14 @@ def attn_block(cfg: ModelConfig, p, x, *, mode: str, pos: int, cache,
         k = rope(k, positions, cfg.rope_theta)
 
     if mode == "train" or cache is None:
-        out = flash_attention(q, k, v, causal=causal, window=window,
-                              softcap=cfg.attn_softcap, q_offset=pos)
+        out = flash_attention(q, k, v, causal=True, window=window,
+                              softcap=cfg.attn_softcap, q_offset=pos,
+                              chunk=cfg.attn_chunk)
     elif mode == "prefill":
         L = cache["k"].shape[1]
         out = flash_attention(q, k, v, causal=True, window=window,
-                              softcap=cfg.attn_softcap, q_offset=pos)
+                              softcap=cfg.attn_softcap, q_offset=pos,
+                              chunk=cfg.attn_chunk)
         # store the last min(S, L) keys/values; ring convention: position p
         # lives at slot p % L so decode overwrites the oldest entry.
         if S >= L:
@@ -83,7 +85,8 @@ def attn_block(cfg: ModelConfig, p, x, *, mode: str, pos: int, cache,
         cache["kpos"][slot:slot + S] = positions
         out = flash_attention(q, cache["k"], cache["v"], causal=True,
                               window=window, softcap=cfg.attn_softcap,
-                              q_offset=pos, kv_pos=cache["kpos"])
+                              q_offset=pos, kv_pos=cache["kpos"],
+                              chunk=cfg.attn_chunk)
     else:
         raise ValueError(f"unknown mode {mode!r}")
 

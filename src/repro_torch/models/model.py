@@ -14,15 +14,12 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import attn_block, mlp_block, norm
-from repro_torch.models.schema import Dims
 
 INVALID_POS = 2 ** 30       # kpos of a cache slot that holds no key
 
 
-def _mixer_window(cfg: ModelConfig, mixer: str, window_override: int) -> int:
-    if mixer == "attn_local":
-        return cfg.window
-    return window_override  # 0 = full attention
+def _mixer_window(cfg: ModelConfig, mixer: str) -> int:
+    return cfg.window if mixer == "attn_local" else 0   # 0 = full attention
 
 
 def embed_tokens(cfg: ModelConfig, params, tokens):
@@ -44,7 +41,7 @@ def logits_fn(cfg: ModelConfig, params, hidden):
 
 
 def forward(cfg: ModelConfig, params, batch: dict, *, mode: str = "train",
-            pos: int = 0, cache=None, window_override: int = 0):
+            pos: int = 0, cache=None):
     """Returns (hidden (B, S, D), cache); the cache is updated in place."""
     x = embed_tokens(cfg, params, batch["tokens"])
     dec = params["dec"]
@@ -56,7 +53,7 @@ def forward(cfg: ModelConfig, params, batch: dict, *, mode: str = "train",
             p = {n: t[r] for n, t in dec[key].items()}
             c = None if cache is None else {n: t[r] for n, t in cache[key].items()}
             x = attn_block(cfg, p, x, mode=mode, pos=pos, cache=c,
-                           window=_mixer_window(cfg, mixer, window_override))
+                           window=_mixer_window(cfg, mixer))
             if ffn == "mlp":
                 x = mlp_block(cfg, {n: t[r] for n, t in dec[f"b{i}_mlp"].items()}, x)
             elif ffn:
@@ -65,20 +62,19 @@ def forward(cfg: ModelConfig, params, batch: dict, *, mode: str = "train",
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *,
-               device="cuda", window_override: int = 0):
+               device="cuda"):
     """Zero K/V and invalid kpos for every attention block, stacked over n_repeat."""
     dev = resolve_device(device)
-    dims = Dims(cfg)
     R, B = cfg.n_repeat, batch_size
     dt = getattr(torch, cfg.dtype)
     cache = {}
     for i, (mixer, _) in enumerate(cfg.pattern):
         if not mixer.startswith("attn"):
             raise NotImplementedError(f"mixer {mixer!r} is not ported")
-        w = _mixer_window(cfg, mixer, window_override)
+        w = _mixer_window(cfg, mixer)
         L = min(max_seq, w) if w else max_seq
         cache[f"b{i}_{mixer}"] = {
-            "k": torch.zeros((R, B, L, dims.hkv, dims.hd), dtype=dt, device=dev),
-            "v": torch.zeros((R, B, L, dims.hkv, dims.hd), dtype=dt, device=dev),
+            "k": torch.zeros((R, B, L, cfg.n_kv_heads, cfg.head_dim), dtype=dt, device=dev),
+            "v": torch.zeros((R, B, L, cfg.n_kv_heads, cfg.head_dim), dtype=dt, device=dev),
             "kpos": torch.full((R, L), INVALID_POS, dtype=torch.int32, device=dev)}
     return cache

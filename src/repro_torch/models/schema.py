@@ -28,23 +28,19 @@ class ParamDef:
     scale: float = 0.0         # 0 -> 1/sqrt(fan_in)
 
 
-def _pad_to(n: int, mult: int) -> int:
-    return -(-n // mult) * mult
-
-
 @dataclass(frozen=True)
 class Dims:
-    """Derived dimensions under a given model-axis size (padding rule)."""
+    """Derived dimensions. The reference pads heads and vocab to its model-axis
+    size; the port does not shard, so they are the config's own."""
     cfg: ModelConfig
-    model_shards: int = 1
 
     @property
     def hq(self) -> int:
-        return _pad_to(self.cfg.n_heads, self.model_shards)
+        return self.cfg.n_heads
 
     @property
     def hkv(self) -> int:
-        return _pad_to(self.cfg.n_kv_heads, self.model_shards)
+        return self.cfg.n_kv_heads
 
     @property
     def hd(self) -> int:
@@ -56,7 +52,7 @@ class Dims:
 
     @property
     def v(self) -> int:
-        return _pad_to(self.cfg.vocab_size, self.model_shards)
+        return self.cfg.vocab_size
 
 
 def _norm_schema(cfg: ModelConfig, name: str = "norm") -> dict:

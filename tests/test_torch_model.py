@@ -14,13 +14,14 @@ from repro.configs.registry import get_config as jax_get_config  # noqa: E402
 from repro.models import schema as jax_schema  # noqa: E402
 from repro.models.attention import rope as jax_rope  # noqa: E402
 from repro.models.model import embed_tokens as jax_embed  # noqa: E402
+from repro.models.model import forward as jax_forward  # noqa: E402
 from repro.models.model import init_cache as jax_init_cache  # noqa: E402
 from repro.train.steps import make_prefill_step as jax_prefill_step  # noqa: E402
 from repro.train.steps import make_serve_step as jax_serve_step  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.models.attention import rope  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
-from repro_torch.models.model import embed_tokens, init_cache  # noqa: E402
+from repro_torch.models.model import embed_tokens, forward, init_cache  # noqa: E402
 from repro_torch.models.schema import count_params  # noqa: E402
 from repro_torch.train.steps import make_prefill_step, make_serve_step  # noqa: E402
 
@@ -30,6 +31,7 @@ B, PROMPT, MAX_SEQ, DECODE_STEPS = 2, 12, 32, 6
 # rounding, which grows through 2 layers, 48x embedding and the softcaps
 LOGITS_ATOL = 1e-4
 CACHE_ATOL = 1e-5
+HIDDEN_ATOL = 1e-4     # pre-norm hidden states: 48x embedding, 2 layers
 
 
 @pytest.fixture(scope="module")
@@ -105,3 +107,16 @@ def test_prefill_and_decode_match_reference(models):
                                    atol=LOGITS_ATOL, err_msg=f"decode pos {pos}")
         pos += 1
     _check_cache(cache, jcache)
+
+
+def test_train_forward_matches_reference(models):
+    """Cacheless full-sequence forward; 12 keys cross the reduced config's
+    8-key attention chunk."""
+    jcfg, jparams, cfg, params = models
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, size=(B, PROMPT))
+    jh, _, _ = jax.jit(lambda p, t: jax_forward(jcfg, p, {"tokens": t}, mode="train"))(
+        jparams, jnp.asarray(tokens, jnp.int32))
+    with torch.inference_mode():
+        h, cache = forward(cfg, params, {"tokens": torch.from_numpy(tokens)}, mode="train")
+    assert cache is None
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), atol=HIDDEN_ATOL)
