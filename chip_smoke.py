@@ -7,15 +7,23 @@ Phases, each of which passes or ends the script with a non-zero exit:
   0. device: a CUDA card must be present; prints its name and power limit;
   1. build: compiles the port's CUDA kernels from the repository's sources;
   2. kernels vs plain versions on the card, on seeded inputs, each case
-     printed with its max abs error and tolerance; plus a reduced gemma2-2b
-     served on the card (kernels) and on the CPU (plain path), which must
-     agree;
+     printed with its max abs error and tolerance (RMSNorm and flash
+     attention at gemma2-2b's and jamba's shapes, grouped matmul and
+     selective scan at the JAX tests' and jamba's shapes); plus a reduced
+     gemma2-2b and a reduced hybrid (jamba's 8-block pattern) served on the
+     card (kernels) and on the CPU (plain path), which must agree;
   3. serve: full-width gemma2-2b (26 layers, bf16, seed-0 weights) through
      ``ServingEngine``: 8 requests, batch 4, prompt 512, 16 new tokens,
      max_seq 1024. Every RMSNorm and attention must have gone through the
      kernels (launch counts 53 and 26 per forward);
      Prints prefill ms, decode ms per step and tokens/s, and a profile of
-     one prefill and one decode step (device busy share, top kernels);
+     one prefill and one decode step (device busy share, top kernels),
+     and one decode step under ``torch.cuda.set_sync_debug_mode("error")``;
+  3b. serve: full-width jamba-v0.1-52b cut to 8 layers (one period of its
+     block: 7 mamba, 1 attention, 4 MoE, 4 MLP layers; bf16, seed-0
+     weights), gemma2-2b freed first, with the same requests. Launch counts
+     per forward come from the pattern: RMSNorm 17, flash 1, selective scan
+     7, grouped matmul 12. The same timings, profile and sync check;
   4. times at the serving shapes, after warm-up: each kernel's, its plain
      version's and the library call's device time per call (the summed
      kernel time under the profiler), the kernel's CUDA-event time per call
@@ -24,6 +32,8 @@ The last two lines are the kernels' JSON line and the result line.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -41,6 +51,9 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 ARCH, N_REQ, BATCH, PROMPT, NEW, MAX_SEQ = "gemma2-2b", 8, 4, 512, 16, 1024
+# jamba at full width, one period of its 8-layer block: the 32 published
+# layers (51.6B parameters, 103 GB in bf16) do not fit one 80 GB card
+HYBRID, HYBRID_LAYERS = "jamba-v0.1-52b", 8
 INVALID = 2 ** 30
 
 
@@ -92,6 +105,26 @@ def bound(nbytes, flops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def per_forward(cfg):
+    """Kernel launches in one forward, from the config's block pattern: a
+    norm per mixer and per FFN plus the final norm, a flash call per
+    attention layer, a scan per mamba layer, three grouped matmuls per MoE."""
+    R, pat = cfg.n_repeat, cfg.pattern
+    return {"rmsnorm": R * sum(1 + bool(ffn) for _, ffn in pat) + 1,
+            "flash_attention": R * sum(m.startswith("attn") for m, _ in pat),
+            "selective_scan": R * sum(m == "mamba" for m, _ in pat),
+            "gmm": 3 * R * sum(ffn == "moe" for _, ffn in pat)}
+
+
+def skewed_sizes(total, E, empty):
+    """Router-like group sizes: a decaying share per expert, one empty."""
+    w = 1.0 / (np.arange(E) + 1.0) ** 0.7
+    w[empty] = 0.0
+    s = np.floor(total * w / w.sum()).astype(int)
+    s[0] += total - s.sum()
+    return s.tolist()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -99,16 +132,25 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    import torch.nn.functional as F
+
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import chunked_attention
+    from repro_torch.kernels.gmm.ops import gmm
+    from repro_torch.kernels.gmm.ref import gmm_ref
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
     from repro_torch.models.model import init_cache
-    from repro_torch.models.schema import init_params
+    from repro_torch.models.schema import count_params, init_params
     from repro_torch.serving.engine import Request, ServingEngine
     from repro_torch.train.steps import make_prefill_step, make_serve_step
+
+    kernel_ops = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
+                  "selective_scan": selective_scan, "gmm": gmm}
 
     # -- 0. device -----------------------------------------------------------
     smi = subprocess.run(
@@ -128,18 +170,26 @@ def main() -> int:
 
     # -- 2. kernels vs plain versions ----------------------------------------
     rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
 
     def t(*shape, dtype=torch.float32, scale=1.0):
         return torch.from_numpy(rng.standard_normal(shape) * scale).to(dev, dtype)
 
-    err = {"rmsnorm": 0.0, "flash_attention": 0.0}
+    def td(*shape, dtype=torch.float32, scale=1.0):
+        """Seeded normals drawn on the card (large tensors)."""
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
-    def check(name, label, out, ref, tol):
-        e = (out.float() - ref.float()).abs().max().item()
-        ok = math.isfinite(e) and e <= tol
-        log(f"[kernel] {name} {label}: max_abs_err {e:.3e} tol {tol:.0e} "
-            f"{'ok' if ok else 'FAIL'}")
-        assert ok, f"{name} {label}: {e} > {tol}"
+    err = {name: 0.0 for name in kernel_ops}
+
+    def check(name, label, out, ref, tol, rtol=0.0):
+        """Pass if |out - ref| <= tol + rtol * |ref| everywhere."""
+        diff = (out.float() - ref.float()).abs()
+        e = diff.max().item()
+        excess = (diff - rtol * ref.float().abs()).max().item() if rtol else e
+        ok = math.isfinite(e) and excess <= tol
+        log(f"[kernel] {name} {label}: max_abs_err {e:.3e} tol {tol:.0e}"
+            + (f" + {rtol:.1e}*|ref|" if rtol else "") + f" {'ok' if ok else 'FAIL'}")
+        assert ok, f"{name} {label}: {e} > {tol} (+ {rtol}*|ref|)"
         err[name] = max(err[name], e)
 
     for shape in [(2048, 2304), (4, 2304), (3, 77, 2304)]:
@@ -197,119 +247,224 @@ def main() -> int:
                50.0, torch.bfloat16, pos, ring)
     flash_case("decode wrapped ring L1024 w256 f32", 2, 8, 4, 1, L, 256, True, 256,
                50.0, torch.float32, pos, ring)
+    # jamba's attention layer: Hq 32 over Hkv 8, hd 128, full causal, no softcap
+    for dt in (torch.bfloat16, torch.float32):
+        flash_case(f"jamba prefill B4 S512 Hq32 Hkv8 hd128 {dt}", 4, 32, 8, 512, 512,
+                   128, True, 0, 0.0, dt, 0)
+        flash_case(f"jamba decode Sq1 L1024 half-invalid {dt}", 4, 32, 8, 1, 1024,
+                   128, True, 0, 0.0, dt, 511, half)
 
-    # the reduced model, served on the card and on the CPU, must agree
-    rcfg = get_config(ARCH).reduced()
-    rparams = init_params(rcfg, torch.Generator().manual_seed(0), device="cpu")
-    prompts = [rng.integers(0, rcfg.vocab_size, size=12) for _ in range(3)]
-    outs = {}
-    for d in ("cpu", "cuda"):
-        eng = ServingEngine(rcfg, rparams.to(d), batch_size=3, max_seq=64, device=d)
-        for i, p in enumerate(prompts):
-            eng.submit(Request(i, p, max_new_tokens=6))
-        outs[d] = [r.output for r in eng.run_batch()]
-    log(f"[reduced] tokens cpu {outs['cpu']} cuda {outs['cuda']}")
-    assert outs["cpu"] == outs["cuda"], "reduced gemma2-2b: card and CPU disagree"
+    hcfg = get_config(HYBRID)
+    # gmm: f32 sums over D in another order; bf16 output rounded once on both
+    # sides, so the two may differ by one bf16 ulp of the value (2**-7 rel.)
+    gmm_tol = {torch.float32: (2e-4, 0.0), torch.bfloat16: (1e-2, 2 ** -7)}
+    jamba_prefill_sizes = skewed_sizes(BATCH * PROMPT * hcfg.top_k, hcfg.n_experts, 5)
+    jamba_decode_sizes = [2, 0, 1, 0, 0, 1, 0, 0, 2, 0, 0, 0, 1, 0, 0, 1]   # 8 rows
 
-    # -- 3. serve full-width gemma2-2b --------------------------------------
+    def gmm_case(label, sizes, D, Fo, dt, scale=1.0):
+        x = td(sum(sizes), D, dtype=dt)
+        w = td(len(sizes), D, Fo, dtype=dt, scale=scale)
+        gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        check("gmm", f"{label} {dt}", gmm(x, w, gs), gmm_ref(x, w, gs), *gmm_tol[dt])
+
+    for dt in (torch.float32, torch.bfloat16):
+        # tests/test_kernels.py::test_gmm_vs_ragged_dot
+        for sizes, D, Fo in [([30, 0, 17, 40, 13], 32, 48), ([4, 4, 4, 4], 16, 16),
+                             ([128], 64, 32), ([0, 0, 50], 32, 64)]:
+            gmm_case(f"sizes {sizes} D{D} F{Fo}", sizes, D, Fo, dt)
+        # jamba's expert FFN: up/gate (4096 -> 14336) and down (14336 -> 4096),
+        # at prefill (B4 x 512 tokens x top-2) and decode (B4 x top-2 = 8 rows)
+        d, f = hcfg.d_model, hcfg.expert_d_ff
+        for tag, sizes in (("prefill", jamba_prefill_sizes), ("decode", jamba_decode_sizes)):
+            gmm_case(f"jamba {tag} up T{sum(sizes)} {d}->{f} sizes {sizes}", sizes, d, f,
+                     dt, d ** -0.5)
+            gmm_case(f"jamba {tag} down T{sum(sizes)} {f}->{d}", sizes, f, d, dt, f ** -0.5)
+
+    # selective scan: f32 sums over d_state in another order; bf16 as gmm
+    scan_tol = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (1e-2, 2 ** -7)}
+
+    def scan_inputs(B, S, di, st, dt, model_like):
+        """The JAX test's distributions, or the mamba block's: A = -(1..st)
+        as initialised, dt = softplus around its init, b and c sliced out of
+        one x_proj output, a nonzero h0."""
+        if model_like:
+            a = -torch.arange(1, st + 1, dtype=torch.float32, device=dev).expand(di, st).contiguous()
+            dtv = F.softplus(td(B, S, di) * 0.5 + math.log(math.e - 1)).to(dt)
+            bcd = td(B, S, hcfg.dt_rank + 2 * st, dtype=dt)
+            b, c = bcd[..., hcfg.dt_rank:hcfg.dt_rank + st], bcd[..., hcfg.dt_rank + st:]
+            d_skip = torch.ones(di, dtype=dt, device=dev)
+        else:
+            a = -td(di, st).abs()
+            dtv = (td(B, S, di).abs() * 0.1 + 0.01).to(dt)
+            b, c = td(B, S, st, dtype=dt), td(B, S, st, dtype=dt)
+            d_skip = torch.ones(di, dtype=dt, device=dev)
+        return td(B, S, di, dtype=dt), dtv, a, b, c, d_skip, td(B, di, st, scale=0.2)
+
+    def scan_case(label, B, S, di, st, dt, model_like=False):
+        args = scan_inputs(B, S, di, st, dt, model_like)
+        y, hT = selective_scan(*args)
+        ry, rh = selective_scan_ref(*args)
+        check("selective_scan", f"{label} {dt} y", y, ry, *scan_tol[dt])
+        check("selective_scan", f"{label} {dt} hT", hT, rh, *scan_tol[torch.float32])
+
+    for dt in (torch.float32, torch.bfloat16):
+        # tests/test_kernels.py::test_selective_scan_vs_ref
+        for B, S, di, st in [(1, 64, 32, 4), (2, 128, 64, 8), (1, 32, 16, 16)]:
+            scan_case(f"B{B} S{S} di{di} st{st}", B, S, di, st, dt)
+        di, st = hcfg.ssm_d_inner, hcfg.ssm_d_state
+        scan_case(f"jamba prefill B{BATCH} S{PROMPT} di{di} st{st}", BATCH, PROMPT, di, st,
+                  dt, True)
+        scan_case(f"jamba decode B{BATCH} S1 di{di} st{st} h0!=0", BATCH, 1, di, st, dt, True)
+
+    def served_on_card_and_cpu(label, rcfg):
+        rparams = init_params(rcfg, torch.Generator().manual_seed(0), device="cpu")
+        prompts = [rng.integers(0, rcfg.vocab_size, size=12) for _ in range(3)]
+        outs = {}
+        for d in ("cpu", "cuda"):
+            eng = ServingEngine(rcfg, rparams.to(d), batch_size=3, max_seq=64, device=d)
+            for i, p in enumerate(prompts):
+                eng.submit(Request(i, p, max_new_tokens=6))
+            outs[d] = [r.output for r in eng.run_batch()]
+        log(f"[reduced] {label} tokens cpu {outs['cpu']} cuda {outs['cuda']}")
+        assert outs["cpu"] == outs["cuda"], f"{label}: card and CPU disagree"
+
+    # the reduced models, served on the card and on the CPU, must agree
+    served_on_card_and_cpu(ARCH, get_config(ARCH).reduced())
+    served_on_card_and_cpu(f"{HYBRID} 8-block pattern", dataclasses.replace(
+        hcfg.reduced(), pattern=hcfg.pattern, n_layers=HYBRID_LAYERS))
+
+    # -- 3. serve ------------------------------------------------------------
+    def serve_model(cfg, params):
+        def requests():
+            r = np.random.default_rng(0)
+            return [Request(i, r.integers(0, cfg.vocab_size, size=PROMPT),
+                            max_new_tokens=NEW) for i in range(N_REQ)]
+
+        engine = ServingEngine(cfg, params, BATCH, MAX_SEQ, device=dev)
+        finite = []
+
+        def recorded(step):
+            def run(*args):
+                logits, cache = step(*args)
+                finite.append(torch.isfinite(logits).all())
+                return logits, cache
+            return run
+
+        engine._prefill = recorded(engine._prefill)
+        engine._decode = recorded(engine._decode)
+        for r in requests():
+            engine.submit(r)
+        for op in kernel_ops.values():
+            op.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = engine.run_batch()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = {name: op.launches for name, op in kernel_ops.items()}
+        forwards = len(finite)
+        expect = per_forward(cfg)
+        log(f"[serve] {len(done)} requests, {forwards} forwards, launches {launches}")
+        assert forwards == (N_REQ // BATCH) * (1 + NEW), forwards
+        assert len(done) == N_REQ
+        assert all(len(r.output) == NEW and all(0 <= x < cfg.vocab_size for x in r.output)
+                   for r in done), "bad outputs"
+        assert all(bool(f) for f in finite), "non-finite logits"
+        for name, n in expect.items():
+            assert launches[name] == n * forwards, (name, launches[name], n * forwards)
+        log(f"[serve] req 0: {done[0].output}")
+
+        # steady-state serving: a second, uncounted run of the same requests
+        engine.done.clear()
+        for r in requests():
+            engine.submit(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.run_batch()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        prefill, decode = make_prefill_step(cfg), make_serve_step(cfg)
+        tokens = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, size=(BATCH, PROMPT))).to(dev)
+        cache = init_cache(cfg, BATCH, MAX_SEQ, device=dev)
+        prefill_ms = cuda_ms(lambda: prefill(params, {"tokens": tokens}, cache),
+                             iters=5, warmup=1)
+        tok = tokens[:, -1:]
+        step = [PROMPT]
+
+        def one_decode():
+            decode(params, cache, tok, step[0])
+            step[0] += 1
+
+        decode_ms = cuda_ms(one_decode, iters=NEW, warmup=2)
+        serve = {"arch": cfg.name, "n_layers": cfg.n_layers,
+                 "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+                 "tokens_per_s": N_REQ * NEW / serve_s, "serve_s": serve_s,
+                 "first_run_s": first_s, "batch": BATCH, "prompt_len": PROMPT,
+                 "max_new": NEW, "requests": N_REQ,
+                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log("[serve] " + json.dumps(serve))
+
+        # where a step's time goes: device busy share and the top kernels
+        def profiled(label, fn):
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            kern = device_kernels(prof)
+            busy_ms = sum(a.self_device_time_total for a in kern) / 1e3
+            log(f"[profile] {label}: wall {wall_ms:.3f} ms under the profiler, "
+                f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+                f"{sum(a.count for a in kern)} kernels")
+            for a in sorted(kern, key=lambda a: -a.self_device_time_total)[:10]:
+                log(f"[profile]   {a.self_device_time_total / 1e3:9.3f} ms {a.count:5d}x "
+                    f"{a.key[:90]}")
+
+        profiled(f"{cfg.name} prefill", lambda: prefill(params, {"tokens": tokens}, cache))
+        profiled(f"{cfg.name} decode step", one_decode)
+        # any host sync in a decode step (a .item(), a boolean index, a
+        # bincount, ...) raises in this mode
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            one_decode()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        log(f"[sync] {cfg.name}: one decode step ran with no host sync "
+            "(set_sync_debug_mode('error'))")
+        return launches, expect, forwards
+
+    def init_on_card(cfg, note=""):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()    # the peak of this model's serving alone
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        torch.cuda.synchronize()
+        log(f"[serve] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
+            f"vocab {cfg.vocab_size} {cfg.dtype}, "
+            f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f}B params "
+            f"initialised in {time.perf_counter() - t0:.1f}s{note}")
+        return params
+
     cfg = get_config(ARCH)
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    torch.cuda.synchronize()
-    log(f"[serve] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
-        f"vocab {cfg.vocab_size} {cfg.dtype}, "
-        f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f}B params "
-        f"initialised in {time.perf_counter() - t0:.1f}s")
+    params = init_on_card(cfg)
+    paths = {ARCH: serve_model(cfg, params)}
+    del params
 
-    def requests():
-        r = np.random.default_rng(0)
-        return [Request(i, r.integers(0, cfg.vocab_size, size=PROMPT),
-                        max_new_tokens=NEW) for i in range(N_REQ)]
-
-    engine = ServingEngine(cfg, params, BATCH, MAX_SEQ, device=dev)
-    finite = []
-
-    def recorded(step):
-        def run(*args):
-            logits, cache = step(*args)
-            finite.append(torch.isfinite(logits).all())
-            return logits, cache
-        return run
-
-    engine._prefill = recorded(engine._prefill)
-    engine._decode = recorded(engine._decode)
-    for r in requests():
-        engine.submit(r)
-    rmsnorm.launches = 0
-    flash_attention.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = engine.run_batch()
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = {"rmsnorm": rmsnorm.launches, "flash_attention": flash_attention.launches}
-    forwards = len(finite)
-    per_forward = {"rmsnorm": 2 * cfg.n_layers + 1, "flash_attention": cfg.n_layers}
-    log(f"[serve] {len(done)} requests, {forwards} forwards, launches {launches}")
-    assert forwards == (N_REQ // BATCH) * (1 + NEW), forwards
-    assert len(done) == N_REQ
-    assert all(len(r.output) == NEW and all(0 <= x < cfg.vocab_size for x in r.output)
-               for r in done), "bad outputs"
-    assert all(bool(f) for f in finite), "non-finite logits"
-    for name, n in per_forward.items():
-        assert launches[name] == n * forwards, (name, launches[name], n * forwards)
-    log(f"[serve] req 0: {done[0].output}")
-
-    # steady-state serving: a second, uncounted run of the same requests
-    engine.done.clear()
-    for r in requests():
-        engine.submit(r)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    engine.run_batch()
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    prefill, decode = make_prefill_step(cfg), make_serve_step(cfg)
-    tokens = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, size=(BATCH, PROMPT))).to(dev)
-    cache = init_cache(cfg, BATCH, MAX_SEQ, device=dev)
-    prefill_ms = cuda_ms(lambda: prefill(params, {"tokens": tokens}, cache),
-                         iters=5, warmup=1)
-    tok = tokens[:, -1:]
-    step = [PROMPT]
-
-    def one_decode():
-        decode(params, cache, tok, step[0])
-        step[0] += 1
-
-    decode_ms = cuda_ms(one_decode, iters=NEW, warmup=2)
-    serve = {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
-             "tokens_per_s": N_REQ * NEW / serve_s, "serve_s": serve_s,
-             "first_run_s": first_s, "batch": BATCH, "prompt_len": PROMPT,
-             "max_new": NEW, "requests": N_REQ,
-             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    log("[serve] " + json.dumps(serve))
-
-    # where a step's time goes: device busy share and the top kernels
-    def profiled(label, fn):
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kern = device_kernels(prof)
-        busy_ms = sum(a.self_device_time_total for a in kern) / 1e3
-        log(f"[profile] {label}: wall {wall_ms:.3f} ms under the profiler, "
-            f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
-            f"{sum(a.count for a in kern)} kernels")
-        for a in sorted(kern, key=lambda a: -a.self_device_time_total)[:8]:
-            log(f"[profile]   {a.self_device_time_total / 1e3:9.3f} ms {a.count:5d}x "
-                f"{a.key[:90]}")
-
-    profiled("prefill", lambda: prefill(params, {"tokens": tokens}, cache))
-    profiled("decode step", one_decode)
-    del cache
+    # -- 3b. serve full-width jamba, one period of its block ----------------
+    jcfg = dataclasses.replace(hcfg, n_layers=HYBRID_LAYERS)
+    params = init_on_card(
+        jcfg, f"; cut to {HYBRID_LAYERS} of {hcfg.n_layers} layers (one period of the "
+              f"block; all {hcfg.n_layers} are {count_params(hcfg) / 1e9:.2f}B params, "
+              f"{2 * count_params(hcfg) / 1e9:.0f} GB in bf16, over one card's 80 GB)")
+    paths[f"{HYBRID}-{HYBRID_LAYERS}L"] = serve_model(jcfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- 4. times at the serving shapes --------------------------------------
     def rms_times(rows):
@@ -325,8 +480,8 @@ def main() -> int:
                     x, (cfg.d_model,), sc, 1e-6)),
                 "bound_ms": b_ms, "bound_by": b_by}
 
-    def flash_times(Sq, Skv, q_offset, kv_pos, window, library):
-        B, Hq, Hkv, hd = BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    def flash_times(acfg, Sq, Skv, q_offset, kv_pos, window):
+        B, Hq, Hkv, hd = BATCH, acfg.n_heads, acfg.n_kv_heads, acfg.head_dim
         q = t(B, Sq, Hq, hd, dtype=torch.bfloat16)
         k, v = t(B, Skv, Hkv, hd, dtype=torch.bfloat16), t(B, Skv, Hkv, hd, dtype=torch.bfloat16)
         kp = None if kv_pos is None else torch.as_tensor(kv_pos, dtype=torch.int32, device=dev)
@@ -341,36 +496,103 @@ def main() -> int:
         read = int(valid.any(axis=0).sum())
         nbytes = 2 * (2 * q.numel() + 2 * B * Hkv * hd * read) + (4 * Skv if kp is not None else 0)
         b_ms, b_by = bound(nbytes, flops, "bfloat16")
-        kw = dict(causal=True, window=window, softcap=cfg.attn_softcap, q_offset=q_offset)
-        res = {"shape": f"B{B} Sq{Sq} Skv{Skv} Hq{Hq} Hkv{Hkv} hd{hd} bf16 w{window} "
-                        f"cap{cfg.attn_softcap}",
+        cap = acfg.attn_softcap
+        kw = dict(causal=True, window=window, softcap=cap, q_offset=q_offset)
+        res = {"shape": f"B{B} Sq{Sq} Skv{Skv} Hq{Hq} Hkv{Hkv} hd{hd} bf16 w{window} cap{cap}",
                "ms": device_ms(lambda: flash_attention(q, k, v, kv_pos=kp, **kw)),
                "event_ms": cuda_ms(lambda: flash_attention(q, k, v, kv_pos=kp, **kw)),
                "plain_ms": device_ms(lambda: chunked_attention(q, k, v, kv_positions=kp, **kw)),
-               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-        if library:   # SDPA, causal, no softcap: a yardstick only
-            qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-            res["library_ms"] = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+               "bound_ms": b_ms, "bound_by": b_by}
+        # SDPA, a yardstick only, without the softcap: causal at prefill; at
+        # decode a boolean mask from kv_pos (causal and window)
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        if kp is None:
+            res["library_ms"] = device_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True))
+        else:
+            mask = torch.from_numpy(valid).to(dev)[None, None]
+            res["library_ms"] = device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True))
         return res
 
+    def gmm_times(sizes, D, Fo):
+        T, E = sum(sizes), len(sizes)
+        x = td(T, D, dtype=torch.bfloat16)
+        w = td(E, D, Fo, dtype=torch.bfloat16, scale=D ** -0.5)
+        gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        active = sum(1 for s in sizes if s)     # only these panels are read
+        nbytes = 2 * (T * D + active * D * Fo + T * Fo) + 4 * E
+        b_ms, b_by = bound(nbytes, 2 * T * D * Fo, "bfloat16")
+        res = {"shape": f"T{T} D{D} F{Fo} E{E} ({active} groups with rows) bf16",
+               "ms": device_ms(lambda: gmm(x, w, gs)),
+               "event_ms": cuda_ms(lambda: gmm(x, w, gs)),
+               "plain_ms": device_ms(lambda: gmm_ref(x, w, gs)),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        grouped_mm = getattr(torch, "_grouped_mm", None)
+        if grouped_mm is None:
+            res["library_note"] = "torch._grouped_mm absent"
+        else:           # a yardstick only; the port never calls it
+            offs = torch.cumsum(gs, 0, dtype=torch.int32)
+            try:
+                lib = grouped_mm(x, w, offs=offs)
+                res["library_max_abs_diff"] = (lib.float() - gmm(x, w, gs).float()).abs().max().item()
+                res["library_ms"] = device_ms(lambda: grouped_mm(x, w, offs=offs))
+            except RuntimeError as e:
+                res["library_note"] = f"torch._grouped_mm refused: {str(e)[:160]}"
+        return res
+
+    def scan_times(S):
+        di, st = hcfg.ssm_d_inner, hcfg.ssm_d_state
+        args = scan_inputs(BATCH, S, di, st, torch.bfloat16, True)
+        n = BATCH * S * di
+        # u, dt, y (bf16); the b, c slices; A (f32), D; h0, hT (f32)
+        nbytes = 3 * 2 * n + 2 * 2 * BATCH * S * st + 4 * di * st + 2 * di + 2 * 4 * BATCH * di * st
+        # per state: dt*A, exp, the state FMA and product, the y FMA;
+        # per channel: dt*u and the D*u FMA
+        b_ms, b_by = bound(nbytes, n * (7 * st + 3), "float32")
+        return {"shape": f"B{BATCH} S{S} di{di} st{st} bf16",
+                "ms": device_ms(lambda: selective_scan(*args)),
+                "event_ms": cuda_ms(lambda: selective_scan(*args)),
+                "plain_ms": device_ms(lambda: selective_scan_ref(*args),
+                                      iters=5 if S > 1 else 20, warmup=1),
+                "library_ms": None, "library_note": "no PyTorch call computes the scan",
+                "bound_ms": b_ms, "bound_by": b_by}
+
     rms_prefill, rms_decode = rms_times(BATCH * PROMPT), rms_times(BATCH)
-    fa_prefill = flash_times(PROMPT, PROMPT, 0, None, cfg.window, True)
+    fa_prefill = flash_times(cfg, PROMPT, PROMPT, 0, None, cfg.window)
     written = PROMPT + NEW // 2
-    fa_decode = flash_times(1, MAX_SEQ, written - 1,
-                            np.where(np.arange(MAX_SEQ) < written, np.arange(MAX_SEQ), INVALID),
-                            cfg.window, False)
+    half_written = np.where(np.arange(MAX_SEQ) < written, np.arange(MAX_SEQ), INVALID)
+    fa_decode = flash_times(cfg, 1, MAX_SEQ, written - 1, half_written, cfg.window)
+    fa_jamba = {"prefill": flash_times(hcfg, PROMPT, PROMPT, 0, None, 0),
+                "decode": flash_times(hcfg, 1, MAX_SEQ, written - 1, half_written, 0)}
+    d, f = hcfg.d_model, hcfg.expert_d_ff
+    gmm_prefill = gmm_times(jamba_prefill_sizes, d, f)
+    gmm_more = {"prefill_down": gmm_times(jamba_prefill_sizes, f, d),
+                "decode": gmm_times(jamba_decode_sizes, d, f),
+                "decode_down": gmm_times(jamba_decode_sizes, f, d)}
+    scan_prefill, scan_decode = scan_times(PROMPT), scan_times(1)
+
     kernels = []
-    for name, src, replaces, main_t, dec_t in [
+    for name, src, replaces, main_t, dec_t, more in [
             ("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
-             "src/repro/kernels/rmsnorm/rmsnorm.py:22", rms_prefill, rms_decode),
+             "src/repro/kernels/rmsnorm/rmsnorm.py:22", rms_prefill, rms_decode, {}),
             ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention/flash_attention.py:75", fa_prefill, fa_decode)]:
+             "src/repro/kernels/flash_attention/flash_attention.py:75", fa_prefill, fa_decode,
+             {"jamba": fa_jamba}),
+            ("gmm", "src/repro_torch/kernels/csrc/gmm.cu",
+             "src/repro/kernels/gmm/gmm.py:28", gmm_prefill, gmm_more["decode"],
+             {k: v for k, v in gmm_more.items() if k != "decode"}),
+            ("selective_scan", "src/repro_torch/kernels/csrc/selective_scan.cu",
+             "src/repro/kernels/selective_scan/selective_scan.py:51", scan_prefill,
+             scan_decode, {})]:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "launches_per_forward": per_forward[name],
+            "launches": sum(p[0][name] for p in paths.values()),
+            "launches_by_path": {k: p[0][name] for k, p in paths.items()},
+            "launches_per_forward": {k: p[1][name] for k, p in paths.items()},
             "max_abs_err": err[name], **main_t, "kernel_ms": main_t["ms"],
-            "decode": dec_t, "device": smi})
+            "decode": dec_t, **more, "device": smi})
+        assert kernels[-1]["launches"] > 0, f"{name}: no launch on the main paths"
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -46,9 +46,12 @@ class ModelConfig:
     n_experts: int = 0
     top_k: int = 0
     moe_d_ff: int = 0                # expert hidden size (0 -> d_ff)
+    router_aux_coef: float = 0.01
 
     # SSM (mamba)
     ssm_d_state: int = 16
+    ssm_conv: int = 4
+    ssm_expand: int = 2
     ssm_dt_rank: int = 0             # 0 -> ceil(d_model / 16)
 
     # encoder (enc-dec families)
@@ -80,6 +83,14 @@ class ModelConfig:
     @property
     def n_repeat(self) -> int:
         return self.n_layers // len(self.pattern)
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        return self.ssm_dt_rank or -(-self.d_model // 16)
 
     @property
     def expert_d_ff(self) -> int:

@@ -45,6 +45,14 @@ SIGNATURES = {
         _LL, _LL, _LL,                      # k strides
         _LL, _LL, _LL,                      # v strides
         _I, _I, _I, _F, _I, _P],            # q_offset, causal, window, softcap, dtype, stream
+    "selective_scan_launch": [
+        _P, _P, _P, _P, _P, _P, _P,         # u, dt, A, b, c, d_skip, h0
+        _P, _P,                             # y, hT
+        _I, _I, _I, _I,                     # B, S, di, st
+        _LL, _LL, _LL, _LL,                 # b strides (batch, seq), c strides
+        _I, _P],                            # dtype, stream
+    "gmm_launch": [_P, _P, _P, _P,          # x, w, group_sizes, out
+                   _I, _I, _I, _I, _I, _P],  # T, D, F, E, dtype, stream
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,8 @@
 """Model assembly: embed -> n_repeat x pattern of blocks -> final norm (+ logits).
 
-Port of the attention/MLP path of ``repro/models/model.py``. A Python loop
-over the ``n_repeat`` stacked layers takes the place of ``lax.scan``.
+Port of ``repro/models/model.py`` for the attention, mamba, MLP and MoE
+blocks. A Python loop over the ``n_repeat`` stacked layers takes the place
+of ``lax.scan``.
 Modes: 'train' (full sequence, no cache), 'prefill' (full sequence, fills
 the cache), 'decode' (one token against the cache).
 """
@@ -14,6 +15,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import attn_block, mlp_block, norm
+from repro_torch.models.moe import moe_block
+from repro_torch.models.ssm import mamba_block
 
 INVALID_POS = 2 ** 30       # kpos of a cache slot that holds no key
 
@@ -40,22 +43,33 @@ def logits_fn(cfg: ModelConfig, params, hidden):
     return logits
 
 
+def _layer(stack: dict, r: int) -> dict:
+    """Layer ``r`` of a block's weights or cache, stacked over n_repeat."""
+    return {n: t[r] for n, t in stack.items()}
+
+
 def forward(cfg: ModelConfig, params, batch: dict, *, mode: str = "train",
             pos: int = 0, cache=None):
-    """Returns (hidden (B, S, D), cache); the cache is updated in place."""
+    """Returns (hidden (B, S, D), cache); the cache is updated in place.
+    The MoE aux loss is dropped: the port serves, it does not train yet."""
     x = embed_tokens(cfg, params, batch["tokens"])
     dec = params["dec"]
     for r in range(cfg.n_repeat):
         for i, (mixer, ffn) in enumerate(cfg.pattern):
             key = f"b{i}_{mixer}"
-            if not mixer.startswith("attn"):
+            p = _layer(dec[key], r)
+            c = None if cache is None else _layer(cache[key], r)
+            if mixer.startswith("attn"):
+                x = attn_block(cfg, p, x, mode=mode, pos=pos, cache=c,
+                               window=_mixer_window(cfg, mixer))
+            elif mixer == "mamba":
+                x = mamba_block(cfg, p, x, mode=mode, cache=c)
+            else:
                 raise NotImplementedError(f"mixer {mixer!r} is not ported")
-            p = {n: t[r] for n, t in dec[key].items()}
-            c = None if cache is None else {n: t[r] for n, t in cache[key].items()}
-            x = attn_block(cfg, p, x, mode=mode, pos=pos, cache=c,
-                           window=_mixer_window(cfg, mixer))
             if ffn == "mlp":
-                x = mlp_block(cfg, {n: t[r] for n, t in dec[f"b{i}_mlp"].items()}, x)
+                x = mlp_block(cfg, _layer(dec[f"b{i}_mlp"], r), x)
+            elif ffn == "moe":
+                x, _ = moe_block(cfg, _layer(dec[f"b{i}_moe"], r), x)
             elif ffn:
                 raise NotImplementedError(f"ffn {ffn!r} is not ported")
     return x, cache
@@ -63,18 +77,27 @@ def forward(cfg: ModelConfig, params, batch: dict, *, mode: str = "train",
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *,
                device="cuda"):
-    """Zero K/V and invalid kpos for every attention block, stacked over n_repeat."""
+    """Zero K/V and invalid kpos for every attention block, zero conv window
+    and f32 SSM state for every mamba block, stacked over n_repeat."""
     dev = resolve_device(device)
     R, B = cfg.n_repeat, batch_size
     dt = getattr(torch, cfg.dtype)
     cache = {}
     for i, (mixer, _) in enumerate(cfg.pattern):
-        if not mixer.startswith("attn"):
+        if mixer.startswith("attn"):
+            w = _mixer_window(cfg, mixer)
+            L = min(max_seq, w) if w else max_seq
+            ent = {
+                "k": torch.zeros((R, B, L, cfg.n_kv_heads, cfg.head_dim), dtype=dt, device=dev),
+                "v": torch.zeros((R, B, L, cfg.n_kv_heads, cfg.head_dim), dtype=dt, device=dev),
+                "kpos": torch.full((R, L), INVALID_POS, dtype=torch.int32, device=dev)}
+        elif mixer == "mamba":
+            di = cfg.ssm_d_inner
+            ent = {
+                "conv": torch.zeros((R, B, cfg.ssm_conv - 1, di), dtype=dt, device=dev),
+                "ssm": torch.zeros((R, B, di, cfg.ssm_d_state), dtype=torch.float32,
+                                   device=dev)}
+        else:
             raise NotImplementedError(f"mixer {mixer!r} is not ported")
-        w = _mixer_window(cfg, mixer)
-        L = min(max_seq, w) if w else max_seq
-        cache[f"b{i}_{mixer}"] = {
-            "k": torch.zeros((R, B, L, cfg.n_kv_heads, cfg.head_dim), dtype=dt, device=dev),
-            "v": torch.zeros((R, B, L, cfg.n_kv_heads, cfg.head_dim), dtype=dt, device=dev),
-            "kpos": torch.full((R, L), INVALID_POS, dtype=torch.int32, device=dev)}
+        cache[f"b{i}_{mixer}"] = ent
     return cache

@@ -1,10 +1,11 @@
-"""Parameter schema and init for the attention/MLP models.
+"""Parameter schema and init for the attention, mamba, MLP and MoE blocks.
 
-Port of the attn/mlp part of ``repro/models/schema.py``: a model is a nested
-dict of ``ParamDef`` leaves, with per-layer weights stacked on a leading
-``n_repeat`` axis. ``init_params`` draws them with the reference's shapes and
-scales (normal x 1/sqrt(fan_in), embedding scale 1.0, norm scales ones) from
-a ``torch.Generator``; the numbers differ from ``jax.random``'s. The weights
+Port of the attn/mamba/mlp/moe part of ``repro/models/schema.py``: a model
+is a nested dict of ``ParamDef`` leaves, with per-layer weights stacked on a
+leading ``n_repeat`` axis. ``init_params`` draws them with the reference's
+shapes and scales (normal x 1/sqrt(fan_in), embedding scale 1.0, norm scales
+ones, mamba's A and dt-bias inits) from a ``torch.Generator``; the random
+numbers differ from ``jax.random``'s. The weights
 live in ``ModelParams``, an ``nn.Module`` that keeps the reference's
 nested-dict layout, so weights carry across as a rename
 (``models/convert.py``).
@@ -24,7 +25,7 @@ from repro_torch.device import resolve_device
 @dataclass(frozen=True)
 class ParamDef:
     shape: tuple
-    init: str = "normal"       # normal | zeros | ones
+    init: str = "normal"       # normal | zeros | ones | ssm_a | ssm_dt
     scale: float = 0.0         # 0 -> 1/sqrt(fan_in)
 
 
@@ -82,6 +83,39 @@ def mlp_schema(cfg: ModelConfig, dims: Dims) -> dict:
     return sch
 
 
+def moe_schema(cfg: ModelConfig, dims: Dims) -> dict:
+    d, f, e = cfg.d_model, cfg.expert_d_ff, cfg.n_experts
+    sch = {
+        "router": ParamDef((d, e)),
+        "we_up": ParamDef((e, d, f)),
+        "we_down": ParamDef((e, f, d)),
+    }
+    if cfg.act == "silu":
+        sch["we_gate"] = ParamDef((e, d, f))
+    sch.update(_norm_schema(cfg))
+    return sch
+
+
+def mamba_schema(cfg: ModelConfig, dims: Dims) -> dict:
+    d, di, st, dtr = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_d_state, cfg.dt_rank
+    sch = {
+        "in_proj": ParamDef((d, 2 * di)),
+        "conv_w": ParamDef((cfg.ssm_conv, di)),
+        "conv_b": ParamDef((di,), "zeros"),
+        "x_proj": ParamDef((di, dtr + 2 * st)),
+        "dt_proj": ParamDef((dtr, di)),
+        "dt_bias": ParamDef((di,), "ssm_dt"),
+        "a_log": ParamDef((di, st), "ssm_a"),
+        "d_skip": ParamDef((di,), "ones"),
+        "out_proj": ParamDef((di, d)),
+    }
+    sch.update(_norm_schema(cfg))
+    return sch
+
+
+_FFN_SCHEMAS = {"mlp": mlp_schema, "moe": moe_schema}
+
+
 def _stack(sch: dict, n: int) -> dict:
     return {k: ParamDef((n,) + v.shape, v.init, v.scale) for k, v in sch.items()}
 
@@ -97,11 +131,15 @@ def model_schema(cfg: ModelConfig) -> dict:
     sch.update({f"final_{k}": v for k, v in _norm_schema(cfg).items()})
     dec: dict = {}
     for i, (mixer, ffn) in enumerate(cfg.pattern):
-        if not mixer.startswith("attn"):
+        if mixer.startswith("attn"):
+            mixer_sch = attn_schema(cfg, dims)
+        elif mixer == "mamba":
+            mixer_sch = mamba_schema(cfg, dims)
+        else:
             raise NotImplementedError(f"mixer {mixer!r} is not ported")
-        dec[f"b{i}_{mixer}"] = _stack(attn_schema(cfg, dims), cfg.n_repeat)
-        if ffn == "mlp":
-            dec[f"b{i}_{ffn}"] = _stack(mlp_schema(cfg, dims), cfg.n_repeat)
+        dec[f"b{i}_{mixer}"] = _stack(mixer_sch, cfg.n_repeat)
+        if ffn in _FFN_SCHEMAS:
+            dec[f"b{i}_{ffn}"] = _stack(_FFN_SCHEMAS[ffn](cfg, dims), cfg.n_repeat)
         elif ffn:
             raise NotImplementedError(f"ffn {ffn!r} is not ported")
     sch["dec"] = dec
@@ -151,6 +189,12 @@ def _init_leaf(d: ParamDef, generator: torch.Generator, device, dtype):
         return torch.zeros(d.shape, dtype=dtype, device=device)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=dtype, device=device)
+    if d.init == "ssm_a":
+        # mamba: A = -exp(a_log), a_log = log(1..d_state) broadcast
+        a = torch.log(torch.arange(1, d.shape[-1] + 1, dtype=torch.float32, device=device))
+        return torch.empty(d.shape, dtype=dtype, device=device).copy_(a)
+    if d.init == "ssm_dt":
+        return torch.full(d.shape, math.log(math.e - 1), dtype=dtype, device=device)  # softplus^-1(1)
     scale = d.scale or 1.0 / math.sqrt(max(d.shape[0] if len(d.shape) == 1
                                            else d.shape[-2], 1))
     x = torch.randn(d.shape, generator=generator, device=device)

@@ -11,14 +11,23 @@ torch.set_num_threads(1)
 
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import chunked_attention  # noqa: E402
+from repro_torch.kernels.gmm.ops import gmm  # noqa: E402
+from repro_torch.kernels.gmm.ref import gmm_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
+from repro_torch.kernels.selective_scan.ops import selective_scan  # noqa: E402
+from repro_torch.kernels.selective_scan.ref import selective_scan_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
 # kernel vs plain on the card: f32 sum order; bf16 output rounding
 RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# gmm: f32 sum order over D; bf16: the output is rounded once on both sides,
+# so they may differ by one bf16 ulp of the value (2**-7 relative)
+GMM_TOL = {torch.float32: (2e-4, 0.0), torch.bfloat16: (1e-2, 2 ** -7)}
+# selective scan: f32 sum order over d_state and expf; bf16 as gmm
+SCAN_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-2, 2 ** -7)}
 
 
 @pytest.fixture
@@ -89,3 +98,58 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     ref = chunked_attention(q, k, v, kv_positions=kpos, **kw)
     np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
                                atol=FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("sizes,D,F", [
+    ([30, 0, 17, 40, 13], 32, 48), ([4, 4, 4, 4], 16, 16), ([128], 64, 32),
+    ([0, 0, 50], 32, 64),                       # tests/test_kernels.py's cases
+    ([0, 3, 0, 5], 4096, 200),                  # decode-like: few rows, long K
+    ([70, 0, 129, 1], 100, 130),                # D, F off the tile and the vector width
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_kernel_matches_plain(cuda, sizes, D, F, dtype):
+    rng = np.random.default_rng(3)
+    x = _t(rng, (sum(sizes) + 5, D), dtype, cuda)        # 5 rows past the groups
+    w = (_t(rng, (len(sizes), D, F), torch.float32, cuda) / D ** 0.5).to(dtype)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    before = gmm.launches
+    out = gmm(x, w, gs)
+    torch.cuda.synchronize()
+    assert gmm.launches == before + 1 and out.dtype == dtype
+    ref = gmm_ref(x, w, gs)
+    atol, rtol = GMM_TOL[dtype]
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               atol=atol, rtol=rtol)
+    assert not out[sum(sizes):].any()
+
+
+@pytest.mark.parametrize("B,S,di,st", [(1, 64, 32, 4), (2, 128, 64, 8), (1, 32, 16, 16),
+                                       (2, 1, 300, 16), (3, 77, 130, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_kernel_matches_plain(cuda, B, S, di, st, dtype):
+    rng = np.random.default_rng(4)
+    u = _t(rng, (B, S, di), dtype, cuda)
+    dt = (_t(rng, (B, S, di), torch.float32, cuda).abs() * 0.1 + 0.01).to(dtype)
+    a = -_t(rng, (di, st), torch.float32, cuda).abs()
+    bc = _t(rng, (B, S, 2 * st + 3), dtype, cuda)       # b, c strided, as the model slices them
+    b, c = bc[..., :st], bc[..., st + 3:]
+    d = _t(rng, (di,), dtype, cuda)
+    h0 = _t(rng, (B, di, st), torch.float32, cuda) * 0.2
+    before = selective_scan.launches
+    y, hT = selective_scan(u, dt, a, b, c, d, h0)
+    torch.cuda.synchronize()
+    assert selective_scan.launches == before + 1
+    assert y.dtype == dtype and hT.dtype == torch.float32
+    ry, rh = selective_scan_ref(u, dt, a, b, c, d, h0)
+    atol, rtol = SCAN_TOL[dtype]
+    np.testing.assert_allclose(y.float().cpu().numpy(), ry.float().cpu().numpy(),
+                               atol=atol, rtol=rtol)
+    np.testing.assert_allclose(hT.cpu().numpy(), rh.cpu().numpy(), atol=2e-5)
+
+
+def test_selective_scan_kernel_refuses_a_large_state(cuda):
+    u = torch.zeros((1, 2, 8), device=cuda)
+    with pytest.raises(ValueError, match="d_state"):
+        selective_scan(u, u, torch.zeros((8, 17), device=cuda), torch.zeros((1, 2, 17), device=cuda),
+                       torch.zeros((1, 2, 17), device=cuda), torch.zeros(8, device=cuda),
+                       torch.zeros((1, 8, 17), device=cuda))

@@ -56,7 +56,9 @@ def test_config_copy_matches_reference():
     jcfg, cfg = jax_get_config(ARCH), get_config(ARCH)
     for name in ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff",
                  "vocab_size", "pattern", "window", "attn_softcap", "final_softcap",
-                 "scale_embed", "act", "norm", "dtype", "n_repeat"):
+                 "scale_embed", "act", "norm", "dtype", "n_repeat", "n_experts",
+                 "top_k", "expert_d_ff", "router_aux_coef", "ssm_d_state", "ssm_conv",
+                 "ssm_expand", "ssm_d_inner", "dt_rank"):
         assert getattr(cfg, name) == getattr(jcfg, name), name
         assert getattr(cfg.reduced(), name) == getattr(jcfg.reduced(), name), name
     assert count_params(cfg) == jax_schema.count_params(jcfg)
