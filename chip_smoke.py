@@ -23,11 +23,14 @@ Phases, each of which passes or ends the script with a non-zero exit:
      block: 7 mamba, 1 attention, 4 MoE, 4 MLP layers; bf16, seed-0
      weights), gemma2-2b freed first, with the same requests. Launch counts
      per forward come from the pattern: RMSNorm 17, flash 1, selective scan
-     7, grouped matmul 12. The same timings, profile and sync check;
+     7, grouped matmul 12. The same timings, profile and sync check; then
+     the group sizes each MoE layer routes in one prefill and decode step;
   4. times at the serving shapes, after warm-up: each kernel's, its plain
      version's and the library call's device time per call (the summed
      kernel time under the profiler), the kernel's CUDA-event time per call
      of back-to-back launches (host launch cost included), and its bound.
+     Grouped matmul is timed at the served model's routing (first MoE
+     layer), and checked against its plain version there too.
 The last two lines are the kernels' JSON line and the result line.
 """
 from __future__ import annotations
@@ -192,7 +195,10 @@ def main() -> int:
         assert ok, f"{name} {label}: {e} > {tol} (+ {rtol}*|ref|)"
         err[name] = max(err[name], e)
 
-    for shape in [(2048, 2304), (4, 2304), (3, 77, 2304)]:
+    hcfg = get_config(HYBRID)
+    # gemma2-2b's width, then jamba's at its prefill and decode rows
+    for shape in [(2048, 2304), (4, 2304), (3, 77, 2304),
+                  (BATCH * PROMPT, hcfg.d_model), (BATCH, hcfg.d_model)]:
         for dt in (torch.bfloat16, torch.float32):
             x = t(*shape, dtype=dt)
             sc = (t(shape[-1]) + 1.0).to(dt)
@@ -254,7 +260,6 @@ def main() -> int:
         flash_case(f"jamba decode Sq1 L1024 half-invalid {dt}", 4, 32, 8, 1, 1024,
                    128, True, 0, 0.0, dt, 511, half)
 
-    hcfg = get_config(HYBRID)
     # gmm: f32 sums over D in another order; bf16 output rounded once on both
     # sides, so the two may differ by one bf16 ulp of the value (2**-7 rel.)
     gmm_tol = {torch.float32: (2e-4, 0.0), torch.bfloat16: (1e-2, 2 ** -7)}
@@ -281,7 +286,7 @@ def main() -> int:
             gmm_case(f"jamba {tag} down T{sum(sizes)} {f}->{d}", sizes, f, d, dt, f ** -0.5)
 
     # selective scan: f32 sums over d_state in another order; bf16 as gmm
-    scan_tol = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (1e-2, 2 ** -7)}
+    scan_tol = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-2, 2 ** -7)}
 
     def scan_inputs(B, S, di, st, dt, model_like):
         """The JAX test's distributions, or the mamba block's: A = -(1..st)
@@ -450,6 +455,37 @@ def main() -> int:
             f"initialised in {time.perf_counter() - t0:.1f}s{note}")
         return params
 
+    def routed_sizes(cfg, params):
+        """The group sizes the served model routes, per MoE layer, in one
+        prefill of the first batch of prompts and the decode step after it:
+        the traffic phase 4 times gmm at. Run after the counted serve."""
+        from repro_torch.models import moe
+        seen = []
+
+        def recording(x, w, group_sizes):
+            seen.append(group_sizes.tolist())
+            return gmm(x, w, group_sizes)
+
+        prefill, decode = make_prefill_step(cfg), make_serve_step(cfg)
+        r = np.random.default_rng(0)
+        tokens = torch.from_numpy(np.stack([r.integers(0, cfg.vocab_size, size=PROMPT)
+                                            for _ in range(BATCH)])).to(dev)
+        cache = init_cache(cfg, BATCH, MAX_SEQ, device=dev)
+        moe.gmm = recording
+        try:
+            logits, cache = prefill(params, {"tokens": tokens}, cache)
+            n_prefill = len(seen)
+            decode(params, cache, logits.argmax(-1)[:, None], PROMPT)
+        finally:
+            moe.gmm = gmm
+        # three calls per MoE layer share its sizes: keep the first of each
+        sizes = {"prefill": seen[:n_prefill:3], "decode": seen[n_prefill::3]}
+        for step, per_layer in sizes.items():
+            for i, s in enumerate(per_layer):
+                log(f"[routing] {cfg.name} {step} MoE layer {i}: "
+                    f"{sum(1 for n in s if n)} of {len(s)} experts get rows, sizes {s}")
+        return {step: per_layer[0] for step, per_layer in sizes.items()}
+
     cfg = get_config(ARCH)
     params = init_on_card(cfg)
     paths = {ARCH: serve_model(cfg, params)}
@@ -462,22 +498,23 @@ def main() -> int:
               f"block; all {hcfg.n_layers} are {count_params(hcfg) / 1e9:.2f}B params, "
               f"{2 * count_params(hcfg) / 1e9:.0f} GB in bf16, over one card's 80 GB)")
     paths[f"{HYBRID}-{HYBRID_LAYERS}L"] = serve_model(jcfg, params)
+    routed = routed_sizes(jcfg, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
 
     # -- 4. times at the serving shapes --------------------------------------
-    def rms_times(rows):
-        x = t(rows, cfg.d_model, dtype=torch.bfloat16)
-        sc = (t(cfg.d_model) + 1.0).to(torch.bfloat16)
+    def rms_times(rows, D):
+        x = t(rows, D, dtype=torch.bfloat16)
+        sc = (t(D) + 1.0).to(torch.bfloat16)
         nbytes = 2 * x.numel() * 2 + sc.numel() * 2
         b_ms, b_by = bound(nbytes, 4 * x.numel(), "bfloat16")
-        return {"shape": f"({rows}, {cfg.d_model}) bf16",
+        return {"shape": f"({rows}, {D}) bf16",
                 "ms": device_ms(lambda: rmsnorm(x, sc)),
                 "event_ms": cuda_ms(lambda: rmsnorm(x, sc)),
                 "plain_ms": device_ms(lambda: rmsnorm_ref(x, sc)),
                 "library_ms": device_ms(lambda: torch.nn.functional.rms_norm(
-                    x, (cfg.d_model,), sc, 1e-6)),
+                    x, (D,), sc, 1e-6)),
                 "bound_ms": b_ms, "bound_by": b_by}
 
     def flash_times(acfg, Sq, Skv, q_offset, kv_pos, window):
@@ -520,26 +557,22 @@ def main() -> int:
         x = td(T, D, dtype=torch.bfloat16)
         w = td(E, D, Fo, dtype=torch.bfloat16, scale=D ** -0.5)
         gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        check("gmm", f"served routing T{T} {D}->{Fo} bf16", gmm(x, w, gs),
+              gmm_ref(x, w, gs), *gmm_tol[torch.bfloat16])
         active = sum(1 for s in sizes if s)     # only these panels are read
         nbytes = 2 * (T * D + active * D * Fo + T * Fo) + 4 * E
         b_ms, b_by = bound(nbytes, 2 * T * D * Fo, "bfloat16")
-        res = {"shape": f"T{T} D{D} F{Fo} E{E} ({active} groups with rows) bf16",
-               "ms": device_ms(lambda: gmm(x, w, gs)),
-               "event_ms": cuda_ms(lambda: gmm(x, w, gs)),
-               "plain_ms": device_ms(lambda: gmm_ref(x, w, gs)),
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-        grouped_mm = getattr(torch, "_grouped_mm", None)
-        if grouped_mm is None:
-            res["library_note"] = "torch._grouped_mm absent"
-        else:           # a yardstick only; the port never calls it
-            offs = torch.cumsum(gs, 0, dtype=torch.int32)
-            try:
-                lib = grouped_mm(x, w, offs=offs)
-                res["library_max_abs_diff"] = (lib.float() - gmm(x, w, gs).float()).abs().max().item()
-                res["library_ms"] = device_ms(lambda: grouped_mm(x, w, offs=offs))
-            except RuntimeError as e:
-                res["library_note"] = f"torch._grouped_mm refused: {str(e)[:160]}"
-        return res
+        # torch._grouped_mm is a yardstick only; the port never calls it
+        offs = torch.cumsum(gs, 0, dtype=torch.int32)
+        lib = torch._grouped_mm(x, w, offs=offs)
+        return {"shape": f"T{T} D{D} F{Fo} E{E} ({active} groups with rows, "
+                         f"served routing) bf16",
+                "ms": device_ms(lambda: gmm(x, w, gs)),
+                "event_ms": cuda_ms(lambda: gmm(x, w, gs)),
+                "plain_ms": device_ms(lambda: gmm_ref(x, w, gs)),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": device_ms(lambda: torch._grouped_mm(x, w, offs=offs)),
+                "library_max_abs_diff": (lib.float() - gmm(x, w, gs).float()).abs().max().item()}
 
     def scan_times(S):
         di, st = hcfg.ssm_d_inner, hcfg.ssm_d_state
@@ -558,7 +591,9 @@ def main() -> int:
                 "library_ms": None, "library_note": "no PyTorch call computes the scan",
                 "bound_ms": b_ms, "bound_by": b_by}
 
-    rms_prefill, rms_decode = rms_times(BATCH * PROMPT), rms_times(BATCH)
+    rms_prefill, rms_decode = rms_times(BATCH * PROMPT, cfg.d_model), rms_times(BATCH, cfg.d_model)
+    rms_jamba = {"prefill": rms_times(BATCH * PROMPT, hcfg.d_model),
+                 "decode": rms_times(BATCH, hcfg.d_model)}
     fa_prefill = flash_times(cfg, PROMPT, PROMPT, 0, None, cfg.window)
     written = PROMPT + NEW // 2
     half_written = np.where(np.arange(MAX_SEQ) < written, np.arange(MAX_SEQ), INVALID)
@@ -566,16 +601,17 @@ def main() -> int:
     fa_jamba = {"prefill": flash_times(hcfg, PROMPT, PROMPT, 0, None, 0),
                 "decode": flash_times(hcfg, 1, MAX_SEQ, written - 1, half_written, 0)}
     d, f = hcfg.d_model, hcfg.expert_d_ff
-    gmm_prefill = gmm_times(jamba_prefill_sizes, d, f)
-    gmm_more = {"prefill_down": gmm_times(jamba_prefill_sizes, f, d),
-                "decode": gmm_times(jamba_decode_sizes, d, f),
-                "decode_down": gmm_times(jamba_decode_sizes, f, d)}
+    gmm_prefill = gmm_times(routed["prefill"], d, f)
+    gmm_more = {"prefill_down": gmm_times(routed["prefill"], f, d),
+                "decode": gmm_times(routed["decode"], d, f),
+                "decode_down": gmm_times(routed["decode"], f, d)}
     scan_prefill, scan_decode = scan_times(PROMPT), scan_times(1)
 
     kernels = []
     for name, src, replaces, main_t, dec_t, more in [
             ("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
-             "src/repro/kernels/rmsnorm/rmsnorm.py:22", rms_prefill, rms_decode, {}),
+             "src/repro/kernels/rmsnorm/rmsnorm.py:22", rms_prefill, rms_decode,
+             {"jamba": rms_jamba}),
             ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/flash_attention.py:75", fa_prefill, fa_decode,
              {"jamba": fa_jamba}),
