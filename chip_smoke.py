@@ -6,29 +6,39 @@
 Phases, each of which passes or ends the script with a non-zero exit:
   0. device: a CUDA card must be present; prints its name and power limit;
   1. build: compiles the port's CUDA kernels from the repository's sources;
+     prints ``ptxas -v``'s registers and spills, and the dynamic shared
+     memory, of every flash-attention kernel;
   2. kernels vs plain versions on the card, on seeded inputs, each case
      printed with its max abs error and tolerance (RMSNorm and flash
      attention at gemma2-2b's and jamba's shapes, grouped matmul and
-     selective scan at the JAX tests' and jamba's shapes); plus a reduced
+     selective scan at the JAX tests' and jamba's shapes). Flash in bf16
+     runs on the split-KV kernel (Sq x G <= 16) or the tensor-core kernel,
+     each case asserting which one served it: every head dim, ragged
+     tiles, rings mostly unwritten, wrapped with a window, and both sides
+     of the Sq x G = 16 edge; f32 runs on the FMA kernel. Plus a reduced
      gemma2-2b and a reduced hybrid (jamba's 8-block pattern) served on the
      card (kernels) and on the CPU (plain path), which must agree;
   3. serve: full-width gemma2-2b (26 layers, bf16, seed-0 weights) through
      ``ServingEngine``: 8 requests, batch 4, prompt 512, 16 new tokens,
      max_seq 1024. Every RMSNorm and attention must have gone through the
-     kernels (launch counts 53 and 26 per forward);
+     kernels (launch counts 53 and 26 per forward), attention on the
+     tensor-core kernel at prefill and the split-KV kernel at decode (26
+     each per forward);
      Prints prefill ms, decode ms per step and tokens/s, and a profile of
      one prefill and one decode step (device busy share, top kernels),
      and one decode step under ``torch.cuda.set_sync_debug_mode("error")``;
   3b. serve: full-width jamba-v0.1-52b cut to 8 layers (one period of its
      block: 7 mamba, 1 attention, 4 MoE, 4 MLP layers; bf16, seed-0
      weights), gemma2-2b freed first, with the same requests. Launch counts
-     per forward come from the pattern: RMSNorm 17, flash 1, selective scan
-     7, grouped matmul 12. The same timings, profile and sync check; then
+     per forward come from the pattern: RMSNorm 17, flash 1 (tensor-core at
+     prefill, split-KV at decode), selective scan 7, grouped matmul 12. The
+     same timings, profile and sync check; then
      the group sizes each MoE layer routes in one prefill and decode step;
   4. times at the serving shapes, after warm-up: each kernel's, its plain
      version's and the library call's device time per call (the summed
      kernel time under the profiler), the kernel's CUDA-event time per call
      of back-to-back launches (host launch cost included), and its bound.
+     A split-KV call's device time sums its split and combine kernels.
      Grouped matmul is timed at the served model's routing (first MoE
      layer), and checked against its plain version there too.
 The last two lines are the kernels' JSON line and the result line.
@@ -40,6 +50,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -78,28 +89,47 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_kernels(prof):
+def device_kernels(prof, required=True):
     """The profiler's device-side events (kernels, copies, sets)."""
     from torch.autograd import DeviceType
     kern = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
-    assert kern, "the profiler saw no device time"
+    assert kern or not required, "the profiler saw no device time"
     return kern
 
 
-def device_ms(fn, iters=20, warmup=3):
-    """Device time per call: the summed time of the kernels ``fn`` launches,
-    without the host's launch gaps (which CUDA events around back-to-back
-    launches of a small kernel would measure instead)."""
+def device_ms_by_kernel(fn, iters=20, warmup=3, sessions=3):
+    """Device time per call of each kernel ``fn`` launches, {name: ms}, from
+    the profiler's kernel events: without the host's launch gaps (which CUDA
+    events around back-to-back launches of a small kernel would measure).
+    A profiler session now and then records no device event at all (seen on
+    an H100): such a session is repeated, up to ``sessions`` in all, and if
+    every one is empty the run fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for session in range(sessions):
         torch.cuda.synchronize()
-    return sum(a.self_device_time_total for a in device_kernels(prof)) / 1e3 / iters
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kern = device_kernels(prof, required=session == sessions - 1)
+        if kern:
+            break
+        log(f"[profile] session {session + 1} of {sessions} recorded no device event; again")
+    out = {}
+    for a in kern:
+        # "void (anonymous namespace)::flash_split_kernel<256>(...)" -> "flash_split_kernel<256>"
+        name = a.key.replace("void ", "").replace("(anonymous namespace)::", "")
+        name = name.split("(")[0][:60]
+        out[name] = out.get(name, 0.0) + a.self_device_time_total / 1e3 / iters
+    return out
+
+
+def device_ms(fn, iters=20, warmup=3):
+    """Device time per call: the summed time of the kernels ``fn`` launches."""
+    return sum(device_ms_by_kernel(fn, iters, warmup).values())
 
 
 def bound(nbytes, flops, dtype):
@@ -117,6 +147,35 @@ def per_forward(cfg):
             "flash_attention": R * sum(m.startswith("attn") for m, _ in pat),
             "selective_scan": R * sum(m == "mamba" for m, _ in pat),
             "gmm": 3 * R * sum(ffn == "moe" for _, ffn in pat)}
+
+
+def flash_resources(build_log, lib, head_dims):
+    """Registers and spills (``ptxas -v`` in the build log) of every
+    flash-attention kernel, and each bf16 kernel's dynamic shared memory."""
+    res, name = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([^'\s]+)", line)
+        if m:
+            raw = m.group(1)
+            t = re.search(r"\d+(flash\w*?_kernel)(?:I(.*?)EE)?", raw)
+            name = None if t is None else t.group(1) + (
+                "<" + t.group(2).replace("Li", ",").replace("f,", "float,").strip(",") + ">"
+                if t.group(2) else "")
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            res.setdefault(name, {})["spill_bytes"] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            res.setdefault(name, {})["registers"] = int(m.group(1))
+    for hd in head_dims:
+        # one ring stage when each split has one tile, two otherwise
+        res.setdefault(f"flash_split_kernel<{hd}>", {})["smem_bytes_1_2_stages"] = [
+            lib.flash_split_kv_smem(hd, 1), lib.flash_split_kv_smem(hd, 2)]
+        res.setdefault(f"flash_prefill_kernel<{hd}>", {})["smem_bytes"] = lib.flash_prefill_smem(hd)
+    return res
 
 
 def skewed_sizes(total, E, empty):
@@ -139,6 +198,7 @@ def main() -> int:
 
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS, kernel_for
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import chunked_attention
     from repro_torch.kernels.gmm.ops import gmm
@@ -161,15 +221,18 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(smi)
     dev = torch.device("cuda")
-    kind = torch.cuda.get_device_name(0)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
+    device_name = torch.cuda.get_device_name(0)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {device_name}")
     torch.backends.cuda.matmul.allow_tf32 = False
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    _build.load_library()
+    lib = _build.load_library()
     log(f"[build] kernels ready in {time.perf_counter() - t0:.1f}s "
         f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'})")
+    flash_res = flash_resources(_build.build_log(), lib, HEAD_DIMS)
+    for name, r in sorted(flash_res.items()):
+        log(f"[build] {name}: {json.dumps(r)}")
 
     # -- 2. kernels vs plain versions ----------------------------------------
     rng = np.random.default_rng(0)
@@ -209,18 +272,34 @@ def main() -> int:
     sc = (t(2304) + 1.0).to(torch.bfloat16)
     check("rmsnorm", "(4, 512, 2304)[:, -1:] bf16", rmsnorm(x, sc), rmsnorm_ref(x, sc), 5e-2)
 
+    def flash_counts():
+        return {"split_kv": flash_attention.launches_split_kv,
+                "tensor_core": flash_attention.launches_tensor_core}
+
     def flash_case(label, B, Hq, Hkv, Sq, Skv, hd, causal, window, cap, dt,
                    q_offset, kv_pos=None):
         q, k, v = t(B, Sq, Hq, hd, dtype=dt), t(B, Skv, Hkv, hd, dtype=dt), \
             t(B, Skv, Hkv, hd, dtype=dt)
         kp = None if kv_pos is None else torch.as_tensor(kv_pos, dtype=torch.int32,
                                                          device=dev)
+        kind, before = kernel_for(dt, Sq, Hq, Hkv), flash_counts()
         out = flash_attention(q, k, v, causal=causal, window=window, softcap=cap,
                               q_offset=q_offset, kv_pos=kp)
+        moved = {n: c - before[n] for n, c in flash_counts().items()}
+        assert moved == {n: int(n == kind) for n in moved}, (label, kind, moved)
         ref = chunked_attention(q, k, v, causal=causal, window=window, softcap=cap,
                                 q_offset=q_offset, kv_positions=kp)
-        check("flash_attention", label, out, ref,
+        check("flash_attention", f"[{kind}] {label}", out, ref,
               2e-2 if dt == torch.bfloat16 else 1e-4)
+
+    def ring_pos(L, pos, written=None):
+        """Slot positions of a ring of L slots holding positions <= pos (p at
+        p % L), or only the first ``written``; unwritten slots hold 2**30."""
+        ring = np.full(L, INVALID, np.int64)
+        for p in range(0 if written is not None else max(0, pos - L + 1),
+                       (written - 1 if written is not None else pos) + 1):
+            ring[p % L] = p
+        return ring
 
     # the case list of tests/test_kernels.py (FLASH_CASES)
     for (B, Hq, Hkv, Sq, Skv, hd, causal, window, cap, dt) in [
@@ -240,25 +319,42 @@ def main() -> int:
             flash_case(f"prefill B4 S512 Hq8 Hkv4 hd256 w{window} cap50 {dt}",
                        4, 8, 4, 512, 512, 256, True, window, 50.0, dt, 0)
     # decode against a half-written cache of 1024 slots
-    half = np.where(np.arange(1024) < 512, np.arange(1024), INVALID)
+    half = ring_pos(1024, 511, 512)
     for window in (4096, 0):
         flash_case(f"decode Sq1 L1024 half-invalid w{window}", 4, 8, 4, 1, 1024,
                    256, True, window, 50.0, torch.bfloat16, 511, half)
     # a wrapped ring: position p lives at slot p % L
-    pos, L = 1500, 1024
-    ring = np.empty(L, np.int64)
-    for p in range(pos - L + 1, pos + 1):
-        ring[p % L] = p
-    flash_case("decode wrapped ring L1024 w256", 4, 8, 4, 1, L, 256, True, 256,
-               50.0, torch.bfloat16, pos, ring)
-    flash_case("decode wrapped ring L1024 w256 f32", 2, 8, 4, 1, L, 256, True, 256,
-               50.0, torch.float32, pos, ring)
+    ring = ring_pos(1024, 1500)
+    flash_case("decode wrapped ring L1024 w256", 4, 8, 4, 1, 1024, 256, True, 256,
+               50.0, torch.bfloat16, 1500, ring)
+    flash_case("decode wrapped ring L1024 w256 f32", 2, 8, 4, 1, 1024, 256, True, 256,
+               50.0, torch.float32, 1500, ring)
     # jamba's attention layer: Hq 32 over Hkv 8, hd 128, full causal, no softcap
     for dt in (torch.bfloat16, torch.float32):
         flash_case(f"jamba prefill B4 S512 Hq32 Hkv8 hd128 {dt}", 4, 32, 8, 512, 512,
                    128, True, 0, 0.0, dt, 0)
         flash_case(f"jamba decode Sq1 L1024 half-invalid {dt}", 4, 32, 8, 1, 1024,
                    128, True, 0, 0.0, dt, 511, half)
+    # both bf16 kernels at every head dim; ragged tiles (33 x 65, 100 x 100)
+    bf16 = torch.bfloat16
+    for hd in HEAD_DIMS:
+        flash_case(f"B2 Hq4 Hkv2 96x96 hd{hd} cap50 bf16", 2, 4, 2, 96, 96, hd, True, 0,
+                   50.0, bf16, 0)
+        flash_case(f"decode Sq1 ring L300 251 written hd{hd} cap50 bf16", 2, 8, 4, 1, 300,
+                   hd, True, 0, 50.0, bf16, 250, ring_pos(300, 250, 251))
+    flash_case("B1 Hq2 Hkv1 33x65 hd32 bf16", 1, 2, 1, 33, 65, 32, True, 0, 0.0, bf16, 32)
+    flash_case("B2 Hq8 Hkv4 100x100 hd256 w40 cap50 bf16", 2, 8, 4, 100, 100, 256, True,
+               40, 50.0, bf16, 0)
+    # a ring with 8 of 1024 slots written: most splits find no key
+    flash_case("decode Sq1 L1024 8 written hd256 bf16", 4, 8, 4, 1, 1024, 256, True, 0,
+               50.0, bf16, 7, ring_pos(1024, 7, 8))
+    flash_case("decode wrapped ring L1024 w256 hd128 G4 bf16", 4, 32, 8, 1, 1024, 128,
+               True, 256, 0.0, bf16, 1500, ring_pos(1024, 1500))
+    # the dispatch's edge: Sq x G = 16 is split-KV, 17 the tensor-core kernel
+    flash_case("Sq8 x G2 = 16 ring L256 w32 bf16", 1, 8, 4, 8, 256, 64, True, 32, 30.0,
+               bf16, 120, ring_pos(256, 127))
+    flash_case("Sq17 x G1 = 17 ring L256 w32 bf16", 1, 1, 1, 17, 256, 64, True, 32, 30.0,
+               bf16, 120, ring_pos(256, 136))
 
     # gmm: f32 sums over D in another order; bf16 output rounded once on both
     # sides, so the two may differ by one bf16 ulp of the value (2**-7 rel.)
@@ -346,30 +442,34 @@ def main() -> int:
                             max_new_tokens=NEW) for i in range(N_REQ)]
 
         engine = ServingEngine(cfg, params, BATCH, MAX_SEQ, device=dev)
-        finite = []
+        finite, steps = [], {"prefill": 0, "decode": 0}
 
-        def recorded(step):
+        def recorded(step, kind):
             def run(*args):
                 logits, cache = step(*args)
                 finite.append(torch.isfinite(logits).all())
+                steps[kind] += 1
                 return logits, cache
             return run
 
-        engine._prefill = recorded(engine._prefill)
-        engine._decode = recorded(engine._decode)
+        engine._prefill = recorded(engine._prefill, "prefill")
+        engine._decode = recorded(engine._decode, "decode")
         for r in requests():
             engine.submit(r)
         for op in kernel_ops.values():
             op.launches = 0
+        flash_attention.launches_split_kv = flash_attention.launches_tensor_core = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         done = engine.run_batch()
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         launches = {name: op.launches for name, op in kernel_ops.items()}
+        by_kernel = flash_counts()
         forwards = len(finite)
         expect = per_forward(cfg)
-        log(f"[serve] {len(done)} requests, {forwards} forwards, launches {launches}")
+        log(f"[serve] {len(done)} requests, {forwards} forwards ({steps}), launches "
+            f"{launches}, flash by kernel {by_kernel}")
         assert forwards == (N_REQ // BATCH) * (1 + NEW), forwards
         assert len(done) == N_REQ
         assert all(len(r.output) == NEW and all(0 <= x < cfg.vocab_size for x in r.output)
@@ -377,6 +477,12 @@ def main() -> int:
         assert all(bool(f) for f in finite), "non-finite logits"
         for name, n in expect.items():
             assert launches[name] == n * forwards, (name, launches[name], n * forwards)
+        # bf16 attention: the tensor-core kernel at prefill, split-KV at decode
+        n_attn = expect["flash_attention"]
+        assert by_kernel == {"split_kv": n_attn * steps["decode"],
+                             "tensor_core": n_attn * steps["prefill"]}, (by_kernel, steps)
+        log(f"[serve] flash per forward: {n_attn} tensor-core calls per prefill, "
+            f"{n_attn} split-KV calls per decode step")
         log(f"[serve] req 0: {done[0].output}")
 
         # steady-state serving: a second, uncounted run of the same requests
@@ -440,7 +546,7 @@ def main() -> int:
         torch.cuda.synchronize()
         log(f"[sync] {cfg.name}: one decode step ran with no host sync "
             "(set_sync_debug_mode('error'))")
-        return launches, expect, forwards
+        return launches, expect, forwards, by_kernel
 
     def init_on_card(cfg, note=""):
         gc.collect()
@@ -535,11 +641,16 @@ def main() -> int:
         b_ms, b_by = bound(nbytes, flops, "bfloat16")
         cap = acfg.attn_softcap
         kw = dict(causal=True, window=window, softcap=cap, q_offset=q_offset)
+        # a split-KV call is its split kernel and its combine kernel
+        by_kernel = device_ms_by_kernel(lambda: flash_attention(q, k, v, kv_pos=kp, **kw))
         res = {"shape": f"B{B} Sq{Sq} Skv{Skv} Hq{Hq} Hkv{Hkv} hd{hd} bf16 w{window} cap{cap}",
-               "ms": device_ms(lambda: flash_attention(q, k, v, kv_pos=kp, **kw)),
+               "kernel": kernel_for(q.dtype, Sq, Hq, Hkv),
+               "ms": sum(by_kernel.values()), "by_kernel_ms": by_kernel,
                "event_ms": cuda_ms(lambda: flash_attention(q, k, v, kv_pos=kp, **kw)),
                "plain_ms": device_ms(lambda: chunked_attention(q, k, v, kv_positions=kp, **kw)),
-               "bound_ms": b_ms, "bound_by": b_by}
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_note": "SDPA without the softcap: not the same function" if cap
+               else "SDPA: the same function"}
         # SDPA, a yardstick only, without the softcap: causal at prefill; at
         # decode a boolean mask from kv_pos (causal and window)
         qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
@@ -596,7 +707,7 @@ def main() -> int:
                  "decode": rms_times(BATCH, hcfg.d_model)}
     fa_prefill = flash_times(cfg, PROMPT, PROMPT, 0, None, cfg.window)
     written = PROMPT + NEW // 2
-    half_written = np.where(np.arange(MAX_SEQ) < written, np.arange(MAX_SEQ), INVALID)
+    half_written = ring_pos(MAX_SEQ, written - 1, written)
     fa_decode = flash_times(cfg, 1, MAX_SEQ, written - 1, half_written, cfg.window)
     fa_jamba = {"prefill": flash_times(hcfg, PROMPT, PROMPT, 0, None, 0),
                 "decode": flash_times(hcfg, 1, MAX_SEQ, written - 1, half_written, 0)}
@@ -612,7 +723,7 @@ def main() -> int:
             ("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
              "src/repro/kernels/rmsnorm/rmsnorm.py:22", rms_prefill, rms_decode,
              {"jamba": rms_jamba}),
-            ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+            ("flash_attention", "src/repro_torch/kernels/csrc/flash_prefill.cu",
              "src/repro/kernels/flash_attention/flash_attention.py:75", fa_prefill, fa_decode,
              {"jamba": fa_jamba}),
             ("gmm", "src/repro_torch/kernels/csrc/gmm.cu",
@@ -628,9 +739,18 @@ def main() -> int:
             "launches_per_forward": {k: p[1][name] for k, p in paths.items()},
             "max_abs_err": err[name], **main_t, "kernel_ms": main_t["ms"],
             "decode": dec_t, **more, "device": smi})
+        if name == "flash_attention":
+            kernels[-1]["sources"] = ["src/repro_torch/kernels/csrc/flash_prefill.cu",
+                                      "src/repro_torch/kernels/csrc/flash_decode.cu",
+                                      "src/repro_torch/kernels/csrc/flash_attention.cu"]
+            for served in ("tensor_core", "split_kv"):
+                kernels[-1][f"launches_{served}"] = sum(p[3][served] for p in paths.values())
+                kernels[-1][f"launches_{served}_by_path"] = {k: p[3][served]
+                                                             for k, p in paths.items()}
+            kernels[-1]["resources"] = flash_res
         assert kernels[-1]["launches"] > 0, f"{name}: no launch on the main paths"
     log(json.dumps({"kernels": kernels}))
-    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                            "count": torch.cuda.device_count()}}))
     return 0
 

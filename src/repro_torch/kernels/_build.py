@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (one process per
 source, all started together) and linked into one shared library with a
 plain C interface. The library lands in ``build/repro_torch/<hash>/`` at the
 repository root, keyed by a hash of the sources and flags, so a changed
-source rebuilds and an unchanged one loads the cached file. The build runs at
-the first launch of any kernel, never at import.
+source rebuilds and an unchanged one loads the cached file. Beside it,
+``build.log`` keeps what ``ptxas -v`` said of every kernel (registers,
+spills). The build runs at the first launch of any kernel, never at import.
 """
 from __future__ import annotations
 
@@ -24,8 +25,9 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 LIB_NAME = "librepro_torch_kernels.so"
+LOG_NAME = "build.log"
 
 # the launchers' dtype codes (ReproDtype in csrc/common.cuh)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -45,6 +47,20 @@ SIGNATURES = {
         _LL, _LL, _LL,                      # k strides
         _LL, _LL, _LL,                      # v strides
         _I, _I, _I, _F, _I, _P],            # q_offset, causal, window, softcap, dtype, stream
+    "flash_split_kv_launch": [
+        _P, _P, _P, _P, _P,                 # q, k, v, kv_pos, out
+        _P, _P, _P,                         # o, m, l partials
+        _I, _I, _I, _I, _I, _I,             # B, Sq, Skv, Hq, Hkv, hd
+        _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,   # q, k, v strides (b, s, h)
+        _I, _I, _I, _F,                     # q_offset, causal, window, softcap
+        _I, _I, _P],                        # n_split, tiles_per_split, stream
+    "flash_prefill_launch": [
+        _P, _P, _P, _P, _P,                 # q, k, v, kv_pos, out
+        _I, _I, _I, _I, _I, _I,             # B, Sq, Skv, Hq, Hkv, hd
+        _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,   # q, k, v strides (b, s, h)
+        _I, _I, _I, _F, _P],                # q_offset, causal, window, softcap, stream
+    "flash_split_kv_smem": [_I, _I],        # hd, ring stages -> shared bytes of a block
+    "flash_prefill_smem": [_I],             # hd -> shared bytes of a block
     "selective_scan_launch": [
         _P, _P, _P, _P, _P, _P, _P,         # u, dt, A, b, c, d_skip, h0
         _P, _P,                             # y, hT
@@ -92,17 +108,19 @@ def _compile(out_dir: pathlib.Path) -> pathlib.Path:
         procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
                  for s, o in zip(sources, objs)]
-        errors = []
+        errors, log = [], []
         for s, p in zip(sources, procs):
             out, _ = p.communicate()
+            log.append(f"== {s.name}\n{out.decode(errors='replace')}")
             if p.returncode:
-                errors.append(f"{s.name}:\n{out.decode(errors='replace')}")
+                errors.append(log[-1])
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
         lib = tmp / LIB_NAME
         subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib),
                         *map(str, objs)], check=True, capture_output=True)
         out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / LOG_NAME).write_text("".join(log))
         os.replace(lib, out_dir / LIB_NAME)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -131,6 +149,12 @@ def load_library() -> ctypes.CDLL:
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib
+
+
+def build_log() -> str:
+    """What nvcc and ``ptxas -v`` printed when the loaded library was built."""
+    path = BUILD_ROOT / _digest() / LOG_NAME
+    return path.read_text() if path.exists() else ""
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -1,21 +1,22 @@
-// Forward flash attention for Hopper: causal / sliding-window / tanh softcap,
-// GQA, runtime q_offset, masking from a kv_pos position vector.
+// Forward flash attention for Hopper in f32: causal / sliding-window / tanh
+// softcap, GQA, runtime q_offset, masking from a kv_pos position vector.
 //
 // Replaces src/repro/kernels/flash_attention/flash_attention.py::
-// flash_attention_pallas (_flash_kernel). The TPU kernel walks KV blocks on a
+// flash_attention_pallas (_flash_kernel) for f32 inputs. bf16 inputs, which
+// is everything the served models run, go to flash_decode.cu (split-KV,
+// when the query fits one 16-row tile per kv head) and flash_prefill.cu
+// (tensor cores, every other call). The TPU kernel walks KV blocks on a
 // sequential grid axis with (m, l, acc) in VMEM scratch. Here one block of
 // 128 threads owns one (b, kv-head, q-tile) and loops over KV tiles itself,
 // keeping the running max, sum and accumulator in f32 registers. A q-tile
 // holds 16 rows: q positions x the G query heads that share this kv head, so
 // each K/V tile is loaded from device memory once for the whole group (GQA).
 //
-// What bounds it on the H100: at the serving shapes (hd 256, Sq 512 or 1)
-// the work is small (a prefill layer is ~4 GFLOP) and this first kernel does
-// its products with f32 FMAs from shared memory, so it is bound by shared-
-// memory and FMA issue, far from the tensor-core rate. Tiles that are fully
-// masked (causal or window, decided from kv_pos per tile) are skipped before
-// their K/V is loaded; that halves causal prefill work. wgmma/TMA are later
-// work.
+// What bounds it on the H100: its products are f32 FMAs from shared memory,
+// so it is bound by shared-memory and FMA issue. f32 stays on FMAs because
+// TF32 tensor cores would miss the f32 tolerance (1e-4), and nothing serves
+// in f32. Tiles that are fully masked (causal or window, decided from kv_pos
+// per tile) are skipped before their K/V is loaded.
 //
 // Layouts: q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd), any strides with the
 // last dim contiguous (k/v rows 16-byte aligned); out (B, Sq, Hq, hd)
@@ -246,7 +247,8 @@ cudaError_t launch_dtype(int hd, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Strides are in elements. dtype: ReproDtype. kv_pos may be null (iota).
+// Strides are in elements. dtype: ReproDtype, kFloat32 only. kv_pos may be
+// null (iota).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, const void* kv_pos, void* out,
     int B, int Sq, int Skv, int Hq, int Hkv, int hd,
@@ -261,7 +263,5 @@ extern "C" int flash_attention_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
     return launch_dtype<float>(hd, q, k, v, kp, out, B, Sq, Skv, Hq, Hkv, st, q_offset, causal, window, softcap, s);
-  if (dtype == kBFloat16)
-    return launch_dtype<__nv_bfloat16>(hd, q, k, v, kp, out, B, Sq, Skv, Hq, Hkv, st, q_offset, causal, window, softcap, s);
   return cudaErrorInvalidValue;
 }

@@ -1,12 +1,19 @@
 """Public flash-attention entry point in model layout (B, S, H, hd): the
-CUDA kernel for CUDA tensors, the plain chunked version for CPU tensors.
+CUDA kernels for CUDA tensors, the plain chunked version for CPU tensors.
 
 Replaces ``repro/kernels/flash_attention/ops.py::flash_attention`` (whose
 Pallas kernel is ``flash_attention.py::flash_attention_pallas``). A CUDA
-tensor launches the kernel or raises; only a CPU tensor takes
-``chunked_attention``. ``flash_attention.launches`` counts the kernel
-launches. What bounds the kernel and what its design does about it: see
-``csrc/flash_attention.cu``.
+tensor launches a kernel or raises; only a CPU tensor takes
+``chunked_attention``. Which kernel serves a CUDA call (split-KV decode and
+tensor-core prefill for bf16, the FMA kernel for f32) is
+``flash_attention.kernel_for``'s choice, with no fallback between them.
+
+Counters, plain ints on this function: ``launches`` counts calls that
+launched a kernel (a split-KV call launches the split kernel and its combine
+and counts once); ``launches_split_kv`` and ``launches_tensor_core`` count the
+bf16 calls each of those two kernels served, so a run shows which one did.
+What bounds each kernel and what its design does about it: see
+``csrc/flash_decode.cu``, ``csrc/flash_prefill.cu``, ``csrc/flash_attention.cu``.
 """
 from __future__ import annotations
 
@@ -14,7 +21,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention.flash_attention import (flash_attention_cuda,
+                                                                 kernel_for)
 from repro_torch.kernels.flash_attention.ref import chunked_attention
 
 
@@ -24,7 +32,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     chunk: int = 512):
     """q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, hd); kv_pos: (Skv,) int32
     absolute key positions (default ``arange(Skv)``). ``chunk`` is the KV
-    chunk of the plain version; the kernel tiles KV its own way."""
+    chunk of the plain version; the kernels tile KV their own way."""
     if q.device.type == "cpu":
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  softcap=softcap, q_offset=q_offset,
@@ -35,7 +43,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                softcap=softcap, q_offset=q_offset,
                                kv_pos=kv_pos)
     flash_attention.launches += 1
+    kind = kernel_for(q.dtype, q.shape[1], q.shape[2], k.shape[2])
+    if kind == "split_kv":
+        flash_attention.launches_split_kv += 1
+    elif kind == "tensor_core":
+        flash_attention.launches_tensor_core += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_split_kv = 0
+flash_attention.launches_tensor_core = 0

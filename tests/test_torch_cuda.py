@@ -100,6 +100,86 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
                                atol=FLASH_TOL[dtype])
 
 
+def _ring(L, pos, written=None):
+    """kpos of a ring cache of L slots holding positions <= pos (p at p % L),
+    or only the first ``written`` positions; unwritten slots hold 2**30."""
+    host = np.full(L, 2 ** 30, np.int32)
+    first = 0 if written is not None else max(0, pos - L + 1)
+    last = written - 1 if written is not None else pos
+    for p in range(first, last + 1):
+        host[p % L] = p
+    return host
+
+
+# bf16 cases of the two bf16 kernels: B, Hq, Hkv, Sq, Skv, hd, window, softcap,
+# q_offset, ring (None: kv_pos = None; else (pos, written)), kernel
+BF16_CASES = [
+    *[(2, 4, 2, 96, 96, hd, 0, 50.0, 0, None, "tensor_core") for hd in (16, 32, 64, 128, 256)],
+    *[(2, 8, 4, 1, 300, hd, 0, 50.0, 250, (250, 251), "split_kv") for hd in (16, 32, 64, 128, 256)],
+    (1, 2, 1, 33, 65, 32, 0, 0.0, 32, None, "tensor_core"),         # ragged tiles
+    (2, 8, 4, 100, 100, 256, 40, 50.0, 0, None, "tensor_core"),
+    (4, 8, 4, 1, 1024, 256, 0, 50.0, 7, (7, 8), "split_kv"),       # 8 of 1024 written
+    (4, 32, 8, 1, 1024, 128, 0, 0.0, 519, (519, 520), "split_kv"),  # jamba's decode
+    (2, 8, 4, 1, 1024, 256, 256, 50.0, 1500, (1500, None), "split_kv"),   # wrapped, window
+    (1, 8, 4, 8, 256, 64, 32, 30.0, 120, (127, None), "split_kv"),      # Sq x G = 16
+    (1, 1, 1, 17, 256, 64, 32, 30.0, 120, (136, None), "tensor_core"),  # Sq x G = 17
+    (1, 4, 2, 40, 200, 128, 0, 0.0, 300, (339, None), "tensor_core"),   # prefill onto a ring
+]
+
+
+@pytest.mark.parametrize("case", BF16_CASES)
+def test_flash_bf16_kernels_match_plain(cuda, case):
+    B, Hq, Hkv, Sq, Skv, hd, window, cap, off, ring, kind = case
+    rng = np.random.default_rng(5)
+    q = _t(rng, (B, Sq, Hq, hd), torch.bfloat16, cuda)
+    k = _t(rng, (B, Skv, Hkv, hd), torch.bfloat16, cuda)
+    v = _t(rng, (B, Skv, Hkv, hd), torch.bfloat16, cuda)
+    kpos = None if ring is None else torch.from_numpy(_ring(Skv, *ring)).to(cuda)
+    kw = dict(causal=True, window=window, softcap=cap, q_offset=off)
+    counts = (flash_attention.launches_split_kv, flash_attention.launches_tensor_core)
+    out = flash_attention(q, k, v, kv_pos=kpos, **kw)
+    torch.cuda.synchronize()
+    moved = (flash_attention.launches_split_kv - counts[0],
+             flash_attention.launches_tensor_core - counts[1])
+    assert moved == ((1, 0) if kind == "split_kv" else (0, 1)), moved
+    ref = chunked_attention(q, k, v, kv_positions=kpos, **kw)
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               atol=FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("Sq,Hq,Hkv,kind", [(1, 8, 4, "split_kv"), (512, 8, 4, "tensor_core"),
+                                            (1, 32, 8, "split_kv"), (64, 32, 8, "tensor_core")])
+def test_flash_bf16_call_moves_exactly_one_counter(cuda, Sq, Hq, Hkv, kind):
+    rng = np.random.default_rng(6)
+    q = _t(rng, (2, Sq, Hq, 128), torch.bfloat16, cuda)
+    k, v = (_t(rng, (2, 512, Hkv, 128), torch.bfloat16, cuda) for _ in range(2))
+    before = (flash_attention.launches, flash_attention.launches_split_kv,
+              flash_attention.launches_tensor_core)
+    flash_attention(q, k, v, q_offset=512 - Sq)
+    after = (flash_attention.launches, flash_attention.launches_split_kv,
+             flash_attention.launches_tensor_core)
+    assert after[0] == before[0] + 1
+    assert (after[1] - before[1], after[2] - before[2]) == \
+        ((1, 0) if kind == "split_kv" else (0, 1))
+
+
+def test_flash_decode_makes_no_host_sync(cuda):
+    rng = np.random.default_rng(7)
+    q = _t(rng, (4, 1, 8, 256), torch.bfloat16, cuda)
+    k, v = (_t(rng, (4, 1024, 4, 256), torch.bfloat16, cuda) for _ in range(2))
+    kpos = torch.from_numpy(_ring(1024, 519, 520)).to(cuda)
+    flash_attention(q, k, v, kv_pos=kpos, q_offset=519, softcap=50.0)   # build, warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = flash_attention(q, k, v, kv_pos=kpos, q_offset=519, softcap=50.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ref = chunked_attention(q, k, v, kv_positions=kpos, q_offset=519, softcap=50.0)
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               atol=FLASH_TOL[torch.bfloat16])
+
+
 @pytest.mark.parametrize("sizes,D,F", [
     ([30, 0, 17, 40, 13], 32, 48), ([4, 4, 4, 4], 16, 16), ([128], 64, 32),
     ([0, 0, 50], 32, 64),                       # tests/test_kernels.py's cases
