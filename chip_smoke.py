@@ -6,8 +6,9 @@
 Phases, each of which passes or ends the script with a non-zero exit:
   0. device: a CUDA card must be present; prints its name and power limit;
   1. build: compiles the port's CUDA kernels from the repository's sources;
-     prints ``ptxas -v``'s registers and spills, and the dynamic shared
-     memory, of every flash-attention kernel;
+     prints the registers, local memory (spills) and shared memory of every
+     flash-attention kernel, as ``cudaFuncGetAttributes`` reports them for
+     the loaded library;
   2. kernels vs plain versions on the card, on seeded inputs, each case
      printed with its max abs error and tolerance (RMSNorm and flash
      attention at gemma2-2b's and jamba's shapes, grouped matmul and
@@ -15,7 +16,9 @@ Phases, each of which passes or ends the script with a non-zero exit:
      runs on the split-KV kernel (Sq x G <= 16) or the tensor-core kernel,
      each case asserting which one served it: every head dim, ragged
      tiles, rings mostly unwritten, wrapped with a window, and both sides
-     of the Sq x G = 16 edge; f32 runs on the FMA kernel. Plus a reduced
+     of the Sq x G = 16 edge; f32 runs on the FMA kernel. bf16 flash is
+     held to 2e-2 everywhere and 8e-3 where |ref| < 1, and its max error by
+     output magnitude is printed. Plus a reduced
      gemma2-2b and a reduced hybrid (jamba's 8-block pattern) served on the
      card (kernels) and on the CPU (plain path), which must agree;
   3. serve: full-width gemma2-2b (26 layers, bf16, seed-0 weights) through
@@ -45,12 +48,12 @@ The last two lines are the kernels' JSON line and the result line.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import gc
 import json
 import math
 import os
-import re
 import subprocess
 import sys
 import time
@@ -149,32 +152,28 @@ def per_forward(cfg):
             "gmm": 3 * R * sum(ffn == "moe" for _, ffn in pat)}
 
 
-def flash_resources(build_log, lib, head_dims):
-    """Registers and spills (``ptxas -v`` in the build log) of every
-    flash-attention kernel, and each bf16 kernel's dynamic shared memory."""
-    res, name = {}, None
-    for line in build_log.splitlines():
-        m = re.search(r"(?:Compiling entry function '|Function properties for )([^'\s]+)", line)
-        if m:
-            raw = m.group(1)
-            t = re.search(r"\d+(flash\w*?_kernel)(?:I(.*?)EE)?", raw)
-            name = None if t is None else t.group(1) + (
-                "<" + t.group(2).replace("Li", ",").replace("f,", "float,").strip(",") + ">"
-                if t.group(2) else "")
-            continue
-        if name is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m:
-            res.setdefault(name, {})["spill_bytes"] = [int(m.group(1)), int(m.group(2))]
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            res.setdefault(name, {})["registers"] = int(m.group(1))
+def flash_resources(lib, head_dims):
+    """Registers, local memory (spills and stack) a thread and shared memory
+    a block of every flash-attention kernel, as ``cudaFuncGetAttributes``
+    reports them for the library loaded in this run, with the dynamic shared
+    memory each launch asks for."""
+    from repro_torch.kernels import _build
+
+    def attrs(fn, n, *args):
+        out = (ctypes.c_int * n)()
+        _build.check(lib, fn(*args, out), fn.__name__)
+        r = {"registers": out[0], "local_bytes": out[1], "static_smem_bytes": out[2]}
+        if n == 4:
+            r["dynamic_smem_bytes"] = out[3]
+        elif n == 5:    # one ring stage when each split has one tile, two otherwise
+            r["dynamic_smem_bytes_1_2_stages"] = [out[3], out[4]]
+        return r
+
+    res = {"flash_combine_kernel": attrs(lib.flash_combine_attrs, 3)}
     for hd in head_dims:
-        # one ring stage when each split has one tile, two otherwise
-        res.setdefault(f"flash_split_kernel<{hd}>", {})["smem_bytes_1_2_stages"] = [
-            lib.flash_split_kv_smem(hd, 1), lib.flash_split_kv_smem(hd, 2)]
-        res.setdefault(f"flash_prefill_kernel<{hd}>", {})["smem_bytes"] = lib.flash_prefill_smem(hd)
+        res[f"flash_prefill_kernel<{hd}>"] = attrs(lib.flash_prefill_attrs, 4, hd)
+        res[f"flash_split_kernel<{hd}>"] = attrs(lib.flash_split_kv_attrs, 5, hd)
+        res[f"flash_kernel<float,{hd}>"] = attrs(lib.flash_attention_attrs, 4, hd)
     return res
 
 
@@ -230,7 +229,7 @@ def main() -> int:
     lib = _build.load_library()
     log(f"[build] kernels ready in {time.perf_counter() - t0:.1f}s "
         f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'})")
-    flash_res = flash_resources(_build.build_log(), lib, HEAD_DIMS)
+    flash_res = flash_resources(lib, HEAD_DIMS)
     for name, r in sorted(flash_res.items()):
         log(f"[build] {name}: {json.dumps(r)}")
 
@@ -247,15 +246,22 @@ def main() -> int:
 
     err = {name: 0.0 for name in kernel_ops}
 
-    def check(name, label, out, ref, tol, rtol=0.0):
-        """Pass if |out - ref| <= tol + rtol * |ref| everywhere."""
+    def check(name, label, out, ref, tol, rtol=0.0, bulk=None):
+        """Pass if |out - ref| <= tol + rtol * |ref| everywhere and, with
+        ``bulk`` = (limit, below), |out - ref| <= limit where |ref| < below."""
         diff = (out.float() - ref.float()).abs()
         e = diff.max().item()
         excess = (diff - rtol * ref.float().abs()).max().item() if rtol else e
         ok = math.isfinite(e) and excess <= tol
+        note = ""
+        if bulk is not None:
+            small = ref.float().abs() < bulk[1]
+            eb = diff[small].max().item() if small.any().item() else 0.0
+            ok = ok and eb <= bulk[0]
+            note = f", {eb:.3e} where |ref| < {bulk[1]:g} (limit {bulk[0]:.0e})"
         log(f"[kernel] {name} {label}: max_abs_err {e:.3e} tol {tol:.0e}"
-            + (f" + {rtol:.1e}*|ref|" if rtol else "") + f" {'ok' if ok else 'FAIL'}")
-        assert ok, f"{name} {label}: {e} > {tol} (+ {rtol}*|ref|)"
+            + (f" + {rtol:.1e}*|ref|" if rtol else "") + note + f" {'ok' if ok else 'FAIL'}")
+        assert ok, f"{name} {label}: {e} > {tol} (+ {rtol}*|ref|){note}"
         err[name] = max(err[name], e)
 
     hcfg = get_config(HYBRID)
@@ -271,6 +277,14 @@ def main() -> int:
     x = t(4, 512, 2304, dtype=torch.bfloat16)[:, -1:]
     sc = (t(2304) + 1.0).to(torch.bfloat16)
     check("rmsnorm", "(4, 512, 2304)[:, -1:] bf16", rmsnorm(x, sc), rmsnorm_ref(x, sc), 5e-2)
+
+    # bf16 flash: the tensor-core kernel rounds P to bf16 before the PV
+    # product, so outputs in [2, 4) may sit one bf16 ulp (1.56e-2) off, which
+    # the 2e-2 limit admits; the bulk, |ref| < 1, is held to 8e-3, two ulps
+    # of [0.5, 1): P's rounding and the output's take one each
+    FLASH_BF16_BULK = (8e-3, 1.0)
+    MAG_EDGES = (0.0, 0.5, 1.0, 2.0, 4.0, math.inf)
+    flash_bf16_by_mag = {f"[{lo:g}, {hi:g})": 0.0 for lo, hi in zip(MAG_EDGES, MAG_EDGES[1:])}
 
     def flash_counts():
         return {"split_kv": flash_attention.launches_split_kv,
@@ -289,8 +303,16 @@ def main() -> int:
         assert moved == {n: int(n == kind) for n in moved}, (label, kind, moved)
         ref = chunked_attention(q, k, v, causal=causal, window=window, softcap=cap,
                                 q_offset=q_offset, kv_positions=kp)
-        check("flash_attention", f"[{kind}] {label}", out, ref,
-              2e-2 if dt == torch.bfloat16 else 1e-4)
+        bf = dt == torch.bfloat16
+        check("flash_attention", f"[{kind}] {label}", out, ref, 2e-2 if bf else 1e-4,
+              bulk=FLASH_BF16_BULK if bf else None)
+        if bf:      # the error against the output's magnitude, over every bf16 case
+            diff, mag = (out.float() - ref.float()).abs(), ref.float().abs()
+            for (lo, hi), key in zip(zip(MAG_EDGES, MAG_EDGES[1:]), flash_bf16_by_mag):
+                sel = (mag >= lo) & (mag < hi)
+                if sel.any().item():
+                    flash_bf16_by_mag[key] = max(flash_bf16_by_mag[key],
+                                                 diff[sel].max().item())
 
     def ring_pos(L, pos, written=None):
         """Slot positions of a ring of L slots holding positions <= pos (p at
@@ -355,6 +377,8 @@ def main() -> int:
                bf16, 120, ring_pos(256, 127))
     flash_case("Sq17 x G1 = 17 ring L256 w32 bf16", 1, 1, 1, 17, 256, 64, True, 32, 30.0,
                bf16, 120, ring_pos(256, 136))
+
+    log(f"[kernel] flash_attention bf16 max_abs_err by |ref|: {json.dumps(flash_bf16_by_mag)}")
 
     # gmm: f32 sums over D in another order; bf16 output rounded once on both
     # sides, so the two may differ by one bf16 ulp of the value (2**-7 rel.)
@@ -748,6 +772,7 @@ def main() -> int:
                 kernels[-1][f"launches_{served}_by_path"] = {k: p[3][served]
                                                              for k, p in paths.items()}
             kernels[-1]["resources"] = flash_res
+            kernels[-1]["bf16_max_abs_err_by_ref_magnitude"] = flash_bf16_by_mag
         assert kernels[-1]["launches"] > 0, f"{name}: no launch on the main paths"
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

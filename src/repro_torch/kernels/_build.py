@@ -5,8 +5,9 @@ source, all started together) and linked into one shared library with a
 plain C interface. The library lands in ``build/repro_torch/<hash>/`` at the
 repository root, keyed by a hash of the sources and flags, so a changed
 source rebuilds and an unchanged one loads the cached file. Beside it,
-``build.log`` keeps what ``ptxas -v`` said of every kernel (registers,
-spills). The build runs at the first launch of any kernel, never at import.
+``build.log`` keeps what ``ptxas -v`` said of every kernel when it was
+built (registers, spills), as a record. The build runs at the first launch
+of any kernel, never at import.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 # C signatures of the exported launchers (see csrc/*.cu); every launcher
 # returns a cudaError_t as int
 SIGNATURES = {
@@ -59,8 +61,12 @@ SIGNATURES = {
         _I, _I, _I, _I, _I, _I,             # B, Sq, Skv, Hq, Hkv, hd
         _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,   # q, k, v strides (b, s, h)
         _I, _I, _I, _F, _P],                # q_offset, causal, window, softcap, stream
-    "flash_split_kv_smem": [_I, _I],        # hd, ring stages -> shared bytes of a block
-    "flash_prefill_smem": [_I],             # hd -> shared bytes of a block
+    # hd, int[4] or int[5]: registers, local bytes, static and dynamic
+    # shared bytes of the kernel at hd (cudaFuncGetAttributes)
+    "flash_prefill_attrs": [_I, _IP],
+    "flash_split_kv_attrs": [_I, _IP],      # dynamic shared bytes with 1 and 2 stages
+    "flash_attention_attrs": [_I, _IP],
+    "flash_combine_attrs": [_IP],           # int[3]
     "selective_scan_launch": [
         _P, _P, _P, _P, _P, _P, _P,         # u, dt, A, b, c, d_skip, h0
         _P, _P,                             # y, hT
@@ -149,12 +155,6 @@ def load_library() -> ctypes.CDLL:
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib
-
-
-def build_log() -> str:
-    """What nvcc and ``ptxas -v`` printed when the loaded library was built."""
-    path = BUILD_ROOT / _digest() / LOG_NAME
-    return path.read_text() if path.exists() else ""
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

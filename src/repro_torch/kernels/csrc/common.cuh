@@ -55,3 +55,17 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
+
+// What cudaFuncGetAttributes says of a kernel in the loaded image: out[0]
+// registers a thread, out[1] local memory a thread in bytes (spills and
+// stack), out[2] static shared memory a block in bytes.
+template <typename Kernel>
+inline int kernel_attrs(Kernel kern, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, reinterpret_cast<const void*>(kern));
+  if (e != cudaSuccess) return e;
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = static_cast<int>(a.sharedSizeBytes);
+  return 0;
+}

@@ -265,3 +265,19 @@ extern "C" int flash_attention_launch(
     return launch_dtype<float>(hd, q, k, v, kp, out, B, Sq, Skv, Hq, Hkv, st, q_offset, causal, window, softcap, s);
   return cudaErrorInvalidValue;
 }
+
+// The f32 kernel at head dim hd: kernel_attrs' out[0..2], then in out[3]
+// the dynamic shared memory its launch asks for.
+extern "C" int flash_attention_attrs(int hd, int* out) {
+#define REPRO_ATTRS(HD) \
+  (out[3] = (int)Layout<float, HD>::total, kernel_attrs(flash_kernel<float, HD>, out))
+  switch (hd) {
+    case 16: return REPRO_ATTRS(16);
+    case 32: return REPRO_ATTRS(32);
+    case 64: return REPRO_ATTRS(64);
+    case 128: return REPRO_ATTRS(128);
+    case 256: return REPRO_ATTRS(256);
+    default: return cudaErrorInvalidValue;
+  }
+#undef REPRO_ATTRS
+}

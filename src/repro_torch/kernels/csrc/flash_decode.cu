@@ -348,15 +348,26 @@ extern "C" int flash_split_kv_launch(
 #undef REPRO_SPLIT
 }
 
-// Dynamic shared memory of one split-KV block at head dim hd with a ring
-// of `stages` stages (0 if no such kernel).
-extern "C" int flash_split_kv_smem(int hd, int stages) {
+// The split kernel at head dim hd: kernel_attrs' out[0..2], then in out[3]
+// and out[4] the dynamic shared memory of a launch with a one- and a
+// two-stage ring.
+extern "C" int flash_split_kv_attrs(int hd, int* out) {
+#define REPRO_ATTRS(HD)                                                      \
+  (out[3] = (int)SplitLayout<HD>::bytes(1), out[4] = (int)SplitLayout<HD>::bytes(2), \
+   kernel_attrs(flash_split_kernel<HD>, out))
   switch (hd) {
-    case 16: return (int)SplitLayout<16>::bytes(stages);
-    case 32: return (int)SplitLayout<32>::bytes(stages);
-    case 64: return (int)SplitLayout<64>::bytes(stages);
-    case 128: return (int)SplitLayout<128>::bytes(stages);
-    case 256: return (int)SplitLayout<256>::bytes(stages);
-    default: return 0;
+    case 16: return REPRO_ATTRS(16);
+    case 32: return REPRO_ATTRS(32);
+    case 64: return REPRO_ATTRS(64);
+    case 128: return REPRO_ATTRS(128);
+    case 256: return REPRO_ATTRS(256);
+    default: return cudaErrorInvalidValue;
   }
+#undef REPRO_ATTRS
+}
+
+// The combine kernel: kernel_attrs' out[0..2] (its dynamic shared memory is
+// n_split + 1 floats).
+extern "C" int flash_combine_attrs(int* out) {
+  return kernel_attrs(flash_combine_kernel, out);
 }

@@ -335,14 +335,18 @@ extern "C" int flash_prefill_launch(
 #undef REPRO_PREFILL
 }
 
-// Dynamic shared memory of one prefill block at head dim hd (0 if none).
-extern "C" int flash_prefill_smem(int hd) {
+// The prefill kernel at head dim hd: kernel_attrs' out[0..2], then in
+// out[3] the dynamic shared memory its launch asks for.
+extern "C" int flash_prefill_attrs(int hd, int* out) {
+#define REPRO_ATTRS(HD) \
+  (out[3] = (int)PrefillLayout<HD>::total, kernel_attrs(flash_prefill_kernel<HD>, out))
   switch (hd) {
-    case 16: return (int)PrefillLayout<16>::total;
-    case 32: return (int)PrefillLayout<32>::total;
-    case 64: return (int)PrefillLayout<64>::total;
-    case 128: return (int)PrefillLayout<128>::total;
-    case 256: return (int)PrefillLayout<256>::total;
-    default: return 0;
+    case 16: return REPRO_ATTRS(16);
+    case 32: return REPRO_ATTRS(32);
+    case 64: return REPRO_ATTRS(64);
+    case 128: return REPRO_ATTRS(128);
+    case 256: return REPRO_ATTRS(256);
+    default: return cudaErrorInvalidValue;
   }
+#undef REPRO_ATTRS
 }

@@ -64,9 +64,10 @@ def _check_rows(t: torch.Tensor, name: str) -> None:
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int = 0,
                          softcap: float = 0.0, q_offset: int = 0,
-                         kv_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, hd) -> (B, Sq, Hq, hd), on
-    the kernel ``kernel_for`` names."""
+                         kv_pos: Optional[torch.Tensor] = None) -> tuple:
+    """q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, hd) -> (out (B, Sq, Hq, hd),
+    the kernel that was launched: ``kernel_for``'s name, or None for an
+    empty output, which launches nothing)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention_cuda: q, k, v must be on one CUDA device")
     if q.dtype not in _build.DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -98,7 +99,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"int32 ({Skv},) tensor on {q.device}")
     out = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
-        return out
+        return out, None
     lib = _build.load_library()
     kp = None if kv_pos is None else kv_pos.data_ptr()
     shapes = (B, Sq, Skv, Hq, Hkv, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
@@ -121,4 +122,4 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                          out.data_ptr(), *shapes, *masks,
                                          _build.DTYPES[q.dtype], stream)
     _build.check(lib, err, f"flash_attention ({kind})")
-    return out
+    return out, kind

@@ -8,7 +8,8 @@ tensor launches a kernel or raises; only a CPU tensor takes
 tensor-core prefill for bf16, the FMA kernel for f32) is
 ``flash_attention.kernel_for``'s choice, with no fallback between them.
 
-Counters, plain ints on this function: ``launches`` counts calls that
+Counters, plain ints on this function, moved by the kernel that
+``flash_attention_cuda`` reports it launched: ``launches`` counts calls that
 launched a kernel (a split-KV call launches the split kernel and its combine
 and counts once); ``launches_split_kv`` and ``launches_tensor_core`` count the
 bf16 calls each of those two kernels served, so a run shows which one did.
@@ -21,8 +22,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention.flash_attention import (flash_attention_cuda,
-                                                                 kernel_for)
+from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import chunked_attention
 
 
@@ -39,14 +39,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  kv_positions=kv_pos, chunk=chunk)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    out = flash_attention_cuda(q, k, v, causal=causal, window=window,
-                               softcap=softcap, q_offset=q_offset,
-                               kv_pos=kv_pos)
-    flash_attention.launches += 1
-    kind = kernel_for(q.dtype, q.shape[1], q.shape[2], k.shape[2])
-    if kind == "split_kv":
+    out, launched = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                         softcap=softcap, q_offset=q_offset,
+                                         kv_pos=kv_pos)
+    if launched is not None:
+        flash_attention.launches += 1
+    if launched == "split_kv":
         flash_attention.launches_split_kv += 1
-    elif kind == "tensor_core":
+    elif launched == "tensor_core":
         flash_attention.launches_tensor_core += 1
     return out
 
