@@ -7,8 +7,8 @@ Phases, each of which passes or ends the script with a non-zero exit:
   0. device: a CUDA card must be present; prints its name and power limit;
   1. build: compiles the port's CUDA kernels from the repository's sources;
      prints the registers, local memory (spills) and shared memory of every
-     flash-attention kernel, as ``cudaFuncGetAttributes`` reports them for
-     the loaded library;
+     flash-attention kernel and of the tiled grouped-matmul kernel, as
+     ``cudaFuncGetAttributes`` reports them for the loaded library;
   2. kernels vs plain versions on the card, on seeded inputs, each case
      printed with its max abs error and tolerance (RMSNorm and flash
      attention at gemma2-2b's and jamba's shapes, grouped matmul and
@@ -18,7 +18,12 @@ Phases, each of which passes or ends the script with a non-zero exit:
      tiles, rings mostly unwritten, wrapped with a window, and both sides
      of the Sq x G = 16 edge; f32 runs on the FMA kernel. bf16 flash is
      held to 2e-2 everywhere and 8e-3 where |ref| < 1, and its max error by
-     output magnitude is printed. Plus a reduced
+     output magnitude is printed. Grouped matmul in bf16 runs on the tiled
+     kernel (at least 128 rows) or the small one, each case asserting which
+     served it: empty and 1-row groups, groups off the 128-row tile, rows
+     past the last group, D and F multiples of 8 but not of 32, both sides
+     of the 128-row edge, jamba's prefill and decode; f32 runs on the small
+     kernel. Plus a reduced
      gemma2-2b and a reduced hybrid (jamba's 8-block pattern) served on the
      card (kernels) and on the CPU (plain path), which must agree;
   3. serve: full-width gemma2-2b (26 layers, bf16, seed-0 weights) through
@@ -34,16 +39,22 @@ Phases, each of which passes or ends the script with a non-zero exit:
      block: 7 mamba, 1 attention, 4 MoE, 4 MLP layers; bf16, seed-0
      weights), gemma2-2b freed first, with the same requests. Launch counts
      per forward come from the pattern: RMSNorm 17, flash 1 (tensor-core at
-     prefill, split-KV at decode), selective scan 7, grouped matmul 12. The
-     same timings, profile and sync check; then
+     prefill, split-KV at decode), selective scan 7, grouped matmul 12 (the
+     tiled kernel at prefill, the small one at decode). The same timings, profile and sync check; then
      the group sizes each MoE layer routes in one prefill and decode step;
   4. times at the serving shapes, after warm-up: each kernel's, its plain
      version's and the library call's device time per call (the summed
-     kernel time under the profiler), the kernel's CUDA-event time per call
-     of back-to-back launches (host launch cost included), and its bound.
-     A split-KV call's device time sums its split and combine kernels.
-     Grouped matmul is timed at the served model's routing (first MoE
-     layer), and checked against its plain version there too.
+     kernel time under the profiler, with a 256 MB scratch buffer read
+     before every call so that no input is left in the 50 MB L2; the
+     flush's own kernel is left out of the sum), the kernel's CUDA-event
+     time per call of back-to-back launches (no flush, host launch cost
+     included), and its bound. A split-KV call's device time sums its split
+     and combine kernels. Grouped matmul is timed at the served model's
+     routing (first MoE layer), and checked against its plain version
+     there too, and at a batch-128 decode step's 256 rows (drawn top-2
+     routing), past the 128-row edge; wherever the tiled kernel serves, the
+     small kernel is timed beside it on the same inputs, called past the
+     dispatch.
 The last two lines are the kernels' JSON line and the result line.
 """
 from __future__ import annotations
@@ -66,6 +77,7 @@ sys.path.insert(0, os.path.join(REPO, "src"))
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+FLUSH_BYTES = 256 << 20     # scratch read between timed calls: over 2 x the 50 MB L2
 
 ARCH, N_REQ, BATCH, PROMPT, NEW, MAX_SEQ = "gemma2-2b", 8, 4, 512, 16, 1024
 # jamba at full width, one period of its 8-layer block: the 32 published
@@ -100,29 +112,63 @@ def device_kernels(prof, required=True):
     return kern
 
 
-def device_ms_by_kernel(fn, iters=20, warmup=3, sessions=3):
-    """Device time per call of each kernel ``fn`` launches, {name: ms}, from
-    the profiler's kernel events: without the host's launch gaps (which CUDA
-    events around back-to-back launches of a small kernel would measure).
-    A profiler session now and then records no device event at all (seen on
-    an H100): such a session is repeated, up to ``sessions`` in all, and if
-    every one is empty the run fails."""
+def profiled_kernels(fn, iters, sessions=5):
+    """The profiler's device events of ``iters`` calls of ``fn``. A profiler
+    session now and then records no device event at all (seen on an H100),
+    and one that loses some events would read short. Every call of ``fn``
+    launches the same kernels, so a session is kept only if each event's
+    count is a multiple of ``iters``; else it is repeated, up to ``sessions``
+    in all, and if none is whole the run fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
-        fn()
     for session in range(sessions):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        kern = device_kernels(prof, required=session == sessions - 1)
-        if kern:
-            break
-        log(f"[profile] session {session + 1} of {sessions} recorded no device event; again")
+        kern = device_kernels(prof, required=False)
+        short = {a.key[:60]: a.count for a in kern if a.count % iters}
+        if kern and not short:
+            return kern
+        log(f"[profile] session {session + 1} of {sessions} recorded "
+            f"{'no device event' if not kern else f'counts off {iters} calls: {short}'}; again")
+    raise AssertionError(f"the profiler recorded no whole session of {iters} calls")
+
+
+class L2Flush:
+    """Reads every byte of a 256 MB scratch buffer (over 2 x the H100's 50 MB
+    L2) when called, so that a call timed after it reads its inputs from
+    device memory, as a serving step does a layer's weights. A read leaves
+    clean lines, so the timed call pays no write-back of the flush's bytes.
+    ``keys`` are the profiler keys of the flush's own kernels, found by
+    profiling it alone."""
+
+    def __init__(self):
+        import torch
+        self.buf = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+        self.keys = {a.key for a in profiled_kernels(self, 3)}
+
+    def __call__(self):
+        self.buf.sum()
+
+
+def device_ms_by_kernel(fn, flush, iters=20, warmup=3):
+    """Device time per call of each kernel ``fn`` launches, {name: ms}, from
+    the profiler's kernel events: without the host's launch gaps (which CUDA
+    events around back-to-back launches of a small kernel would measure).
+    ``flush`` (an ``L2Flush``) runs before every call; its kernels are left
+    out."""
+    def flushed():
+        flush()
+        fn()
+
+    for _ in range(warmup):
+        flushed()
     out = {}
-    for a in kern:
+    for a in profiled_kernels(flushed, iters):
+        if a.key in flush.keys:
+            continue
         # "void (anonymous namespace)::flash_split_kernel<256>(...)" -> "flash_split_kernel<256>"
         name = a.key.replace("void ", "").replace("(anonymous namespace)::", "")
         name = name.split("(")[0][:60]
@@ -130,9 +176,9 @@ def device_ms_by_kernel(fn, iters=20, warmup=3, sessions=3):
     return out
 
 
-def device_ms(fn, iters=20, warmup=3):
+def device_ms(fn, flush, iters=20, warmup=3):
     """Device time per call: the summed time of the kernels ``fn`` launches."""
-    return sum(device_ms_by_kernel(fn, iters, warmup).values())
+    return sum(device_ms_by_kernel(fn, flush, iters, warmup).values())
 
 
 def bound(nbytes, flops, dtype):
@@ -152,28 +198,29 @@ def per_forward(cfg):
             "gmm": 3 * R * sum(ffn == "moe" for _, ffn in pat)}
 
 
-def flash_resources(lib, head_dims):
-    """Registers, local memory (spills and stack) a thread and shared memory
-    a block of every flash-attention kernel, as ``cudaFuncGetAttributes``
-    reports them for the library loaded in this run, with the dynamic shared
-    memory each launch asks for."""
+def kernel_attrs(lib, fn, n, *args):
+    """Registers, local memory (spills and stack) a thread and static shared
+    memory a block of one kernel, as ``cudaFuncGetAttributes`` reports them
+    for the library loaded in this run (an ``*_attrs`` export filling ``n``
+    ints), with the dynamic shared memory its launch asks for."""
     from repro_torch.kernels import _build
+    out = (ctypes.c_int * n)()
+    _build.check(lib, fn(*args, out), fn.__name__)
+    r = {"registers": out[0], "local_bytes": out[1], "static_smem_bytes": out[2]}
+    if n == 4:
+        r["dynamic_smem_bytes"] = out[3]
+    elif n == 5:    # one ring stage when each split has one tile, two otherwise
+        r["dynamic_smem_bytes_1_2_stages"] = [out[3], out[4]]
+    return r
 
-    def attrs(fn, n, *args):
-        out = (ctypes.c_int * n)()
-        _build.check(lib, fn(*args, out), fn.__name__)
-        r = {"registers": out[0], "local_bytes": out[1], "static_smem_bytes": out[2]}
-        if n == 4:
-            r["dynamic_smem_bytes"] = out[3]
-        elif n == 5:    # one ring stage when each split has one tile, two otherwise
-            r["dynamic_smem_bytes_1_2_stages"] = [out[3], out[4]]
-        return r
 
-    res = {"flash_combine_kernel": attrs(lib.flash_combine_attrs, 3)}
+def flash_resources(lib, head_dims):
+    """``kernel_attrs`` of every flash-attention kernel."""
+    res = {"flash_combine_kernel": kernel_attrs(lib, lib.flash_combine_attrs, 3)}
     for hd in head_dims:
-        res[f"flash_prefill_kernel<{hd}>"] = attrs(lib.flash_prefill_attrs, 4, hd)
-        res[f"flash_split_kernel<{hd}>"] = attrs(lib.flash_split_kv_attrs, 5, hd)
-        res[f"flash_kernel<float,{hd}>"] = attrs(lib.flash_attention_attrs, 4, hd)
+        res[f"flash_prefill_kernel<{hd}>"] = kernel_attrs(lib, lib.flash_prefill_attrs, 4, hd)
+        res[f"flash_split_kernel<{hd}>"] = kernel_attrs(lib, lib.flash_split_kv_attrs, 5, hd)
+        res[f"flash_kernel<float,{hd}>"] = kernel_attrs(lib, lib.flash_attention_attrs, 4, hd)
     return res
 
 
@@ -200,8 +247,9 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS, kernel_for
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import chunked_attention
+    from repro_torch.kernels.gmm.gmm import kernel_for as gmm_kernel_for
     from repro_torch.kernels.gmm.ops import gmm
-    from repro_torch.kernels.gmm.ref import gmm_ref
+    from repro_torch.kernels.gmm.ref import TILE_M, gmm_ref
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.kernels.selective_scan.ops import selective_scan
@@ -230,7 +278,8 @@ def main() -> int:
     log(f"[build] kernels ready in {time.perf_counter() - t0:.1f}s "
         f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'})")
     flash_res = flash_resources(lib, HEAD_DIMS)
-    for name, r in sorted(flash_res.items()):
+    gmm_res = {"gmm_prefill_kernel": kernel_attrs(lib, lib.gmm_prefill_attrs, 4)}
+    for name, r in sorted({**flash_res, **gmm_res}.items()):
         log(f"[build] {name}: {json.dumps(r)}")
 
     # -- 2. kernels vs plain versions ----------------------------------------
@@ -263,6 +312,7 @@ def main() -> int:
             + (f" + {rtol:.1e}*|ref|" if rtol else "") + note + f" {'ok' if ok else 'FAIL'}")
         assert ok, f"{name} {label}: {e} > {tol} (+ {rtol}*|ref|){note}"
         err[name] = max(err[name], e)
+        return e
 
     hcfg = get_config(HYBRID)
     # gemma2-2b's width, then jamba's at its prefill and decode rows
@@ -386,11 +436,23 @@ def main() -> int:
     jamba_prefill_sizes = skewed_sizes(BATCH * PROMPT * hcfg.top_k, hcfg.n_experts, 5)
     jamba_decode_sizes = [2, 0, 1, 0, 0, 1, 0, 0, 2, 0, 0, 0, 1, 0, 0, 1]   # 8 rows
 
-    def gmm_case(label, sizes, D, Fo, dt, scale=1.0):
-        x = td(sum(sizes), D, dtype=dt)
+    gmm_err_by_kernel = {"tiled": 0.0, "small": 0.0}
+
+    def gmm_counts():
+        return {"tiled": gmm.launches_tiled, "small": gmm.launches_small}
+
+    def gmm_case(label, sizes, D, Fo, dt, scale=1.0, tail=0):
+        """``tail`` rows past the last group, whose output must be 0."""
+        x = td(sum(sizes) + tail, D, dtype=dt)
         w = td(len(sizes), D, Fo, dtype=dt, scale=scale)
         gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
-        check("gmm", f"{label} {dt}", gmm(x, w, gs), gmm_ref(x, w, gs), *gmm_tol[dt])
+        kind, before = gmm_kernel_for(x, w), gmm_counts()
+        out = gmm(x, w, gs)
+        moved = {n: c - before[n] for n, c in gmm_counts().items()}
+        assert moved == {n: int(n == kind) for n in moved}, (label, kind, moved)
+        e = check("gmm", f"[{kind}] {label} {dt}", out, gmm_ref(x, w, gs), *gmm_tol[dt])
+        gmm_err_by_kernel[kind] = max(gmm_err_by_kernel[kind], e)
+        assert not out[sum(sizes):].any(), f"gmm {label}: rows past the groups are not 0"
 
     for dt in (torch.float32, torch.bfloat16):
         # tests/test_kernels.py::test_gmm_vs_ragged_dot
@@ -404,6 +466,16 @@ def main() -> int:
             gmm_case(f"jamba {tag} up T{sum(sizes)} {d}->{f} sizes {sizes}", sizes, d, f,
                      dt, d ** -0.5)
             gmm_case(f"jamba {tag} down T{sum(sizes)} {f}->{d}", sizes, f, d, dt, f ** -0.5)
+    # the tiled kernel's edges (bf16; f32 stays on the small kernel)
+    for label, sizes, tail, D, Fo in [
+            ("empty and 1-row groups, sizes off 128", [0, 1, 200, 77, 0, 300], 0, 256, 384),
+            ("50 rows past the last group", [130, 1, 0, 5], 50, 512, 256),
+            ("D200 F328: multiples of 8, not of 32", [100, 28, 0, 300], 0, 200, 328),
+            (f"T{TILE_M - 1}, below the edge", [60, 0, 67], 0, 256, 256),
+            (f"T{TILE_M}, at the edge", [60, 0, 68], 0, 256, 256)]:
+        gmm_case(f"{label} sizes {sizes} D{D} F{Fo}", sizes, D, Fo, torch.bfloat16,
+                 D ** -0.5, tail)
+    log(f"[kernel] gmm max_abs_err by kernel: {json.dumps(gmm_err_by_kernel)}")
 
     # selective scan: f32 sums over d_state in another order; bf16 as gmm
     scan_tol = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-2, 2 ** -7)}
@@ -483,17 +555,18 @@ def main() -> int:
         for op in kernel_ops.values():
             op.launches = 0
         flash_attention.launches_split_kv = flash_attention.launches_tensor_core = 0
+        gmm.launches_tiled = gmm.launches_small = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         done = engine.run_batch()
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         launches = {name: op.launches for name, op in kernel_ops.items()}
-        by_kernel = flash_counts()
+        by_kernel, gmm_by_kernel = flash_counts(), gmm_counts()
         forwards = len(finite)
         expect = per_forward(cfg)
         log(f"[serve] {len(done)} requests, {forwards} forwards ({steps}), launches "
-            f"{launches}, flash by kernel {by_kernel}")
+            f"{launches}, flash by kernel {by_kernel}, gmm by kernel {gmm_by_kernel}")
         assert forwards == (N_REQ // BATCH) * (1 + NEW), forwards
         assert len(done) == N_REQ
         assert all(len(r.output) == NEW and all(0 <= x < cfg.vocab_size for x in r.output)
@@ -507,6 +580,12 @@ def main() -> int:
                              "tensor_core": n_attn * steps["prefill"]}, (by_kernel, steps)
         log(f"[serve] flash per forward: {n_attn} tensor-core calls per prefill, "
             f"{n_attn} split-KV calls per decode step")
+        # bf16 grouped matmul: the tiled kernel at prefill, the small one at decode
+        n_gmm = expect["gmm"]
+        assert gmm_by_kernel == {"tiled": n_gmm * steps["prefill"],
+                                 "small": n_gmm * steps["decode"]}, (gmm_by_kernel, steps)
+        log(f"[serve] gmm per forward: {n_gmm} tiled calls per prefill, "
+            f"{n_gmm} small calls per decode step")
         log(f"[serve] req 0: {done[0].output}")
 
         # steady-state serving: a second, uncounted run of the same requests
@@ -570,7 +649,7 @@ def main() -> int:
         torch.cuda.synchronize()
         log(f"[sync] {cfg.name}: one decode step ran with no host sync "
             "(set_sync_debug_mode('error'))")
-        return launches, expect, forwards, by_kernel
+        return launches, expect, forwards, by_kernel, gmm_by_kernel
 
     def init_on_card(cfg, note=""):
         gc.collect()
@@ -634,17 +713,19 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 4. times at the serving shapes --------------------------------------
+    flush = L2Flush()
+
     def rms_times(rows, D):
         x = t(rows, D, dtype=torch.bfloat16)
         sc = (t(D) + 1.0).to(torch.bfloat16)
         nbytes = 2 * x.numel() * 2 + sc.numel() * 2
         b_ms, b_by = bound(nbytes, 4 * x.numel(), "bfloat16")
         return {"shape": f"({rows}, {D}) bf16",
-                "ms": device_ms(lambda: rmsnorm(x, sc)),
+                "ms": device_ms(lambda: rmsnorm(x, sc), flush),
                 "event_ms": cuda_ms(lambda: rmsnorm(x, sc)),
-                "plain_ms": device_ms(lambda: rmsnorm_ref(x, sc)),
+                "plain_ms": device_ms(lambda: rmsnorm_ref(x, sc), flush),
                 "library_ms": device_ms(lambda: torch.nn.functional.rms_norm(
-                    x, (D,), sc, 1e-6)),
+                    x, (D,), sc, 1e-6), flush),
                 "bound_ms": b_ms, "bound_by": b_by}
 
     def flash_times(acfg, Sq, Skv, q_offset, kv_pos, window):
@@ -666,12 +747,14 @@ def main() -> int:
         cap = acfg.attn_softcap
         kw = dict(causal=True, window=window, softcap=cap, q_offset=q_offset)
         # a split-KV call is its split kernel and its combine kernel
-        by_kernel = device_ms_by_kernel(lambda: flash_attention(q, k, v, kv_pos=kp, **kw))
+        by_kernel = device_ms_by_kernel(lambda: flash_attention(q, k, v, kv_pos=kp, **kw),
+                                        flush)
         res = {"shape": f"B{B} Sq{Sq} Skv{Skv} Hq{Hq} Hkv{Hkv} hd{hd} bf16 w{window} cap{cap}",
                "kernel": kernel_for(q.dtype, Sq, Hq, Hkv),
                "ms": sum(by_kernel.values()), "by_kernel_ms": by_kernel,
                "event_ms": cuda_ms(lambda: flash_attention(q, k, v, kv_pos=kp, **kw)),
-               "plain_ms": device_ms(lambda: chunked_attention(q, k, v, kv_positions=kp, **kw)),
+               "plain_ms": device_ms(lambda: chunked_attention(q, k, v, kv_positions=kp, **kw),
+                                     flush),
                "bound_ms": b_ms, "bound_by": b_by,
                "library_note": "SDPA without the softcap: not the same function" if cap
                else "SDPA: the same function"}
@@ -680,34 +763,55 @@ def main() -> int:
         qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
         if kp is None:
             res["library_ms"] = device_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
+                qt, kt, vt, is_causal=True, enable_gqa=True), flush)
         else:
             mask = torch.from_numpy(valid).to(dev)[None, None]
             res["library_ms"] = device_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, enable_gqa=True))
+                qt, kt, vt, attn_mask=mask, enable_gqa=True), flush)
         return res
 
-    def gmm_times(sizes, D, Fo):
+    def gmm_times(sizes, D, Fo, routing="served routing"):
         T, E = sum(sizes), len(sizes)
         x = td(T, D, dtype=torch.bfloat16)
         w = td(E, D, Fo, dtype=torch.bfloat16, scale=D ** -0.5)
         gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
-        check("gmm", f"served routing T{T} {D}->{Fo} bf16", gmm(x, w, gs),
-              gmm_ref(x, w, gs), *gmm_tol[torch.bfloat16])
+        kind = gmm_kernel_for(x, w)
+        out = gmm(x, w, gs)
+        ref = gmm_ref(x, w, gs)
+        e = check("gmm", f"[{kind}] {routing} T{T} {D}->{Fo} bf16", out, ref,
+                  *gmm_tol[torch.bfloat16])
+        gmm_err_by_kernel[kind] = max(gmm_err_by_kernel[kind], e)
         active = sum(1 for s in sizes if s)     # only these panels are read
         nbytes = 2 * (T * D + active * D * Fo + T * Fo) + 4 * E
         b_ms, b_by = bound(nbytes, 2 * T * D * Fo, "bfloat16")
         # torch._grouped_mm is a yardstick only; the port never calls it
         offs = torch.cumsum(gs, 0, dtype=torch.int32)
-        lib = torch._grouped_mm(x, w, offs=offs)
-        return {"shape": f"T{T} D{D} F{Fo} E{E} ({active} groups with rows, "
-                         f"served routing) bf16",
-                "ms": device_ms(lambda: gmm(x, w, gs)),
-                "event_ms": cuda_ms(lambda: gmm(x, w, gs)),
-                "plain_ms": device_ms(lambda: gmm_ref(x, w, gs)),
-                "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": device_ms(lambda: torch._grouped_mm(x, w, offs=offs)),
-                "library_max_abs_diff": (lib.float() - gmm(x, w, gs).float()).abs().max().item()}
+        lib_out = torch._grouped_mm(x, w, offs=offs)
+        res = {"shape": f"T{T} D{D} F{Fo} E{E} ({active} groups with rows, "
+                        f"{routing}) bf16",
+               "kernel": kind,
+               "ms": device_ms(lambda: gmm(x, w, gs), flush),
+               "event_ms": cuda_ms(lambda: gmm(x, w, gs)),
+               "plain_ms": device_ms(lambda: gmm_ref(x, w, gs), flush),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": device_ms(lambda: torch._grouped_mm(x, w, offs=offs), flush),
+               "library_max_abs_diff": (lib_out.float() - out.float()).abs().max().item()}
+        if kind == "tiled":
+            # the small kernel on the same inputs, called past the dispatch
+            # (a yardstick of this run; the served path never takes it here)
+            small = torch.empty_like(out)
+
+            def small_gmm():
+                _build.check(lib, lib.gmm_launch(
+                    x.data_ptr(), w.data_ptr(), gs.data_ptr(), small.data_ptr(), T, D, Fo, E,
+                    _build.DTYPES[x.dtype], torch.cuda.current_stream().cuda_stream),
+                    "gmm_launch")
+
+            small_gmm()
+            check("gmm", f"[small, timed beside tiled] {routing} T{T} {D}->{Fo} bf16",
+                  small, ref, *gmm_tol[torch.bfloat16])
+            res["small_kernel_ms"] = device_ms(small_gmm, flush)
+        return res
 
     def scan_times(S):
         di, st = hcfg.ssm_d_inner, hcfg.ssm_d_state
@@ -719,9 +823,9 @@ def main() -> int:
         # per channel: dt*u and the D*u FMA
         b_ms, b_by = bound(nbytes, n * (7 * st + 3), "float32")
         return {"shape": f"B{BATCH} S{S} di{di} st{st} bf16",
-                "ms": device_ms(lambda: selective_scan(*args)),
+                "ms": device_ms(lambda: selective_scan(*args), flush),
                 "event_ms": cuda_ms(lambda: selective_scan(*args)),
-                "plain_ms": device_ms(lambda: selective_scan_ref(*args),
+                "plain_ms": device_ms(lambda: selective_scan_ref(*args), flush,
                                       iters=5 if S > 1 else 20, warmup=1),
                 "library_ms": None, "library_note": "no PyTorch call computes the scan",
                 "bound_ms": b_ms, "bound_by": b_by}
@@ -737,9 +841,18 @@ def main() -> int:
                 "decode": flash_times(hcfg, 1, MAX_SEQ, written - 1, half_written, 0)}
     d, f = hcfg.d_model, hcfg.expert_d_ff
     gmm_prefill = gmm_times(routed["prefill"], d, f)
+    # between the served ends: a decode step at batch 128 (256 routed rows,
+    # top-2 of 16 experts drawn per token), just past the 128-row edge, where
+    # both kernels read each active group's weight panel once
+    pick = np.random.default_rng(1)
+    mid_sizes = np.bincount(np.concatenate([pick.choice(hcfg.n_experts, hcfg.top_k,
+                                                        replace=False) for _ in range(128)]),
+                            minlength=hcfg.n_experts).tolist()
     gmm_more = {"prefill_down": gmm_times(routed["prefill"], f, d),
                 "decode": gmm_times(routed["decode"], d, f),
-                "decode_down": gmm_times(routed["decode"], f, d)}
+                "decode_down": gmm_times(routed["decode"], f, d),
+                "batch128_decode": gmm_times(mid_sizes, d, f, "batch-128 decode routing"),
+                "batch128_decode_down": gmm_times(mid_sizes, f, d, "batch-128 decode routing")}
     scan_prefill, scan_decode = scan_times(PROMPT), scan_times(1)
 
     kernels = []
@@ -750,7 +863,7 @@ def main() -> int:
             ("flash_attention", "src/repro_torch/kernels/csrc/flash_prefill.cu",
              "src/repro/kernels/flash_attention/flash_attention.py:75", fa_prefill, fa_decode,
              {"jamba": fa_jamba}),
-            ("gmm", "src/repro_torch/kernels/csrc/gmm.cu",
+            ("gmm", "src/repro_torch/kernels/csrc/gmm_prefill.cu",
              "src/repro/kernels/gmm/gmm.py:28", gmm_prefill, gmm_more["decode"],
              {k: v for k, v in gmm_more.items() if k != "decode"}),
             ("selective_scan", "src/repro_torch/kernels/csrc/selective_scan.cu",
@@ -773,6 +886,15 @@ def main() -> int:
                                                              for k, p in paths.items()}
             kernels[-1]["resources"] = flash_res
             kernels[-1]["bf16_max_abs_err_by_ref_magnitude"] = flash_bf16_by_mag
+        if name == "gmm":
+            kernels[-1]["sources"] = ["src/repro_torch/kernels/csrc/gmm_prefill.cu",
+                                      "src/repro_torch/kernels/csrc/gmm.cu"]
+            for served in ("tiled", "small"):
+                kernels[-1][f"launches_{served}"] = sum(p[4][served] for p in paths.values())
+                kernels[-1][f"launches_{served}_by_path"] = {k: p[4][served]
+                                                             for k, p in paths.items()}
+            kernels[-1]["resources"] = gmm_res
+            kernels[-1]["max_abs_err_by_kernel"] = gmm_err_by_kernel
         assert kernels[-1]["launches"] > 0, f"{name}: no launch on the main paths"
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

@@ -75,6 +75,9 @@ SIGNATURES = {
         _I, _P],                            # dtype, stream
     "gmm_launch": [_P, _P, _P, _P,          # x, w, group_sizes, out
                    _I, _I, _I, _I, _I, _P],  # T, D, F, E, dtype, stream
+    "gmm_prefill_launch": [_P, _P, _P, _P,  # x, w, group_sizes, out (bf16)
+                           _I, _I, _I, _I, _P],   # T, D, F, E, stream
+    "gmm_prefill_attrs": [_IP],             # int[4], as flash_prefill_attrs
 }
 
 _lock = threading.Lock()

@@ -1,19 +1,20 @@
 // Grouped matmul for Hopper: rows of x sorted by group, each row times its
 // group's (D, F) weight, f32 accumulation, output in x's dtype. Ragged in,
 // ragged out: out[r] = x[r] @ w[g(r)], and rows past the last group are 0
-// (as lax.ragged_dot gives them).
+// (as lax.ragged_dot gives them). This is the kernel for every f32 call and
+// for the bf16 calls the 128-row tensor-core kernel (gmm_prefill.cu) does
+// not take: fewer rows than one of its tiles, which is every decode step,
+// or widths and pointers it cannot copy 16 bytes at a time
+// (kernels/gmm/gmm.py::kernel_for).
 //
 // Replaces src/repro/kernels/gmm/gmm.py::gmm_pallas (_gmm_kernel) and its
-// wrapper's pad_groups. The TPU kernel needs every group padded to whole
-// row tiles, which needs the group sizes on the host (gmm.py:66): on the
-// card that is a host sync per MoE layer in every decode step. Here every
-// block reads group_sizes (a device tensor) itself: warp 0 takes an
-// exclusive prefix of the sizes and of their tile counts with shuffles and
-// maps the block's x-index to (group, first row). The grid bounds the tile
-// count from above, ceil(T / BM) + E + 1 row tiles (the +1 is the zero tail
-// past the last group) by ceil(F / BN) column tiles; blocks past the real
-// count exit at once. Rows are read and written at their own positions,
-// with bounds masks: no padded copy of x, no scatter, no gather.
+// wrapper's pad_groups for those calls. The TPU kernel needs every group
+// padded to whole row tiles, which needs the group sizes on the host
+// (gmm.py:66): on the card that is a host sync per MoE layer in every
+// decode step. Here every block maps itself to (group, rows) from
+// group_sizes on the device (gmm.cuh), with 64-row tiles. Rows are read and
+// written at their own positions, with bounds masks: no padded copy of x,
+// no scatter, no gather.
 //
 // A block computes a (BM x BN) = (64 x 64) tile with a K loop over D in
 // steps of 32 through shared memory (16-byte loads where D, F and the
@@ -21,13 +22,11 @@
 // f32 accumulators, each of 4 warps owns 32 x 32); f32 runs as f32 FMAs, 32
 // outputs per thread. Results go through shared memory to coalesced stores.
 //
-// What bounds it on the H100: at prefill (4,096 rows, D 4096, F 14336) the
-// 481 GFLOP are 0.49 ms at the bf16 tensor-core peak and the 16 weight
-// panels 1.88 GB, 0.56 ms at 3.35 TB/s: both matter. At decode (8 rows) it
-// is the weight bytes alone; each active group's column panel is streamed
-// by its own blocks, F / BN of them. This first kernel has no cp.async or
-// TMA pipeline; wgmma/TMA are later work.
-#include "common.cuh"
+// What bounds it on the H100: at decode (8 rows) the weight bytes alone;
+// each active group's column panel is streamed by its own blocks, F / BN of
+// them. This kernel has no cp.async or TMA pipeline; the decode path's
+// redesign is later work.
+#include "gmm.cuh"
 #include <mma.h>
 
 namespace {
@@ -96,44 +95,12 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w, const int* __restri
            bool vec_o) {
   using L = Smem<T>;
   __shared__ __align__(128) unsigned char smem[L::bytes];
-  __shared__ int s_group, s_r0, s_r1;
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int bx = blockIdx.x;
+  const int tid = threadIdx.x;
 
   // -- which group and rows this block owns --------------------------------
-  if (tid == 0) s_group = -2;        // -2: no tile, -1: zero tail
-  __syncthreads();
-  if (tid < 32) {
-    int tile_base = 0, row_base = 0;
-    for (int c0 = 0; c0 < E; c0 += 32) {
-      const int g = c0 + lane < E ? max(gs[c0 + lane], 0) : 0;
-      const int tiles = (g + kBM - 1) / kBM;
-      int gi = g, ti = tiles;        // inclusive prefix over the warp
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int gn = __shfl_up_sync(0xffffffffu, gi, off);
-        const int tn = __shfl_up_sync(0xffffffffu, ti, off);
-        if (lane >= off) { gi += gn; ti += tn; }
-      }
-      const int t0 = tile_base + ti - tiles, r0 = row_base + gi - g;
-      if (bx >= t0 && bx < t0 + tiles) {     // at most one lane
-        s_group = c0 + lane;
-        s_r0 = r0 + (bx - t0) * kBM;
-        s_r1 = min(r0 + g, s_r0 + kBM);
-      }
-      tile_base += __shfl_sync(0xffffffffu, ti, 31);
-      row_base += __shfl_sync(0xffffffffu, gi, 31);
-    }
-    if (lane == 0 && bx >= tile_base && row_base < Tn) {
-      const int r0 = row_base + (bx - tile_base) * kBM;
-      if (r0 < Tn) { s_group = -1; s_r0 = r0; s_r1 = min(r0 + kBM, Tn); }
-    }
-  }
-  __syncthreads();
-  const int e = s_group;
-  if (e == -2) return;
-  const int r0 = min(s_r0, Tn), rows = min(s_r1, Tn) - r0;
-  if (rows <= 0) return;
+  const gmm::Tile tile = gmm::block_tile<kBM>(gs, Tn, E, blockIdx.x);
+  if (tile.rows <= 0) return;
+  const int e = tile.group, r0 = tile.r0, rows = tile.rows;
   const int n0 = blockIdx.y * kBN;
 
   float* Cs = reinterpret_cast<float*>(smem);
@@ -226,7 +193,7 @@ cudaError_t launch(const void* x, const void* w, const int* gs, void* out, int T
   const bool vec_a = D % V == 0 && aligned(x);
   const bool vec_b = F % V == 0 && aligned(w);
   const bool vec_o = F % V == 0 && aligned(out);
-  dim3 grid((Tn + kBM - 1) / kBM + E + 1, (F + kBN - 1) / kBN);
+  dim3 grid(gmm::grid_rows<kBM>(Tn, E), (F + kBN - 1) / kBN);
   gmm_kernel<T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), gs, static_cast<T*>(out),
       Tn, D, F, E, vec_a, vec_b, vec_o);

@@ -1,10 +1,17 @@
-"""Public grouped-matmul entry point: the CUDA kernel for CUDA tensors, the
+"""Public grouped-matmul entry point: the CUDA kernels for CUDA tensors, the
 plain per-group version for CPU tensors.
 
 Replaces ``repro/kernels/gmm/ops.py::gmm`` (whose Pallas kernel is
-``gmm.py::gmm_pallas``). A CUDA tensor launches the kernel or raises; only a
-CPU tensor takes ``gmm_ref``. ``gmm.launches`` counts the kernel launches.
-What bounds the kernel: see ``csrc/gmm.cu``.
+``gmm.py::gmm_pallas``). A CUDA tensor launches a kernel or raises; only a
+CPU tensor takes ``gmm_ref``. Which kernel serves a CUDA call (the tiled
+tensor-core kernel for bf16 prefill, the small kernel otherwise) is
+``gmm.kernel_for``'s choice, with no fallback between them.
+
+Counters, plain ints on this function, moved by the kernel that
+``gmm_cuda`` reports it launched: ``launches`` counts calls that launched a
+kernel; ``launches_tiled`` and ``launches_small`` count the calls each of
+the two kernels served. What bounds each kernel: see ``csrc/gmm_prefill.cu``
+and ``csrc/gmm.cu``.
 """
 from __future__ import annotations
 
@@ -19,9 +26,16 @@ def gmm(x, w, group_sizes):
         return gmm_ref(x, w, group_sizes)
     if x.device.type != "cuda":
         raise ValueError(f"gmm: no kernel for device {x.device}")
-    out = gmm_cuda(x, w, group_sizes)
-    gmm.launches += 1
+    out, launched = gmm_cuda(x, w, group_sizes)
+    if launched is not None:
+        gmm.launches += 1
+    if launched == "tiled":
+        gmm.launches_tiled += 1
+    elif launched == "small":
+        gmm.launches_small += 1
     return out
 
 
 gmm.launches = 0
+gmm.launches_tiled = 0
+gmm.launches_small = 0

@@ -11,8 +11,9 @@ torch.set_num_threads(1)
 
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import chunked_attention  # noqa: E402
+from repro_torch.kernels.gmm.gmm import kernel_for  # noqa: E402
 from repro_torch.kernels.gmm.ops import gmm  # noqa: E402
-from repro_torch.kernels.gmm.ref import gmm_ref  # noqa: E402
+from repro_torch.kernels.gmm.ref import TILE_M, gmm_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.selective_scan.ops import selective_scan  # noqa: E402
@@ -211,6 +212,74 @@ def test_gmm_kernel_matches_plain(cuda, sizes, D, F, dtype):
     np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
                                atol=atol, rtol=rtol)
     assert not out[sum(sizes):].any()
+
+
+def _gmm_counts():
+    return (gmm.launches, gmm.launches_tiled, gmm.launches_small)
+
+
+# the tiled kernel's cases: sizes, rows past the groups, D, F
+GMM_TILED_CASES = [
+    ([0, 1, 200, 77, 0, 300], 0, 136, 264),     # empty and 1-row groups, off 128
+    ([130, 1, 0, 5], 50, 64, 128),              # rows past the last group
+    ([100, 28, 0, 0], 0, 200, 328),             # D, F multiples of 8, not of 32
+    ([TILE_M], 0, 72, 40),              # the threshold: one tile of rows
+    ([203, 321, 0, 1, 255, 257, 130, 3], 3, 1024, 520),
+]
+
+
+@pytest.mark.parametrize("sizes,tail,D,F", GMM_TILED_CASES)
+def test_gmm_tiled_kernel_matches_plain(cuda, sizes, tail, D, F):
+    rng = np.random.default_rng(8)
+    x = _t(rng, (sum(sizes) + tail, D), torch.bfloat16, cuda)
+    w = (_t(rng, (len(sizes), D, F), torch.float32, cuda) / D ** 0.5).to(torch.bfloat16)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    assert kernel_for(x, w) == "tiled"
+    before = _gmm_counts()
+    out = gmm(x, w, gs)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_gmm_counts(), before)) == (1, 1, 0)
+    atol, rtol = GMM_TOL[torch.bfloat16]
+    np.testing.assert_allclose(out.float().cpu().numpy(), gmm_ref(x, w, gs).float().cpu().numpy(),
+                               atol=atol, rtol=rtol)
+    assert not out[sum(sizes):].any()
+
+
+@pytest.mark.parametrize("T,dtype,kind", [(8, torch.bfloat16, "small"),
+                                          (TILE_M - 1, torch.bfloat16, "small"),
+                                          (TILE_M, torch.bfloat16, "tiled"),
+                                          (512, torch.bfloat16, "tiled"),
+                                          (512, torch.float32, "small")])
+def test_gmm_call_moves_exactly_one_counter(cuda, T, dtype, kind):
+    rng = np.random.default_rng(9)
+    x = _t(rng, (T, 256), dtype, cuda)
+    w = (_t(rng, (4, 256, 384), torch.float32, cuda) / 16).to(dtype)
+    gs = torch.tensor([T // 2, 0, T - T // 2 - 1, 1], dtype=torch.int32, device=cuda)
+    before = _gmm_counts()
+    out = gmm(x, w, gs)
+    torch.cuda.synchronize()
+    moved = tuple(a - b for a, b in zip(_gmm_counts(), before))
+    assert moved == ((1, 1, 0) if kind == "tiled" else (1, 0, 1)), moved
+    atol, rtol = GMM_TOL[dtype]
+    np.testing.assert_allclose(out.float().cpu().numpy(), gmm_ref(x, w, gs).float().cpu().numpy(),
+                               atol=atol, rtol=rtol)
+
+
+def test_gmm_tiled_kernel_makes_no_host_sync(cuda):
+    rng = np.random.default_rng(10)
+    x = _t(rng, (512, 128), torch.bfloat16, cuda)
+    w = (_t(rng, (4, 128, 256), torch.float32, cuda) / 12).to(torch.bfloat16)
+    gs = torch.tensor([100, 0, 300, 112], dtype=torch.int32, device=cuda)
+    gmm(x, w, gs)                               # build, warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = gmm(x, w, gs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    atol, rtol = GMM_TOL[torch.bfloat16]
+    np.testing.assert_allclose(out.float().cpu().numpy(), gmm_ref(x, w, gs).float().cpu().numpy(),
+                               atol=atol, rtol=rtol)
 
 
 @pytest.mark.parametrize("B,S,di,st", [(1, 64, 32, 4), (2, 128, 64, 8), (1, 32, 16, 16),
