@@ -7,8 +7,9 @@ Phases, each of which passes or ends the script with a non-zero exit:
   0. device: a CUDA card must be present; prints its name and power limit;
   1. build: compiles the port's CUDA kernels from the repository's sources;
      prints the registers, local memory (spills) and shared memory of every
-     flash-attention kernel and of the tiled grouped-matmul kernel, as
-     ``cudaFuncGetAttributes`` reports them for the loaded library;
+     flash-attention kernel and of the tiled and decode grouped-matmul
+     kernels, as ``cudaFuncGetAttributes`` reports them for the loaded
+     library;
   2. kernels vs plain versions on the card, on seeded inputs, each case
      printed with its max abs error and tolerance (RMSNorm and flash
      attention at gemma2-2b's and jamba's shapes, grouped matmul and
@@ -19,13 +20,16 @@ Phases, each of which passes or ends the script with a non-zero exit:
      of the Sq x G = 16 edge; f32 runs on the FMA kernel. bf16 flash is
      held to 2e-2 everywhere and 8e-3 where |ref| < 1, and its max error by
      output magnitude is printed. Grouped matmul in bf16 runs on the tiled
-     kernel (at least 128 rows) or the small one, each case asserting which
-     served it: empty and 1-row groups, groups off the 128-row tile, rows
-     past the last group, D and F multiples of 8 but not of 32, both sides
-     of the 128-row edge, jamba's prefill and decode; f32 runs on the small
-     kernel. Plus a reduced
-     gemma2-2b and a reduced hybrid (jamba's 8-block pattern) served on the
-     card (kernels) and on the CPU (plain path), which must agree;
+     kernel (at least 128 rows) or the decode kernel (fewer), each case
+     asserting which served it: empty and 1-row groups, groups off the
+     128-row tile, groups of 16, 17 and 33 rows (one to three of the decode
+     kernel's 16-row slots), T = 1, rows past the last group, D and F
+     multiples of 8 but not of 32 or 64, both sides of the 128-row edge,
+     jamba's prefill and decode; f32 runs on the small kernel, which is
+     also held in bf16 at jamba's decode shapes, called past the dispatch.
+     Plus a reduced gemma2-2b and a reduced hybrid (jamba's 8-block
+     pattern) served on the card (kernels) and on the CPU (plain path),
+     which must agree;
   3. serve: full-width gemma2-2b (26 layers, bf16, seed-0 weights) through
      ``ServingEngine``: 8 requests, batch 4, prompt 512, 16 new tokens,
      max_seq 1024. Every RMSNorm and attention must have gone through the
@@ -33,28 +37,31 @@ Phases, each of which passes or ends the script with a non-zero exit:
      tensor-core kernel at prefill and the split-KV kernel at decode (26
      each per forward);
      Prints prefill ms, decode ms per step and tokens/s, and a profile of
-     one prefill and one decode step (device busy share, top kernels),
-     and one decode step under ``torch.cuda.set_sync_debug_mode("error")``;
+     one prefill and one decode step (device busy share, top kernels, the
+     host's self CPU time and top host events), and one decode step under
+     ``torch.cuda.set_sync_debug_mode("error")``;
   3b. serve: full-width jamba-v0.1-52b cut to 8 layers (one period of its
      block: 7 mamba, 1 attention, 4 MoE, 4 MLP layers; bf16, seed-0
      weights), gemma2-2b freed first, with the same requests. Launch counts
      per forward come from the pattern: RMSNorm 17, flash 1 (tensor-core at
      prefill, split-KV at decode), selective scan 7, grouped matmul 12 (the
-     tiled kernel at prefill, the small one at decode). The same timings, profile and sync check; then
-     the group sizes each MoE layer routes in one prefill and decode step;
+     tiled kernel at prefill, the decode kernel at decode). The same
+     timings, profile and sync check; then the group sizes each MoE layer
+     routes in one prefill and decode step;
   4. times at the serving shapes, after warm-up: each kernel's, its plain
      version's and the library call's device time per call (the summed
      kernel time under the profiler, with a 256 MB scratch buffer read
      before every call so that no input is left in the 50 MB L2; the
-     flush's own kernel is left out of the sum), the kernel's CUDA-event
+     flush's own kernels are left out of the sums), the kernel's CUDA-event
      time per call of back-to-back launches (no flush, host launch cost
      included), and its bound. A split-KV call's device time sums its split
      and combine kernels. Grouped matmul is timed at the served model's
      routing (first MoE layer), and checked against its plain version
-     there too, and at a batch-128 decode step's 256 rows (drawn top-2
-     routing), past the 128-row edge; wherever the tiled kernel serves, the
-     small kernel is timed beside it on the same inputs, called past the
-     dispatch.
+     there too, and at decode steps of batch 16, 32, 63, 64, 80, 96, 112 and
+     128 (drawn top-2 routing: 32 to 256 rows), on both sides of the
+     128-row edge;
+     beside the kernel that serves a row, the other kernels named for it
+     are timed on the same inputs, called past the dispatch.
 The last two lines are the kernels' JSON line and the result line.
 """
 from __future__ import annotations
@@ -112,13 +119,24 @@ def device_kernels(prof, required=True):
     return kern
 
 
-def profiled_kernels(fn, iters, sessions=5):
+# profiler sessions of the timed phases: taken, retaken, kept though the
+# L2 flush lost some of its own events
+SESSIONS = {"taken": 0, "retaken": 0, "flush_lost": 0}
+
+
+def profiled_kernels(fn, iters, sessions=5, ignore=frozenset()):
     """The profiler's device events of ``iters`` calls of ``fn``. A profiler
     session now and then records no device event at all (seen on an H100),
     and one that loses some events would read short. Every call of ``fn``
     launches the same kernels, so a session is kept only if each event's
     count is a multiple of ``iters``; else it is repeated, up to ``sessions``
-    in all, and if none is whole the run fails."""
+    in all, and if none is whole the run fails. Events keyed in ``ignore``
+    (the L2 flush's own, one each a call, which no time includes) may fall
+    short of ``iters`` (an H100 once lost one flush memset in each of five
+    sessions in a row); such a session is kept and counted in
+    ``SESSIONS["flush_lost"]``. A count over ``iters`` under such a key means
+    a timed call shares it, and it is then held to whole multiples like
+    every other key."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for session in range(sessions):
@@ -127,12 +145,20 @@ def profiled_kernels(fn, iters, sessions=5):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+        SESSIONS["taken"] += 1
         kern = device_kernels(prof, required=False)
-        short = {a.key[:60]: a.count for a in kern if a.count % iters}
-        if kern and not short:
+        off = {a.key: a.count for a in kern if a.count % iters}
+        lost = {k: n for k, n in off.items() if k in ignore and n < iters}
+        short = {k[:60]: n for k, n in off.items() if k not in lost}
+        if not short and any(a.key not in ignore for a in kern):
+            if lost:
+                SESSIONS["flush_lost"] += 1
+                log(f"[profile] session {session + 1} kept: the L2 flush's own events read "
+                    f"{ {k[:60]: n for k, n in lost.items()} } of {iters} calls")
             return kern
-        log(f"[profile] session {session + 1} of {sessions} recorded "
-            f"{'no device event' if not kern else f'counts off {iters} calls: {short}'}; again")
+        SESSIONS["retaken"] += 1
+        what = f"counts off {iters} calls: {short}" if short else "no event of the timed calls"
+        log(f"[profile] session {session + 1} of {sessions} recorded {what}; again")
     raise AssertionError(f"the profiler recorded no whole session of {iters} calls")
 
 
@@ -142,12 +168,15 @@ class L2Flush:
     device memory, as a serving step does a layer's weights. A read leaves
     clean lines, so the timed call pays no write-back of the flush's bytes.
     ``keys`` are the profiler keys of the flush's own kernels, found by
-    profiling it alone."""
+    profiling it alone, and ``ms`` their device time per call there."""
 
-    def __init__(self):
+    def __init__(self, iters=10):
         import torch
         self.buf = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
-        self.keys = {a.key for a in profiled_kernels(self, 3)}
+        kern = profiled_kernels(self, iters)
+        assert all(a.count == iters for a in kern), [(a.key[:60], a.count) for a in kern]
+        self.keys = {a.key for a in kern}
+        self.ms = {a.key: a.self_device_time_total / 1e3 / iters for a in kern}
 
     def __call__(self):
         self.buf.sum()
@@ -158,7 +187,9 @@ def device_ms_by_kernel(fn, flush, iters=20, warmup=3):
     the profiler's kernel events: without the host's launch gaps (which CUDA
     events around back-to-back launches of a small kernel would measure).
     ``flush`` (an ``L2Flush``) runs before every call; its kernels are left
-    out."""
+    out. Where a timed call launches a kernel under one of the flush's keys
+    (SDPA launches memsets, as the flush does), that key's time is kept,
+    less the flush's own time per call."""
     def flushed():
         flush()
         fn()
@@ -166,13 +197,16 @@ def device_ms_by_kernel(fn, flush, iters=20, warmup=3):
     for _ in range(warmup):
         flushed()
     out = {}
-    for a in profiled_kernels(flushed, iters):
+    for a in profiled_kernels(flushed, iters, ignore=flush.keys):
+        ms = a.self_device_time_total / 1e3 / iters
         if a.key in flush.keys:
-            continue
+            if a.count <= iters:    # the flush's own, once a call
+                continue
+            ms = max(ms - flush.ms[a.key], 0.0)     # a timed call's too
         # "void (anonymous namespace)::flash_split_kernel<256>(...)" -> "flash_split_kernel<256>"
         name = a.key.replace("void ", "").replace("(anonymous namespace)::", "")
         name = name.split("(")[0][:60]
-        out[name] = out.get(name, 0.0) + a.self_device_time_total / 1e3 / iters
+        out[name] = out.get(name, 0.0) + ms
     return out
 
 
@@ -248,6 +282,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import chunked_attention
     from repro_torch.kernels.gmm.gmm import kernel_for as gmm_kernel_for
+    from repro_torch.kernels.gmm.gmm import launch as gmm_launch
     from repro_torch.kernels.gmm.ops import gmm
     from repro_torch.kernels.gmm.ref import TILE_M, gmm_ref
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
@@ -278,7 +313,8 @@ def main() -> int:
     log(f"[build] kernels ready in {time.perf_counter() - t0:.1f}s "
         f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'})")
     flash_res = flash_resources(lib, HEAD_DIMS)
-    gmm_res = {"gmm_prefill_kernel": kernel_attrs(lib, lib.gmm_prefill_attrs, 4)}
+    gmm_res = {"gmm_prefill_kernel": kernel_attrs(lib, lib.gmm_prefill_attrs, 4),
+               "gmm_decode_kernel": kernel_attrs(lib, lib.gmm_decode_attrs, 4)}
     for name, r in sorted({**flash_res, **gmm_res}.items()):
         log(f"[build] {name}: {json.dumps(r)}")
 
@@ -436,13 +472,17 @@ def main() -> int:
     jamba_prefill_sizes = skewed_sizes(BATCH * PROMPT * hcfg.top_k, hcfg.n_experts, 5)
     jamba_decode_sizes = [2, 0, 1, 0, 0, 1, 0, 0, 2, 0, 0, 0, 1, 0, 0, 1]   # 8 rows
 
-    gmm_err_by_kernel = {"tiled": 0.0, "small": 0.0}
+    gmm_err_by_kernel = {"tiled": 0.0, "decode": 0.0, "small": 0.0}
 
     def gmm_counts():
-        return {"tiled": gmm.launches_tiled, "small": gmm.launches_small}
+        return {"tiled": gmm.launches_tiled, "decode": gmm.launches_decode,
+                "small": gmm.launches_small}
 
-    def gmm_case(label, sizes, D, Fo, dt, scale=1.0, tail=0):
-        """``tail`` rows past the last group, whose output must be 0."""
+
+    def gmm_case(label, sizes, D, Fo, dt, scale=1.0, tail=0, beside=()):
+        """``tail`` rows past the last group, whose output must be 0; each
+        kernel named in ``beside`` is held on the same inputs too, called
+        past the dispatch."""
         x = td(sum(sizes) + tail, D, dtype=dt)
         w = td(len(sizes), D, Fo, dtype=dt, scale=scale)
         gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
@@ -450,9 +490,16 @@ def main() -> int:
         out = gmm(x, w, gs)
         moved = {n: c - before[n] for n, c in gmm_counts().items()}
         assert moved == {n: int(n == kind) for n in moved}, (label, kind, moved)
-        e = check("gmm", f"[{kind}] {label} {dt}", out, gmm_ref(x, w, gs), *gmm_tol[dt])
+        ref = gmm_ref(x, w, gs)
+        e = check("gmm", f"[{kind}] {label} {dt}", out, ref, *gmm_tol[dt])
         gmm_err_by_kernel[kind] = max(gmm_err_by_kernel[kind], e)
         assert not out[sum(sizes):].any(), f"gmm {label}: rows past the groups are not 0"
+        for other in beside:      # NaN wherever the kernel writes nothing
+            o = torch.full_like(out, math.nan)
+            gmm_launch(other, x, w, gs, o)
+            e = check("gmm", f"[{other}, past the dispatch] {label} {dt}", o, ref,
+                      *gmm_tol[dt])
+            gmm_err_by_kernel[other] = max(gmm_err_by_kernel[other], e)
 
     for dt in (torch.float32, torch.bfloat16):
         # tests/test_kernels.py::test_gmm_vs_ragged_dot
@@ -462,17 +509,30 @@ def main() -> int:
         # jamba's expert FFN: up/gate (4096 -> 14336) and down (14336 -> 4096),
         # at prefill (B4 x 512 tokens x top-2) and decode (B4 x top-2 = 8 rows)
         d, f = hcfg.d_model, hcfg.expert_d_ff
+        # the small kernel still serves bf16 calls of odd widths or
+        # alignments: hold it in bf16 at jamba's decode shapes too
         for tag, sizes in (("prefill", jamba_prefill_sizes), ("decode", jamba_decode_sizes)):
+            beside = ("small",) if tag == "decode" and dt == torch.bfloat16 else ()
             gmm_case(f"jamba {tag} up T{sum(sizes)} {d}->{f} sizes {sizes}", sizes, d, f,
-                     dt, d ** -0.5)
-            gmm_case(f"jamba {tag} down T{sum(sizes)} {f}->{d}", sizes, f, d, dt, f ** -0.5)
+                     dt, d ** -0.5, beside=beside)
+            gmm_case(f"jamba {tag} down T{sum(sizes)} {f}->{d}", sizes, f, d, dt, f ** -0.5,
+                     beside=beside)
     # the tiled kernel's edges (bf16; f32 stays on the small kernel)
     for label, sizes, tail, D, Fo in [
             ("empty and 1-row groups, sizes off 128", [0, 1, 200, 77, 0, 300], 0, 256, 384),
             ("50 rows past the last group", [130, 1, 0, 5], 50, 512, 256),
             ("D200 F328: multiples of 8, not of 32", [100, 28, 0, 300], 0, 200, 328),
             (f"T{TILE_M - 1}, below the edge", [60, 0, 67], 0, 256, 256),
-            (f"T{TILE_M}, at the edge", [60, 0, 68], 0, 256, 256)]:
+            (f"T{TILE_M}, at the edge", [60, 0, 68], 0, 256, 256),
+            # the decode kernel's edges: its 16-row slots, K steps of 64
+            ("T1", [0, 1, 0, 0], 0, 4096, 1024),
+            ("a group of 16 rows, one slot", [16, 0, 1], 0, 512, 512),
+            ("a group of 17 rows, two slots", [17, 2, 0], 0, 512, 512),
+            ("a group of 33 rows, three slots", [33, 0, 0, 5], 0, 512, 512),
+            ("empty groups between full ones", [3, 0, 0, 0, 4, 0, 0, 1], 0, 1024, 512),
+            ("20 rows past the last group, T34", [5, 0, 9], 20, 512, 256),
+            ("D200 F328 below the edge: multiples of 8, not of 64", [40, 28, 0, 30], 0, 200,
+             328)]:
         gmm_case(f"{label} sizes {sizes} D{D} F{Fo}", sizes, D, Fo, torch.bfloat16,
                  D ** -0.5, tail)
     log(f"[kernel] gmm max_abs_err by kernel: {json.dumps(gmm_err_by_kernel)}")
@@ -555,7 +615,7 @@ def main() -> int:
         for op in kernel_ops.values():
             op.launches = 0
         flash_attention.launches_split_kv = flash_attention.launches_tensor_core = 0
-        gmm.launches_tiled = gmm.launches_small = 0
+        gmm.launches_tiled = gmm.launches_decode = gmm.launches_small = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         done = engine.run_batch()
@@ -580,12 +640,14 @@ def main() -> int:
                              "tensor_core": n_attn * steps["prefill"]}, (by_kernel, steps)
         log(f"[serve] flash per forward: {n_attn} tensor-core calls per prefill, "
             f"{n_attn} split-KV calls per decode step")
-        # bf16 grouped matmul: the tiled kernel at prefill, the small one at decode
+        # bf16 grouped matmul: the tiled kernel at prefill, the decode one at
+        # decode, the small one never
         n_gmm = expect["gmm"]
         assert gmm_by_kernel == {"tiled": n_gmm * steps["prefill"],
-                                 "small": n_gmm * steps["decode"]}, (gmm_by_kernel, steps)
+                                 "decode": n_gmm * steps["decode"],
+                                 "small": 0}, (gmm_by_kernel, steps)
         log(f"[serve] gmm per forward: {n_gmm} tiled calls per prefill, "
-            f"{n_gmm} small calls per decode step")
+            f"{n_gmm} decode calls per decode step, 0 small")
         log(f"[serve] req 0: {done[0].output}")
 
         # steady-state serving: a second, uncounted run of the same requests
@@ -634,6 +696,14 @@ def main() -> int:
                 f"{sum(a.count for a in kern)} kernels")
             for a in sorted(kern, key=lambda a: -a.self_device_time_total)[:10]:
                 log(f"[profile]   {a.self_device_time_total / 1e3:9.3f} ms {a.count:5d}x "
+                    f"{a.key[:90]}")
+            # where the host's time goes (the profiler's own cost included)
+            from torch.autograd import DeviceType
+            host = [a for a in prof.key_averages() if a.device_type == DeviceType.CPU]
+            log(f"[profile]   host: {sum(a.self_cpu_time_total for a in host) / 1e3:.3f} ms "
+                f"self CPU time in {sum(a.count for a in host)} events, the most:")
+            for a in sorted(host, key=lambda a: -a.self_cpu_time_total)[:6]:
+                log(f"[profile]   host {a.self_cpu_time_total / 1e3:9.3f} ms {a.count:5d}x "
                     f"{a.key[:90]}")
 
         profiled(f"{cfg.name} prefill", lambda: prefill(params, {"tokens": tokens}, cache))
@@ -770,7 +840,9 @@ def main() -> int:
                 qt, kt, vt, attn_mask=mask, enable_gqa=True), flush)
         return res
 
-    def gmm_times(sizes, D, Fo, routing="served routing"):
+    def gmm_times(sizes, D, Fo, routing="served routing", beside=("small",)):
+        """The serving kernel's row, and each kernel named in ``beside``
+        timed on the same inputs, called past the dispatch."""
         T, E = sum(sizes), len(sizes)
         x = td(T, D, dtype=torch.bfloat16)
         w = td(E, D, Fo, dtype=torch.bfloat16, scale=D ** -0.5)
@@ -796,21 +868,16 @@ def main() -> int:
                "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": device_ms(lambda: torch._grouped_mm(x, w, offs=offs), flush),
                "library_max_abs_diff": (lib_out.float() - out.float()).abs().max().item()}
-        if kind == "tiled":
-            # the small kernel on the same inputs, called past the dispatch
-            # (a yardstick of this run; the served path never takes it here)
-            small = torch.empty_like(out)
-
-            def small_gmm():
-                _build.check(lib, lib.gmm_launch(
-                    x.data_ptr(), w.data_ptr(), gs.data_ptr(), small.data_ptr(), T, D, Fo, E,
-                    _build.DTYPES[x.dtype], torch.cuda.current_stream().cuda_stream),
-                    "gmm_launch")
-
-            small_gmm()
-            check("gmm", f"[small, timed beside tiled] {routing} T{T} {D}->{Fo} bf16",
-                  small, ref, *gmm_tol[torch.bfloat16])
-            res["small_kernel_ms"] = device_ms(small_gmm, flush)
+        for other in beside:
+            # a yardstick of this run; the served path never takes it here
+            assert other != kind, (other, kind)
+            o = torch.full_like(out, math.nan)      # NaN wherever it writes nothing
+            gmm_launch(other, x, w, gs, o)
+            e = check("gmm", f"[{other}, timed beside {kind}] {routing} T{T} {D}->{Fo} bf16",
+                      o, ref, *gmm_tol[torch.bfloat16])
+            gmm_err_by_kernel[other] = max(gmm_err_by_kernel[other], e)
+            res[f"{other}_kernel_ms"] = device_ms(
+                lambda: gmm_launch(other, x, w, gs, o), flush)
         return res
 
     def scan_times(S):
@@ -841,19 +908,33 @@ def main() -> int:
                 "decode": flash_times(hcfg, 1, MAX_SEQ, written - 1, half_written, 0)}
     d, f = hcfg.d_model, hcfg.expert_d_ff
     gmm_prefill = gmm_times(routed["prefill"], d, f)
-    # between the served ends: a decode step at batch 128 (256 routed rows,
-    # top-2 of 16 experts drawn per token), just past the 128-row edge, where
-    # both kernels read each active group's weight panel once
-    pick = np.random.default_rng(1)
-    mid_sizes = np.bincount(np.concatenate([pick.choice(hcfg.n_experts, hcfg.top_k,
-                                                        replace=False) for _ in range(128)]),
-                            minlength=hcfg.n_experts).tolist()
+
+    def drawn_sizes(batch):
+        """A decode step's group sizes at batch ``batch``: top-2 of 16
+        experts drawn per token, the first ``batch`` tokens of one seeded
+        draw (so batch 128 routes as in earlier runs)."""
+        pick = np.random.default_rng(1)
+        return np.bincount(np.concatenate([
+            pick.choice(hcfg.n_experts, hcfg.top_k, replace=False) for _ in range(batch)]),
+            minlength=hcfg.n_experts).tolist()
+
     gmm_more = {"prefill_down": gmm_times(routed["prefill"], f, d),
                 "decode": gmm_times(routed["decode"], d, f),
-                "decode_down": gmm_times(routed["decode"], f, d),
-                "batch128_decode": gmm_times(mid_sizes, d, f, "batch-128 decode routing"),
-                "batch128_decode_down": gmm_times(mid_sizes, f, d, "batch-128 decode routing")}
+                "decode_down": gmm_times(routed["decode"], f, d)}
+    # between the served ends, decode steps of more sequences, up/gate: the
+    # decode kernel up to T = 126, then both sides of the 128-row edge and
+    # the range up to T = 256, each timed with the kernel of the other side
+    for batch, beside in ((16, ("small",)), (32, ("small",)), (63, ("tiled", "small")),
+                          (64, ("decode", "small")), (80, ("decode",)), (96, ("decode",)),
+                          (112, ("decode",)), (128, ("decode", "small"))):
+        sizes = drawn_sizes(batch)
+        gmm_more[f"batch{batch}_decode"] = gmm_times(
+            sizes, d, f, f"batch-{batch} decode routing", beside)
+        if batch == 128:
+            gmm_more["batch128_decode_down"] = gmm_times(
+                sizes, f, d, "batch-128 decode routing", beside)
     scan_prefill, scan_decode = scan_times(PROMPT), scan_times(1)
+    log(f"[profile] phase 4's profiler sessions: {SESSIONS}")
 
     kernels = []
     for name, src, replaces, main_t, dec_t, more in [
@@ -888,8 +969,9 @@ def main() -> int:
             kernels[-1]["bf16_max_abs_err_by_ref_magnitude"] = flash_bf16_by_mag
         if name == "gmm":
             kernels[-1]["sources"] = ["src/repro_torch/kernels/csrc/gmm_prefill.cu",
+                                      "src/repro_torch/kernels/csrc/gmm_decode.cu",
                                       "src/repro_torch/kernels/csrc/gmm.cu"]
-            for served in ("tiled", "small"):
+            for served in ("tiled", "decode", "small"):
                 kernels[-1][f"launches_{served}"] = sum(p[4][served] for p in paths.values())
                 kernels[-1][f"launches_{served}_by_path"] = {k: p[4][served]
                                                              for k, p in paths.items()}

@@ -78,6 +78,9 @@ SIGNATURES = {
     "gmm_prefill_launch": [_P, _P, _P, _P,  # x, w, group_sizes, out (bf16)
                            _I, _I, _I, _I, _P],   # T, D, F, E, stream
     "gmm_prefill_attrs": [_IP],             # int[4], as flash_prefill_attrs
+    "gmm_decode_launch": [_P, _P, _P, _P,   # x, w, group_sizes, out (bf16)
+                          _I, _I, _I, _I, _P],    # T, D, F, E, stream
+    "gmm_decode_attrs": [_IP],              # int[4], as flash_prefill_attrs
 }
 
 _lock = threading.Lock()

@@ -2,10 +2,10 @@
 // group's (D, F) weight, f32 accumulation, output in x's dtype. Ragged in,
 // ragged out: out[r] = x[r] @ w[g(r)], and rows past the last group are 0
 // (as lax.ragged_dot gives them). This is the kernel for every f32 call and
-// for the bf16 calls the 128-row tensor-core kernel (gmm_prefill.cu) does
-// not take: fewer rows than one of its tiles, which is every decode step,
-// or widths and pointers it cannot copy 16 bytes at a time
-// (kernels/gmm/gmm.py::kernel_for).
+// for the bf16 calls that neither the 128-row tensor-core kernel
+// (gmm_prefill.cu) nor the decode kernel (gmm_decode.cu) can take: widths
+// that are not a multiple of 8, or x or w not 16-byte aligned, which those
+// two copy 16 bytes at a time (kernels/gmm/gmm.py::kernel_for).
 //
 // Replaces src/repro/kernels/gmm/gmm.py::gmm_pallas (_gmm_kernel) and its
 // wrapper's pad_groups for those calls. The TPU kernel needs every group
@@ -22,10 +22,11 @@
 // f32 accumulators, each of 4 warps owns 32 x 32); f32 runs as f32 FMAs, 32
 // outputs per thread. Results go through shared memory to coalesced stores.
 //
-// What bounds it on the H100: at decode (8 rows) the weight bytes alone;
-// each active group's column panel is streamed by its own blocks, F / BN of
-// them. This kernel has no cp.async or TMA pipeline; the decode path's
-// redesign is later work.
+// What bounds it on the H100: at few rows the weight bytes alone; each
+// active group's column panel is streamed by its own blocks, F / BN of
+// them. This kernel has no cp.async or TMA pipeline: one K step is in
+// flight per block, so it reads weights at about a third of the card's
+// rate (PERF.md); the bf16 calls it serves are off the main path.
 #include "gmm.cuh"
 #include <mma.h>
 

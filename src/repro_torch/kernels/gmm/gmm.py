@@ -7,11 +7,15 @@ pads every group to whole row tiles on the host (``pad_groups``); the CUDA
 kernels read ``group_sizes`` on the device and map their blocks to (group,
 rows) themselves (``csrc/gmm.cuh``), so a call never waits on the host.
 
-Two kernels serve it (``kernel_for``):
+Three kernels serve it (``kernel_for``):
   * ``tiled`` (``csrc/gmm_prefill.cu``): bf16 prefill, 128 x 128 tiles on
     mma.sync tensor cores fed by a cp.async ring;
-  * ``small`` (``csrc/gmm.cu``): every other call, which is every decode
-    step and every f32 call; 64 x 64 tiles, WMMA for bf16 and FMAs for f32.
+  * ``decode`` (``csrc/gmm_decode.cu``): bf16 calls of fewer rows, which is
+    every decode step; slots of 16 rows by 128 columns that stream each
+    active group's weight panel once through a cp.async ring, on mma.sync;
+  * ``small`` (``csrc/gmm.cu``): the f32 calls and the bf16 calls that
+    neither of the other two can take (widths not a multiple of 8, or x or w
+    not 16-byte aligned); 64 x 64 tiles, WMMA for bf16 and FMAs for f32.
 """
 from __future__ import annotations
 
@@ -22,30 +26,36 @@ from repro_torch.kernels.gmm.ref import TILE_M
 
 
 def kernel_for(x: torch.Tensor, w: torch.Tensor) -> str:
-    """Which kernel serves a call: ``tiled`` or ``small``, from dtypes,
-    shapes and pointer alignment alone, never from ``group_sizes``, whose
-    contents would cost a host sync.
+    """Which kernel serves a call: ``tiled``, ``decode`` or ``small``, from
+    dtypes, shapes and pointer alignment alone, never from ``group_sizes``,
+    whose contents would cost a host sync.
 
-    ``tiled`` takes bf16 calls with at least ``TILE_M`` = 128 rows,
-    D and F multiples of 8 and 16-byte-aligned x and w: it copies and stores
-    8 bf16 at a time. The threshold is one of its row tiles. A call with
-    fewer rows fills no tile in any group (a decode step's 8 rows over 8
-    groups fill 1/128 of each), so what it costs is its groups' weight
-    panels, read once in either kernel; such calls stay on ``small``, whose
-    64-row tiles waste half as many rows, until decode gets a kernel of its
-    own. ``small`` takes everything else.
+    A bf16 call with D and F multiples of 8 and 16-byte-aligned x and w (the
+    two bf16 kernels copy and store 8 bf16 at a time) takes ``tiled`` from
+    ``TILE_M`` = 128 rows, one of its row tiles, and ``decode`` below that.
+    Below the edge no group fills a 128-row tile, and what a call costs is
+    its groups' weight panels, which ``decode`` streams once for each
+    16-row slot. ``small`` takes everything else: every f32 call, and bf16
+    calls of other widths or alignments.
 
-    Timed on an H100 (``chip_smoke.py`` phase 4, both kernels on the same
-    inputs; PERF.md §6): at jamba's 4,096-row prefill and, just past the
-    edge, at a batch-128 decode step's 256 rows (16 groups of about 16), the
-    tiled kernel is the faster, the latter by about 2.6x; at a batch-4
-    decode step's 8 rows the small one serves. Row counts from 9 to 127 and
-    from 257 to 4,095 were not timed."""
+    The edge is a design rule, not a reading: one tiled row tile, below
+    which no group fills a tile. Timed on an H100 (``chip_smoke.py`` phase
+    4, the kernels on the same inputs, L2 flushed, up/gate 4096 -> 14336
+    at decode-like top-2 routing over 16 experts; PERF.md §6), the decode
+    kernel takes 4-5 % less time than the tiled one at T = 126 and 128,
+    4-5 % less at T = 160 and 192, 1 % less at T = 224, and 4 % more at
+    T = 256 (15 % more at down, 14336 -> 4096). So at up/gate the two
+    cross between 224 and 256 rows, and calls of 128-224 rows go to the
+    slower kernel here; down was timed only at 256, so the edge is not
+    moved on these readings. Below it the decode kernel is 2.6-2.9x as
+    fast as the small kernel at T = 8 (the served step, also at down), 32,
+    64 and 126.
+    """
     D, F = w.shape[-2], w.shape[-1]
     if (x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16
-            and x.shape[0] >= TILE_M and D % 8 == 0 and F % 8 == 0
+            and D % 8 == 0 and F % 8 == 0
             and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0):
-        return "tiled"
+        return "tiled" if x.shape[0] >= TILE_M else "decode"
     return "small"
 
 
@@ -68,17 +78,30 @@ def gmm_cuda(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> tup
         raise ValueError(f"gmm_cuda: group_sizes shape {tuple(group_sizes.shape)} != ({E},)")
     if not (x.is_contiguous() and w.is_contiguous() and group_sizes.is_contiguous()):
         raise ValueError("gmm_cuda: x, w and group_sizes must be contiguous")
-    T = x.shape[0]
-    out = torch.empty((T, F), dtype=x.dtype, device=x.device)
+    out = torch.empty((x.shape[0], F), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out, None
     kind = kernel_for(x, w)
+    launch(kind, x, w, group_sizes, out)
+    return out, kind
+
+
+def launch(kind: str, x, w, group_sizes, out) -> None:
+    """Launch the gmm kernel ``kind`` on tensors ``gmm_cuda`` has checked,
+    into ``out``, or raise. ``gmm_cuda`` calls it with ``kernel_for``'s
+    choice; ``chip_smoke.py`` also calls it past the dispatch, to hold and
+    time one kernel beside another on the same inputs."""
+    E, D, F = w.shape
     lib = _build.load_library()
-    args = (x.data_ptr(), w.data_ptr(), group_sizes.data_ptr(), out.data_ptr(), T, D, F, E)
+    args = (x.data_ptr(), w.data_ptr(), group_sizes.data_ptr(), out.data_ptr(), x.shape[0],
+            D, F, E)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if kind == "tiled":
         err = lib.gmm_prefill_launch(*args, stream)
-    else:
+    elif kind == "decode":
+        err = lib.gmm_decode_launch(*args, stream)
+    elif kind == "small":
         err = lib.gmm_launch(*args, _build.DTYPES[x.dtype], stream)
+    else:
+        raise ValueError(f"gmm: no kernel {kind!r}")
     _build.check(lib, err, f"gmm ({kind})")
-    return out, kind

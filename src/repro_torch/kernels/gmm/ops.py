@@ -3,15 +3,18 @@ plain per-group version for CPU tensors.
 
 Replaces ``repro/kernels/gmm/ops.py::gmm`` (whose Pallas kernel is
 ``gmm.py::gmm_pallas``). A CUDA tensor launches a kernel or raises; only a
-CPU tensor takes ``gmm_ref``. Which kernel serves a CUDA call (the tiled
-tensor-core kernel for bf16 prefill, the small kernel otherwise) is
-``gmm.kernel_for``'s choice, with no fallback between them.
+CPU tensor takes ``gmm_ref``. Which kernel serves a CUDA call is
+``gmm.kernel_for``'s choice, with no fallback between them: the tiled
+tensor-core kernel for bf16 calls of 128 rows or more (prefill), the
+weight-streaming kernel for bf16 calls of fewer (decode), and the small
+kernel for f32 calls and the bf16 calls that neither of the other two can
+take (widths not a multiple of 8, unaligned pointers).
 
 Counters, plain ints on this function, moved by the kernel that
 ``gmm_cuda`` reports it launched: ``launches`` counts calls that launched a
-kernel; ``launches_tiled`` and ``launches_small`` count the calls each of
-the two kernels served. What bounds each kernel: see ``csrc/gmm_prefill.cu``
-and ``csrc/gmm.cu``.
+kernel; ``launches_tiled``, ``launches_decode`` and ``launches_small`` count
+the calls each of the three kernels served. What bounds each kernel: see
+``csrc/gmm_prefill.cu``, ``csrc/gmm_decode.cu`` and ``csrc/gmm.cu``.
 """
 from __future__ import annotations
 
@@ -31,6 +34,8 @@ def gmm(x, w, group_sizes):
         gmm.launches += 1
     if launched == "tiled":
         gmm.launches_tiled += 1
+    elif launched == "decode":
+        gmm.launches_decode += 1
     elif launched == "small":
         gmm.launches_small += 1
     return out
@@ -38,4 +43,5 @@ def gmm(x, w, group_sizes):
 
 gmm.launches = 0
 gmm.launches_tiled = 0
+gmm.launches_decode = 0
 gmm.launches_small = 0

@@ -1,9 +1,12 @@
 """Plain PyTorch grouped matmul: the CPU path and the kernels' yardstick, and
-the plain twin of the tiled kernel's block schedule."""
+the plain twins of the tiled and the decode kernel's block schedules."""
 import torch
 
 # the tiled kernel's output tile and K step (kBM, kBN, kBK in csrc/gmm_prefill.cu)
 TILE_M, TILE_N, TILE_K = 128, 128, 32
+# the decode kernel's slot rows, column tile and K step (kRows, kBN, kBK in
+# csrc/gmm_decode.cu)
+DECODE_ROWS, DECODE_N, DECODE_K = 16, 128, 64
 
 
 def gmm_ref(x, w, group_sizes):
@@ -22,22 +25,22 @@ def gmm_ref(x, w, group_sizes):
     return out
 
 
-def grid_rows(T, E):
-    """The x-extent of the tiled kernel's grid: an upper bound on its row
-    tiles from shapes alone (``csrc/gmm.cuh::grid_rows``)."""
-    return -(-T // TILE_M) + E + 1
+def grid_rows(T, E, bm=TILE_M):
+    """The x-extent of a kernel's grid with ``bm``-row tiles: an upper bound
+    on its row tiles from shapes alone (``csrc/gmm.cuh::grid_rows``)."""
+    return -(-T // bm) + E + 1
 
 
-def tile_map(sizes, T):
-    """The tiled kernel's block schedule (``csrc/gmm.cuh::block_tile`` with
-    TILE_M-row tiles), walked on the host: for each x-index of the grid, the
-    (group, first row, rows) its block computes, with group -1 for rows past
-    the last group (output zero), or None for a block past the real tile
-    count, which exits."""
-    bm = TILE_M
+def tile_map(sizes, T, bm=TILE_M):
+    """A kernel's block schedule (``csrc/gmm.cuh::block_tile`` with
+    ``bm``-row tiles: TILE_M for the tiled kernel, DECODE_ROWS for the
+    decode kernel's slots), walked on the host: for each x-index of the
+    grid, the (group, first row, rows) its block computes, with group -1
+    for rows past the last group (output zero), or None for a block past
+    the real tile count, which exits."""
     sizes = [max(int(g), 0) for g in sizes]
     tiles = []
-    for bx in range(grid_rows(T, len(sizes))):
+    for bx in range(grid_rows(T, len(sizes), bm)):
         tile, tile_base, row_base = None, 0, 0
         for e, g in enumerate(sizes):
             n = -(-g // bm)
@@ -55,28 +58,40 @@ def tile_map(sizes, T):
     return tiles
 
 
-def gmm_tiled_ref(x, w, group_sizes):
-    """``gmm_ref`` computed the way the tiled kernel (``csrc/gmm_prefill.cu``)
-    walks it: ``tile_map``'s row tiles by TILE_N-column tiles, each a sum
-    over K steps of TILE_K in f32 from an A tile whose rows outside the group
-    are zero, rounded to x's dtype once, and only the tile's own rows
-    stored. Every output row is written by exactly one tile: a row no tile
+def _walk_tiles(x, w, group_sizes, bm, bn, bk):
+    """``gmm_ref`` computed tile by tile: ``tile_map``'s ``bm``-row tiles by
+    ``bn``-column tiles, each a sum over K steps of ``bk`` in f32, rounded
+    to x's dtype once, with only the tile's own rows stored. A row no tile
     covers stays NaN."""
-    bm, bn, bk = TILE_M, TILE_N, TILE_K
     T, D = x.shape
     F = w.shape[-1]
     out = torch.full((T, F), float("nan"), dtype=x.dtype, device=x.device)
-    for tile in tile_map(group_sizes.tolist(), T):
+    for tile in tile_map(group_sizes.tolist(), T, bm):
         if tile is None:
             continue
         e, r0, rows = tile
-        a = torch.zeros((bm, D), dtype=torch.float32, device=x.device)
-        if e >= 0:
-            a[:rows] = x[r0:r0 + rows].float()
+        a = x[r0:r0 + rows].float()
         for n0 in range(0, F, bn):
-            acc = torch.zeros((bm, min(bn, F - n0)), dtype=torch.float32, device=x.device)
+            acc = torch.zeros((rows, min(bn, F - n0)), dtype=torch.float32, device=x.device)
             if e >= 0:
                 for k0 in range(0, D, bk):
                     acc += a[:, k0:k0 + bk] @ w[e, k0:k0 + bk, n0:n0 + bn].float()
-            out[r0:r0 + rows, n0:n0 + bn] = acc[:rows].to(x.dtype)
+            out[r0:r0 + rows, n0:n0 + bn] = acc.to(x.dtype)
     return out
+
+
+def gmm_tiled_ref(x, w, group_sizes):
+    """``gmm_ref`` computed the way the tiled kernel (``csrc/gmm_prefill.cu``)
+    walks it: TILE_M-row tiles by TILE_N-column tiles, K steps of TILE_K.
+    Every output row is written by exactly one tile: a row no tile covers
+    stays NaN."""
+    return _walk_tiles(x, w, group_sizes, TILE_M, TILE_N, TILE_K)
+
+
+def gmm_decode_ref(x, w, group_sizes):
+    """``gmm_ref`` computed the way the decode kernel (``csrc/gmm_decode.cu``)
+    walks it: slots of DECODE_ROWS rows by DECODE_N-column tiles, K steps of
+    DECODE_K, each slot's sums rounded once. The kernel multiplies the
+    transpose, out^T = w^T x^T; the sums are the same. A row no slot covers
+    stays NaN. For the tests; the main path never calls it."""
+    return _walk_tiles(x, w, group_sizes, DECODE_ROWS, DECODE_N, DECODE_K)

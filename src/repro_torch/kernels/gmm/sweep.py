@@ -1,10 +1,14 @@
-"""Times variants of the tiled grouped-matmul kernel (``csrc/gmm_prefill.cu``)
-on one CUDA card, at jamba's expert shapes under its served prefill routing.
+"""Times variants of a bf16 grouped-matmul kernel on one CUDA card, at
+jamba's expert shapes under its served routing: the tiled kernel
+(``csrc/gmm_prefill.cu``) at prefill, or the decode kernel
+(``csrc/gmm_decode.cu``) at a decode step.
 
-  PYTHONPATH=src python -m repro_torch.kernels.gmm.sweep [--rounds 4] [--out FILE]
+  PYTHONPATH=src python -m repro_torch.kernels.gmm.sweep [--kernel tiled|decode]
+      [--rounds 4] [--out FILE]
 
-Each variant is ``gmm_prefill.cu`` built with other values of its tile macros
-(K step, ring stages, a warp's piece, the blocks an SM must hold), into a
+Each variant is the kernel's source built with other values of its tile
+macros (tiled: K step, ring stages, a warp's piece, the blocks an SM must
+hold; decode: column tile, K step, ring stages, blocks an SM), into a
 library of its own under ``build/repro_torch/sweep/``; ``shipped`` is the
 source built as the port builds it. Per variant it prints the registers,
 local memory (spills) and shared memory ``cudaFuncGetAttributes`` reports,
@@ -38,6 +42,11 @@ SERVED_PREFILL_SIZES = [245, 223, 247, 239, 250, 321, 306, 261, 253, 253, 237, 2
 D_MODEL, D_FF = 4096, 14336     # jamba-v0.1-52b's d_model and expert d_ff
 FLUSH_BYTES = 256 << 20
 
+# group sizes of jamba-8's first MoE layer in the decode step after that
+# prefill (chip_smoke.py phase 3b's routing line): 8 rows, 1 to each of 8
+# experts
+SERVED_DECODE_SIZES = [0, 0, 0, 1, 0, 1, 1, 0, 1, 0, 1, 1, 1, 0, 1, 0]
+
 # name -> macro values; None builds the source's defaults
 VARIANTS = {
     "shipped": None,                                                  # bk32 s4 64x32 2/SM
@@ -48,25 +57,47 @@ VARIANTS = {
     "bk32_s4_w64x64": dict(BK=32, STAGES=4, WM=64, WN=64, MIN_BLOCKS=2),
 }
 DEFAULTS = dict(BK=32, STAGES=4, WM=64, WN=32, MIN_BLOCKS=2)
+DECODE_VARIANTS = {
+    "shipped": None,                                                  # bn128 bk64 s4 2/SM
+    "bn64_bk64_s4": dict(BN=64, BK=64, STAGES=4, MIN_BLOCKS=4),
+    "bn128_bk64_s3": dict(BN=128, BK=64, STAGES=3, MIN_BLOCKS=3),
+    "bn128_bk32_s8": dict(BN=128, BK=32, STAGES=8, MIN_BLOCKS=2),
+    "bn256_bk64_s3": dict(BN=256, BK=64, STAGES=3, MIN_BLOCKS=2),
+}
+DECODE_DEFAULTS = dict(BN=128, BK=64, STAGES=4, MIN_BLOCKS=2)
+# per kernel: source, macro prefix, exports, variants, defaults, routing,
+# and its threads a block from its macros
+KERNELS = {
+    "tiled": dict(src="gmm_prefill.cu", prefix="GMM_PREFILL_", launch="gmm_prefill_launch",
+                  attrs="gmm_prefill_attrs", variants=VARIANTS, defaults=DEFAULTS,
+                  sizes=SERVED_PREFILL_SIZES,
+                  threads=lambda m: 32 * (128 // m["WM"]) * (128 // m["WN"])),
+    "decode": dict(src="gmm_decode.cu", prefix="GMM_DECODE_", launch="gmm_decode_launch",
+                   attrs="gmm_decode_attrs", variants=DECODE_VARIANTS,
+                   defaults=DECODE_DEFAULTS, sizes=SERVED_DECODE_SIZES,
+                   threads=lambda m: 128),
+}
 # H100 per SM: registers, shared memory, threads; 1 KB of shared memory is
 # reserved per block, registers are given out 8 a thread at a time
 SM_REGS, SM_SMEM, SM_THREADS, BLOCK_SMEM_RESERVED = 65536, 233472, 2048, 1024
 
 
-def build(variants: dict) -> dict:
-    """{name: CDLL} of every variant, compiled in parallel, one nvcc each."""
-    src = _build.CSRC / "gmm_prefill.cu"
+def build(kernel: str) -> dict:
+    """{name: CDLL} of every variant of ``kernel``, compiled in parallel, one
+    nvcc each."""
+    k = KERNELS[kernel]
+    src = _build.CSRC / k["src"]
     digest = hashlib.sha256(" ".join(_build.NVCC_FLAGS).encode())
     for f in sorted(_build.CSRC.glob("*.cu*")):
         digest.update(f.read_bytes())
     out_dir = _build.BUILD_ROOT / "sweep" / digest.hexdigest()[:16]
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, macros in variants.items():
-        lib = out_dir / f"{name}.so"
+    for name, macros in k["variants"].items():
+        lib = out_dir / f"{kernel}_{name}.so"
         if lib.exists():
             continue
-        defs = [f"-DGMM_PREFILL_{k}={v}" for k, v in (macros or {}).items()]
+        defs = [f"-D{k['prefix']}{m}={v}" for m, v in (macros or {}).items()]
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, *defs, "-shared", str(src), "-o", str(lib)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
@@ -75,21 +106,22 @@ def build(variants: dict) -> dict:
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{out.decode(errors='replace')}")
     libs = {}
-    for name in variants:
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-        for fn in ("gmm_prefill_launch", "gmm_prefill_attrs"):
+    for name in k["variants"]:
+        lib = ctypes.CDLL(str(out_dir / f"{kernel}_{name}.so"))
+        for fn in (k["launch"], k["attrs"]):
             getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
     return libs
 
 
-def resources(lib, macros: dict) -> dict:
+def resources(kernel: str, lib, macros: dict) -> dict:
+    k = KERNELS[kernel]
     out = (ctypes.c_int * 4)()
-    if lib.gmm_prefill_attrs(out):
-        raise RuntimeError("gmm_prefill_attrs failed")
-    m = {**DEFAULTS, **(macros or {})}
-    threads = 32 * (128 // m["WM"]) * (128 // m["WN"])
+    if getattr(lib, k["attrs"])(out):
+        raise RuntimeError(f"{k['attrs']} failed")
+    m = {**k["defaults"], **(macros or {})}
+    threads = k["threads"](m)
     regs = -(-out[0] // 8) * 8
     smem = out[2] + out[3] + BLOCK_SMEM_RESERVED
     blocks = min(SM_REGS // (regs * threads), SM_SMEM // smem, SM_THREADS // threads)
@@ -100,6 +132,7 @@ def resources(lib, macros: dict) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=list(KERNELS), default="tiled")
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--iters", type=int, default=20, help="timed calls a round")
     ap.add_argument("--out", help="write the readings here as JSON")
@@ -108,15 +141,17 @@ def main(argv=None) -> int:
         print("sweep: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    libs = build(VARIANTS)
-    res = {n: resources(lib, VARIANTS[n]) for n, lib in libs.items()}
+    k = KERNELS[args.kernel]
+    libs = build(args.kernel)
+    res = {n: resources(args.kernel, lib, k["variants"][n]) for n, lib in libs.items()}
     for n, r in res.items():
         print(f"[resources] {n}: {json.dumps(r)}", flush=True)
 
     flush_buf = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    sizes = SERVED_PREFILL_SIZES
+    sizes = k["sizes"]
     T, E = sum(sizes), len(sizes)
+    active = sum(1 for g in sizes if g)
     gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
     offs = torch.cumsum(gs, 0, dtype=torch.int32)
     stream = torch.cuda.current_stream().cuda_stream
@@ -130,10 +165,10 @@ def main(argv=None) -> int:
 
         def launcher(lib):
             def call():
-                err = lib.gmm_prefill_launch(x.data_ptr(), w.data_ptr(), gs.data_ptr(),
-                                             out.data_ptr(), T, D, F, E, stream)
+                err = getattr(lib, k["launch"])(x.data_ptr(), w.data_ptr(), gs.data_ptr(),
+                                                out.data_ptr(), T, D, F, E, stream)
                 if err:
-                    raise RuntimeError(f"gmm_prefill_launch: CUDA error {err}")
+                    raise RuntimeError(f"{k['launch']}: CUDA error {err}")
             return call
 
         calls = {n: launcher(lib) for n, lib in libs.items()}
@@ -150,8 +185,9 @@ def main(argv=None) -> int:
                 ms = timed(calls[n], flush_buf, args.iters)
                 times.setdefault(shape, {}).setdefault(n, []).append(ms)
                 tflops = 2 * T * D * F / ms / 1e9
+                tbs = 2 * active * D * F / ms / 1e9      # the active panels' bytes
                 print(f"round {rnd} {shape} T{T} {D}->{F} {n}: {ms * 1e3:.1f} us, "
-                      f"{tflops:.0f} TFLOP/s", flush=True)
+                      f"{tflops:.0f} TFLOP/s, {tbs:.2f} TB/s of weights", flush=True)
         del x, w, out, ref, limit
     for shape, by_name in times.items():
         for n, ms in by_name.items():
@@ -159,7 +195,8 @@ def main(argv=None) -> int:
                   f"{len(ms)} rounds", flush=True)
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"device": torch.cuda.get_device_name(0), "sizes": sizes,
+            json.dump({"device": torch.cuda.get_device_name(0), "kernel": args.kernel,
+                       "sizes": sizes,
                        "resources": res, "ms": times}, f, indent=1)
     return 0
 

@@ -215,7 +215,7 @@ def test_gmm_kernel_matches_plain(cuda, sizes, D, F, dtype):
 
 
 def _gmm_counts():
-    return (gmm.launches, gmm.launches_tiled, gmm.launches_small)
+    return (gmm.launches, gmm.launches_tiled, gmm.launches_decode, gmm.launches_small)
 
 
 # the tiled kernel's cases: sizes, rows past the groups, D, F
@@ -238,15 +238,16 @@ def test_gmm_tiled_kernel_matches_plain(cuda, sizes, tail, D, F):
     before = _gmm_counts()
     out = gmm(x, w, gs)
     torch.cuda.synchronize()
-    assert tuple(a - b for a, b in zip(_gmm_counts(), before)) == (1, 1, 0)
+    assert tuple(a - b for a, b in zip(_gmm_counts(), before)) == (1, 1, 0, 0)
     atol, rtol = GMM_TOL[torch.bfloat16]
     np.testing.assert_allclose(out.float().cpu().numpy(), gmm_ref(x, w, gs).float().cpu().numpy(),
                                atol=atol, rtol=rtol)
     assert not out[sum(sizes):].any()
 
 
-@pytest.mark.parametrize("T,dtype,kind", [(8, torch.bfloat16, "small"),
-                                          (TILE_M - 1, torch.bfloat16, "small"),
+@pytest.mark.parametrize("T,dtype,kind", [(8, torch.bfloat16, "decode"),
+                                          (8, torch.float32, "small"),
+                                          (TILE_M - 1, torch.bfloat16, "decode"),
                                           (TILE_M, torch.bfloat16, "tiled"),
                                           (512, torch.bfloat16, "tiled"),
                                           (512, torch.float32, "small")])
@@ -259,7 +260,8 @@ def test_gmm_call_moves_exactly_one_counter(cuda, T, dtype, kind):
     out = gmm(x, w, gs)
     torch.cuda.synchronize()
     moved = tuple(a - b for a, b in zip(_gmm_counts(), before))
-    assert moved == ((1, 1, 0) if kind == "tiled" else (1, 0, 1)), moved
+    assert moved == {"tiled": (1, 1, 0, 0), "decode": (1, 0, 1, 0),
+                     "small": (1, 0, 0, 1)}[kind], moved
     atol, rtol = GMM_TOL[dtype]
     np.testing.assert_allclose(out.float().cpu().numpy(), gmm_ref(x, w, gs).float().cpu().numpy(),
                                atol=atol, rtol=rtol)
@@ -270,6 +272,57 @@ def test_gmm_tiled_kernel_makes_no_host_sync(cuda):
     x = _t(rng, (512, 128), torch.bfloat16, cuda)
     w = (_t(rng, (4, 128, 256), torch.float32, cuda) / 12).to(torch.bfloat16)
     gs = torch.tensor([100, 0, 300, 112], dtype=torch.int32, device=cuda)
+    gmm(x, w, gs)                               # build, warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = gmm(x, w, gs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    atol, rtol = GMM_TOL[torch.bfloat16]
+    np.testing.assert_allclose(out.float().cpu().numpy(), gmm_ref(x, w, gs).float().cpu().numpy(),
+                               atol=atol, rtol=rtol)
+
+
+# the decode kernel's cases (chip_smoke.py phase 2): sizes, rows past the
+# groups, D, F
+GMM_DECODE_CASES = [
+    ([0, 1, 0, 0], 0, 256, 384),                # T = 1
+    ([16, 0, 1], 0, 128, 192),                  # a group of exactly one slot
+    ([17, 2, 0], 0, 128, 192),                  # a group of two slots
+    ([33, 0, 0, 5], 0, 264, 128),               # three slots
+    ([3, 0, 0, 0, 4, 0, 0, 1], 0, 512, 256),    # empty groups between full ones
+    ([5, 0, 9], 20, 256, 320),                  # rows past the last group, T < 128
+    ([40, 28, 0, 30], 0, 200, 328),             # D, F multiples of 8, not of 64
+    ([60, 0, 67], 0, 256, 256),                 # T = 127, the last row count below the edge
+    ([2, 0, 1, 0, 0, 1, 0, 0, 2, 0, 0, 0, 1, 0, 0, 1], 0, 4096, 1024),   # jamba's routing
+]
+
+
+@pytest.mark.parametrize("sizes,tail,D,F", GMM_DECODE_CASES)
+def test_gmm_decode_kernel_matches_plain(cuda, sizes, tail, D, F):
+    rng = np.random.default_rng(11)
+    x = _t(rng, (sum(sizes) + tail, D), torch.bfloat16, cuda)
+    w = (_t(rng, (len(sizes), D, F), torch.float32, cuda) / D ** 0.5).to(torch.bfloat16)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    assert kernel_for(x, w) == "decode"
+    before = _gmm_counts()
+    out = gmm(x, w, gs)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_gmm_counts(), before)) == (1, 0, 1, 0)
+    atol, rtol = GMM_TOL[torch.bfloat16]
+    np.testing.assert_allclose(out.float().cpu().numpy(), gmm_ref(x, w, gs).float().cpu().numpy(),
+                               atol=atol, rtol=rtol)
+    assert not out[sum(sizes):].any()
+
+
+def test_gmm_decode_kernel_makes_no_host_sync(cuda):
+    rng = np.random.default_rng(12)
+    x = _t(rng, (8, 512), torch.bfloat16, cuda)
+    w = (_t(rng, (16, 512, 256), torch.float32, cuda) / 22).to(torch.bfloat16)
+    gs = torch.tensor([2, 0, 1, 0, 0, 1, 0, 0, 2, 0, 0, 0, 1, 0, 0, 1], dtype=torch.int32,
+                      device=cuda)
+    assert kernel_for(x, w) == "decode"
     gmm(x, w, gs)                               # build, warm
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")

@@ -1,9 +1,9 @@
 """The tiled grouped-matmul kernel's block schedule, walked by its plain twin
 (``gmm_tiled_ref``), against the plain version, the JAX package's Pallas
 kernel (interpret mode, 128-row tiles) and its oracle ``lax.ragged_dot``;
-its tile count against ``pad_groups``'; the dispatch between the tiled
-and the small kernel, on shapes; and the sweep's variants of the tiled
-kernel against its compile-time checks."""
+its tile count against ``pad_groups``'; the dispatch between the tiled,
+the decode and the small kernel, on shapes; and the sweep's variants of
+the tiled kernel against its compile-time checks."""
 import types
 
 import numpy as np
@@ -114,12 +114,14 @@ def _meta(*shape, dtype=torch.bfloat16):
 @pytest.mark.parametrize("T,D,F,dtype,kind", [
     (4096, 4096, 14336, torch.bfloat16, "tiled"),    # jamba prefill, up/gate
     (4096, 14336, 4096, torch.bfloat16, "tiled"),    # jamba prefill, down
-    (8, 4096, 14336, torch.bfloat16, "small"),       # jamba decode, up/gate
-    (8, 14336, 4096, torch.bfloat16, "small"),       # jamba decode, down
+    (8, 4096, 14336, torch.bfloat16, "decode"),      # jamba decode, up/gate
+    (8, 14336, 4096, torch.bfloat16, "decode"),      # jamba decode, down
     (4096, 4096, 14336, torch.float32, "small"),     # f32 stays on the small kernel
-    (BM - 1, 64, 64, torch.bfloat16, "small"),
+    (8, 4096, 14336, torch.float32, "small"),        # also at decode
+    (BM - 1, 64, 64, torch.bfloat16, "decode"),
     (BM, 64, 64, torch.bfloat16, "tiled"),
     (1024, 100, 64, torch.bfloat16, "small"),        # D not a multiple of 8
+    (8, 100, 64, torch.bfloat16, "small"),           # also at decode
     (1024, 64, 130, torch.bfloat16, "small"),        # F not a multiple of 8
     (1024, 200, 328, torch.bfloat16, "tiled"),       # multiples of 8, not of 32
 ])
@@ -136,7 +138,21 @@ def test_kernel_for_sends_unaligned_rows_to_the_small_kernel():
     assert kernel_for(base[:-1].view(200, 16), wb) == "small"
 
 
-@pytest.mark.parametrize("launched", ["tiled", "small", None])
+def test_kernel_for_sends_unaligned_decode_rows_to_the_small_kernel():
+    w = torch.zeros((2, 16, 16), dtype=torch.bfloat16)
+    base = torch.zeros(8 * 16 + 1, dtype=torch.bfloat16)
+    assert kernel_for(base[:-1].view(8, 16), w) == "decode"
+    assert kernel_for(base[1:].view(8, 16), w) == "small"       # 2 bytes off
+    wb = torch.zeros(2 * 16 * 16 + 1, dtype=torch.bfloat16)[1:].view(2, 16, 16)
+    assert kernel_for(base[:-1].view(8, 16), wb) == "small"
+
+
+def _counts():
+    g = ops.gmm
+    return (g.launches, g.launches_tiled, g.launches_decode, g.launches_small)
+
+
+@pytest.mark.parametrize("launched", ["tiled", "decode", "small", None])
 def test_ops_counts_the_kernel_gmm_cuda_reports(monkeypatch, launched):
     """The counters move by the kernel ``gmm_cuda`` says it launched, and
     the dispatch runs once: ``ops.gmm`` asks no second time."""
@@ -148,20 +164,20 @@ def test_ops_counts_the_kernel_gmm_cuda_reports(monkeypatch, launched):
 
     monkeypatch.setattr(ops, "gmm_cuda", fake_cuda)
     x = types.SimpleNamespace(device=torch.device("cuda"))
-    before = (ops.gmm.launches, ops.gmm.launches_tiled, ops.gmm.launches_small)
+    before = _counts()
     assert ops.gmm(x, None, None) == "out"
-    after = (ops.gmm.launches, ops.gmm.launches_tiled, ops.gmm.launches_small)
-    moved = tuple(a - b for a, b in zip(after, before))
-    assert moved == {"tiled": (1, 1, 0), "small": (1, 0, 1), None: (0, 0, 0)}[launched]
+    moved = tuple(a - b for a, b in zip(_counts(), before))
+    assert moved == {"tiled": (1, 1, 0, 0), "decode": (1, 0, 1, 0), "small": (1, 0, 0, 1),
+                     None: (0, 0, 0, 0)}[launched]
     assert len(calls) == 1
     assert not hasattr(ops, "kernel_for")
 
 
 def test_cpu_tensors_move_no_counter():
     x, w, gs = (torch.from_numpy(a) for a in _inputs([200, 0, 56], 16, 8, seed=3))
-    before = (ops.gmm.launches, ops.gmm.launches_tiled, ops.gmm.launches_small)
+    before = _counts()
     out = ops.gmm(x.to(torch.bfloat16), w.to(torch.bfloat16), gs)
-    assert (ops.gmm.launches, ops.gmm.launches_tiled, ops.gmm.launches_small) == before
+    assert _counts() == before
     assert torch.equal(out, gmm_ref(x.to(torch.bfloat16), w.to(torch.bfloat16), gs))
 
 

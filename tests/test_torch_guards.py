@@ -11,7 +11,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.configs.registry import get_config  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import serve, step_times  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.models.model import init_cache  # noqa: E402
 from repro_torch.models.schema import init_params  # noqa: E402
@@ -67,6 +67,12 @@ def test_entry_points_raise_without_gpu(no_gpu):
         params_from_numpy(tree, cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--arch", "gemma2-2b", "--reduced"])
+
+
+def test_step_times_needs_a_card(no_gpu):
+    # a timing of the card has no CPU path to fall back to
+    with pytest.raises(RuntimeError, match="cuda"):
+        step_times.main(["--arch", "gemma2-2b", "--layers", "1", "--repeats", "1"])
 
 
 def test_engine_refuses_params_on_another_device():
