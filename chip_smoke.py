@@ -4,16 +4,32 @@
   python3 chip_smoke.py
 
 Phases, each of which passes or ends the script with a non-zero exit:
-  0. device: a CUDA card must be present; prints its name and power limit;
+  0. device: a CUDA card must be present; prints its name and power limit,
+     its SM count and maximum SM clock (the SFU's rate, for the scan's
+     bound);
   1. build: compiles the port's CUDA kernels from the repository's sources;
      prints the registers, local memory (spills) and shared memory of every
-     flash-attention kernel and of the tiled and decode grouped-matmul
-     kernels, as ``cudaFuncGetAttributes`` reports them for the loaded
-     library;
+     flash-attention kernel, of the tiled and decode grouped-matmul kernels,
+     of the warp-per-row RMSNorm kernel at each width it is built for and
+     of the prefill scan kernel, as ``cudaFuncGetAttributes`` reports them
+     for the loaded library;
   2. kernels vs plain versions on the card, on seeded inputs, each case
      printed with its max abs error and tolerance (RMSNorm and flash
      attention at gemma2-2b's and jamba's shapes, grouped matmul and
-     selective scan at the JAX tests' and jamba's shapes). Flash in bf16
+     selective scan at the JAX tests' and jamba's shapes). Each RMSNorm and
+     scan call asserts which kernel served it. RMSNorm in bf16 at the widths
+     2304 and 4096 runs the warp kernel (prefill and decode rows, an f32
+     scale, the last position of a prefill), with the block kernel held on
+     the same inputs past the dispatch; f32, widths 256, 1000 and 257, and
+     rows a width + 4 apart run the block kernel. The scan from 32 steps
+     runs the prefill kernel, held to the plain version carried out in f64,
+     and below them the sequential kernel, held to the f32 plain version
+     (its own order of sums), each with the other kernel held past the
+     dispatch: S = 77 and 600, d_inner 130, strided b and c, jamba's
+     prefill and decode; the prefill kernel's distance from the f32 plain
+     version is printed beside. At S = 1024 and 2048 in f32 (states that
+     barely decay) the prefill kernel must be nearer the f64 scan than the
+     f32 plain version is; both distances are printed. Flash in bf16
      runs on the split-KV kernel (Sq x G <= 16) or the tensor-core kernel,
      each case asserting which one served it: every head dim, ragged
      tiles, rings mostly unwritten, wrapped with a window, and both sides
@@ -33,9 +49,9 @@ Phases, each of which passes or ends the script with a non-zero exit:
   3. serve: full-width gemma2-2b (26 layers, bf16, seed-0 weights) through
      ``ServingEngine``: 8 requests, batch 4, prompt 512, 16 new tokens,
      max_seq 1024. Every RMSNorm and attention must have gone through the
-     kernels (launch counts 53 and 26 per forward), attention on the
-     tensor-core kernel at prefill and the split-KV kernel at decode (26
-     each per forward);
+     kernels (launch counts 53 and 26 per forward), every RMSNorm on the
+     warp kernel, attention on the tensor-core kernel at prefill and the
+     split-KV kernel at decode (26 each per forward);
      Prints prefill ms, decode ms per step and tokens/s, and a profile of
      one prefill and one decode step (device busy share, top kernels, the
      host's self CPU time and top host events), and one decode step under
@@ -44,8 +60,10 @@ Phases, each of which passes or ends the script with a non-zero exit:
      block: 7 mamba, 1 attention, 4 MoE, 4 MLP layers; bf16, seed-0
      weights), gemma2-2b freed first, with the same requests. Launch counts
      per forward come from the pattern: RMSNorm 17, flash 1 (tensor-core at
-     prefill, split-KV at decode), selective scan 7, grouped matmul 12 (the
-     tiled kernel at prefill, the decode kernel at decode). The same
+     prefill, split-KV at decode), selective scan 7 (the prefill kernel at
+     prefill, the sequential one at decode), grouped matmul 12 (the tiled
+     kernel at prefill, the decode kernel at decode), every RMSNorm on the
+     warp kernel. The same
      timings, profile and sync check; then the group sizes each MoE layer
      routes in one prefill and decode step;
   4. times at the serving shapes, after warm-up: each kernel's, its plain
@@ -54,14 +72,19 @@ Phases, each of which passes or ends the script with a non-zero exit:
      before every call so that no input is left in the 50 MB L2; the
      flush's own kernels are left out of the sums), the kernel's CUDA-event
      time per call of back-to-back launches (no flush, host launch cost
-     included), and its bound. A split-KV call's device time sums its split
+     included), and its bound: the largest of its bytes over the memory
+     rate, its FLOPs over the peak and, for the scan, its exponentials over
+     the SFU's rate. A split-KV call's device time sums its split
      and combine kernels. Grouped matmul is timed at the served model's
      routing (first MoE layer), and checked against its plain version
      there too, and at decode steps of batch 16, 32, 63, 64, 80, 96, 112 and
      128 (drawn top-2 routing: 32 to 256 rows), on both sides of the
-     128-row edge;
+     128-row edge; the scan also at S = 31 and 32, both sides of its edge,
+     and at jamba's prefill with the JAX tests' draws (states that barely
+     decay, da near 1);
      beside the kernel that serves a row, the other kernels named for it
-     are timed on the same inputs, called past the dispatch.
+     (RMSNorm: the block kernel; scan: the other one) are timed on the same
+     inputs, called past the dispatch.
 The last two lines are the kernels' JSON line and the result line.
 """
 from __future__ import annotations
@@ -215,10 +238,22 @@ def device_ms(fn, flush, iters=20, warmup=3):
     return sum(device_ms_by_kernel(fn, flush, iters, warmup).values())
 
 
-def bound(nbytes, flops, dtype):
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+# the SFU's rate: 16 exponentials (MUFU.EX2) a clock on each SM (the CUDA
+# programming guide's throughput table for compute capability 9.0); the SM
+# count and the card's maximum SM clock are read in phase 0
+SFU_PER_CLOCK_PER_SM = 16
+SFU = {"rate": None}        # exponentials a second on this card
+
+
+def bound(nbytes, flops, dtype, exps=0):
+    """The least time (ms) the card could take: the largest of the bytes over
+    the memory rate, the FLOPs over the peak rate for ``dtype`` and the
+    exponentials over the SFU's rate, with what sets it: ``bytes`` or
+    ``operations`` (FLOPs or exponentials; ``bound_unit`` below says which)."""
+    t = {"bytes": nbytes / PEAK_BYTES * 1e3, "flops": flops / PEAK_FLOPS[dtype] * 1e3,
+         "sfu": exps / SFU["rate"] * 1e3 if exps else 0.0}
+    unit = max(t, key=t.get)
+    return t[unit], "bytes" if unit == "bytes" else "operations", unit
 
 
 def per_forward(cfg):
@@ -287,8 +322,14 @@ def main() -> int:
     from repro_torch.kernels.gmm.ref import TILE_M, gmm_ref
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.rmsnorm.rmsnorm import WARP_WIDTHS as RMS_WARP_WIDTHS
+    from repro_torch.kernels.rmsnorm.rmsnorm import kernel_for as rms_kernel_for
+    from repro_torch.kernels.rmsnorm.rmsnorm import launch as rms_launch
+    from repro_torch.kernels.rmsnorm.rmsnorm import row_stride
     from repro_torch.kernels.selective_scan.ops import selective_scan
     from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+    from repro_torch.kernels.selective_scan.selective_scan import kernel_for as scan_kernel_for
+    from repro_torch.kernels.selective_scan.selective_scan import launch as scan_launch
     from repro_torch.models.model import init_cache
     from repro_torch.models.schema import count_params, init_params
     from repro_torch.serving.engine import Request, ServingEngine
@@ -302,6 +343,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(smi)
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    SFU["rate"] = SFU_PER_CLOCK_PER_SM * n_sm * float(clk) * 1e6
+    log(f"{n_sm} SMs, max SM clock {clk} MHz: {SFU['rate'] / 1e12:.3f} T exponentials/s "
+        "on the SFU")
     dev = torch.device("cuda")
     device_name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {device_name}")
@@ -315,7 +363,12 @@ def main() -> int:
     flash_res = flash_resources(lib, HEAD_DIMS)
     gmm_res = {"gmm_prefill_kernel": kernel_attrs(lib, lib.gmm_prefill_attrs, 4),
                "gmm_decode_kernel": kernel_attrs(lib, lib.gmm_decode_attrs, 4)}
-    for name, r in sorted({**flash_res, **gmm_res}.items()):
+    scan_res = {f"scan_prefill_kernel<{name}>": kernel_attrs(
+        lib, lib.selective_scan_prefill_attrs, 4, _build.DTYPES[dt])
+        for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32))}
+    rms_res = {f"rmsnorm_warp_kernel<D{D}>": kernel_attrs(lib, lib.rmsnorm_warp_attrs, 4, D)
+               for D in RMS_WARP_WIDTHS}
+    for name, r in sorted({**flash_res, **gmm_res, **rms_res, **scan_res}.items()):
         log(f"[build] {name}: {json.dumps(r)}")
 
     # -- 2. kernels vs plain versions ----------------------------------------
@@ -334,13 +387,13 @@ def main() -> int:
     def check(name, label, out, ref, tol, rtol=0.0, bulk=None):
         """Pass if |out - ref| <= tol + rtol * |ref| everywhere and, with
         ``bulk`` = (limit, below), |out - ref| <= limit where |ref| < below."""
-        diff = (out.float() - ref.float()).abs()
+        diff = (out.double() - ref.double()).abs()
         e = diff.max().item()
-        excess = (diff - rtol * ref.float().abs()).max().item() if rtol else e
+        excess = (diff - rtol * ref.double().abs()).max().item() if rtol else e
         ok = math.isfinite(e) and excess <= tol
         note = ""
         if bulk is not None:
-            small = ref.float().abs() < bulk[1]
+            small = ref.double().abs() < bulk[1]
             eb = diff[small].max().item() if small.any().item() else 0.0
             ok = ok and eb <= bulk[0]
             note = f", {eb:.3e} where |ref| < {bulk[1]:g} (limit {bulk[0]:.0e})"
@@ -351,18 +404,48 @@ def main() -> int:
         return e
 
     hcfg = get_config(HYBRID)
-    # gemma2-2b's width, then jamba's at its prefill and decode rows
+    rms_err_by_kernel = {"warp": 0.0, "block": 0.0}
+
+    def rms_counts():
+        return {"warp": rmsnorm.launches_warp, "block": rmsnorm.launches_block}
+
+    def rms_case(label, x, sc):
+        """One RMSNorm call through the dispatch, which must move the counter
+        of ``kernel_for``'s kernel alone; where that is the warp kernel, the
+        block kernel is held on the same inputs too, past the dispatch."""
+        tol = 5e-2 if x.dtype == torch.bfloat16 else 1e-5
+        kind, before = rms_kernel_for(x, sc), rms_counts()
+        out = rmsnorm(x, sc)
+        moved = {n: c - before[n] for n, c in rms_counts().items()}
+        assert moved == {n: int(n == kind) for n in moved}, (label, kind, moved)
+        ref = rmsnorm_ref(x, sc)
+        e = check("rmsnorm", f"[{kind}] {label}", out, ref, tol)
+        rms_err_by_kernel[kind] = max(rms_err_by_kernel[kind], e)
+        if kind == "warp":      # NaN wherever the kernel writes nothing
+            o = torch.full_like(out, math.nan)
+            rms_launch("block", x, sc, o, x.numel() // x.shape[-1], row_stride(x), 1e-6)
+            e = check("rmsnorm", f"[block, past the dispatch] {label}", o, ref, tol)
+            rms_err_by_kernel["block"] = max(rms_err_by_kernel["block"], e)
+
+    # gemma2-2b's width, jamba's at its prefill and decode rows, and widths
+    # no warp kernel is built for (the reduced models' 256, 1000, 257)
     for shape in [(2048, 2304), (4, 2304), (3, 77, 2304),
-                  (BATCH * PROMPT, hcfg.d_model), (BATCH, hcfg.d_model)]:
+                  (BATCH * PROMPT, hcfg.d_model), (BATCH, hcfg.d_model), (3, 77, 256),
+                  (5, 1000), (7, 257)]:
         for dt in (torch.bfloat16, torch.float32):
-            x = t(*shape, dtype=dt)
-            sc = (t(shape[-1]) + 1.0).to(dt)
-            tol = 5e-2 if dt == torch.bfloat16 else 1e-5
-            check("rmsnorm", f"{shape} {dt}", rmsnorm(x, sc), rmsnorm_ref(x, sc), tol)
-    # the last position of a prefill, as logits_fn sees it: rows S*D apart
-    x = t(4, 512, 2304, dtype=torch.bfloat16)[:, -1:]
-    sc = (t(2304) + 1.0).to(torch.bfloat16)
-    check("rmsnorm", "(4, 512, 2304)[:, -1:] bf16", rmsnorm(x, sc), rmsnorm_ref(x, sc), 5e-2)
+            rms_case(f"{shape} {dt}", t(*shape, dtype=dt), (t(shape[-1]) + 1.0).to(dt))
+    for D in (2304, hcfg.d_model):
+        # an f32 scale on bf16 rows
+        rms_case(f"(4, {D}) bf16, f32 scale", t(4, D, dtype=torch.bfloat16), t(D) + 1.0)
+        # the last position of a prefill, as logits_fn sees it: rows S*D apart
+        rms_case(f"(4, 512, {D})[:, -1:] bf16", t(4, 512, D, dtype=torch.bfloat16)[:, -1:],
+                 (t(D) + 1.0).to(torch.bfloat16))
+        # rows D + 4 apart: not a multiple of 8, so the block kernel
+        rms_case(f"(6, {D + 4})[:, :{D}] bf16", t(6, D + 4, dtype=torch.bfloat16)[:, :D],
+                 (t(D) + 1.0).to(torch.bfloat16))
+    rms_case("(4, 9, 1000)[:, -1:] bf16", t(4, 9, 1000, dtype=torch.bfloat16)[:, -1:],
+             (t(1000) + 1.0).to(torch.bfloat16))
+    log(f"[kernel] rmsnorm max_abs_err by kernel: {json.dumps(rms_err_by_kernel)}")
 
     # bf16 flash: the tensor-core kernel rounds P to bf16 before the PV
     # product, so outputs in [2, 4) may sit one bf16 ulp (1.56e-2) off, which
@@ -540,10 +623,11 @@ def main() -> int:
     # selective scan: f32 sums over d_state in another order; bf16 as gmm
     scan_tol = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-2, 2 ** -7)}
 
-    def scan_inputs(B, S, di, st, dt, model_like):
-        """The JAX test's distributions, or the mamba block's: A = -(1..st)
-        as initialised, dt = softplus around its init, b and c sliced out of
-        one x_proj output, a nonzero h0."""
+    def scan_inputs(B, S, di, st, dt, model_like, strided=False):
+        """The JAX test's distributions (``strided``: b and c sliced out of
+        one tensor, rows 2 * st + 3 elements apart), or the mamba block's: A =
+        -(1..st) as initialised, dt = softplus around its init, b and c
+        sliced out of one x_proj output; a nonzero h0."""
         if model_like:
             a = -torch.arange(1, st + 1, dtype=torch.float32, device=dev).expand(di, st).contiguous()
             dtv = F.softplus(td(B, S, di) * 0.5 + math.log(math.e - 1)).to(dt)
@@ -553,25 +637,98 @@ def main() -> int:
         else:
             a = -td(di, st).abs()
             dtv = (td(B, S, di).abs() * 0.1 + 0.01).to(dt)
-            b, c = td(B, S, st, dtype=dt), td(B, S, st, dtype=dt)
+            if strided:
+                bc = td(B, S, 2 * st + 3, dtype=dt)
+                b, c = bc[..., :st], bc[..., st + 3:]
+            else:
+                b, c = td(B, S, st, dtype=dt), td(B, S, st, dtype=dt)
             d_skip = torch.ones(di, dtype=dt, device=dev)
         return td(B, S, di, dtype=dt), dtv, a, b, c, d_skip, td(B, di, st, scale=0.2)
 
-    def scan_case(label, B, S, di, st, dt, model_like=False):
-        args = scan_inputs(B, S, di, st, dt, model_like)
+    scan_err_by_kernel = {"prefill": 0.0, "sequential": 0.0}
+    scan_vs_f32_plain = [0.0]     # the prefill kernel's largest distance from it
+
+    def scan_counts():
+        return {"prefill": selective_scan.launches_prefill,
+                "sequential": selective_scan.launches_sequential}
+
+    def scan_case(label, B, S, di, st, dt, model_like=False, strided=False, beside=True):
+        """One scan through the dispatch, which must move the counter of
+        ``kernel_for``'s kernel alone; with ``beside``, the other kernel is
+        held on the same inputs too, past the dispatch (NaN wherever it
+        writes nothing). The sequential kernel sums in the plain version's
+        order and is held to it; the prefill kernel sums in the associative
+        form's, and is held to the plain version carried out in f64 (over
+        hundreds of steps that barely decay, the f32 plain version's own
+        rounding reaches the f32 limit); its distance from the f32 plain
+        version is printed beside."""
+        args = scan_inputs(B, S, di, st, dt, model_like, strided)
+        kind, before = scan_kernel_for(args[0]), scan_counts()
         y, hT = selective_scan(*args)
-        ry, rh = selective_scan_ref(*args)
-        check("selective_scan", f"{label} {dt} y", y, ry, *scan_tol[dt])
-        check("selective_scan", f"{label} {dt} hT", hT, rh, *scan_tol[torch.float32])
+        moved = {n: c - before[n] for n, c in scan_counts().items()}
+        assert moved == {n: int(n == kind) for n in moved}, (label, kind, moved)
+        ref32 = selective_scan_ref(*args)
+        yardstick = {"sequential": ref32,
+                     "prefill": selective_scan_ref(*(x.double() for x in args))}
+        other = "sequential" if kind == "prefill" else "prefill"
+        yo, ho = torch.full_like(y, math.nan), torch.full_like(hT, math.nan)
+        if beside:
+            scan_launch(other, *args, yo, ho)
+        for name, yk, hk in ((kind, y, hT), (other, yo, ho))[:2 if beside else 1]:
+            k = name if name == kind else f"{name}, past the dispatch"
+            ry, rh = yardstick[name]
+            e = max(check("selective_scan", f"[{k}] {label} {dt} y", yk, ry, *scan_tol[dt]),
+                    check("selective_scan", f"[{k}] {label} {dt} hT", hk, rh,
+                          *scan_tol[torch.float32]))
+            scan_err_by_kernel[name] = max(scan_err_by_kernel[name], e)
+            if name == "prefill":      # for the record: its distance from the f32 one
+                d32 = [(a.double() - b.double()).abs().max().item()
+                       for a, b in ((yk, ref32[0]), (hk, ref32[1]))]
+                scan_vs_f32_plain[0] = max(scan_vs_f32_plain[0], *d32)
+                log(f"[kernel] selective_scan [{k}] {label} {dt}: {d32[0]:.3e} (y), "
+                    f"{d32[1]:.3e} (hT) from the f32 plain version")
 
     for dt in (torch.float32, torch.bfloat16):
-        # tests/test_kernels.py::test_selective_scan_vs_ref
-        for B, S, di, st in [(1, 64, 32, 4), (2, 128, 64, 8), (1, 32, 16, 16)]:
-            scan_case(f"B{B} S{S} di{di} st{st}", B, S, di, st, dt)
+        # tests/test_kernels.py::test_selective_scan_vs_ref, with the
+        # sequential kernel held beside as before; then, for the prefill
+        # kernel, S = 77 (two tiles, runs cut short), S = 600 (ten tiles), di
+        # = 130 (an item of 2 channels past 128), b and c strided (rows an
+        # odd number of elements apart). The sequential kernel is not held
+        # beside these: its f32 sums over hundreds of barely decaying steps
+        # stray up to the limit from the plain version's (PERF.md §7)
+        for B, S, di, st, strided, beside in [
+                (1, 64, 32, 4, False, True), (2, 128, 64, 8, False, True),
+                (1, 32, 16, 16, False, True), (2, 77, 40, 5, False, False),
+                (2, 600, 24, 16, False, False), (1, 96, 130, 16, False, False),
+                (2, 300, 64, 16, True, False)]:
+            scan_case(f"B{B} S{S} di{di} st{st}" + (" b, c strided" if strided else ""),
+                      B, S, di, st, dt, strided=strided, beside=beside)
         di, st = hcfg.ssm_d_inner, hcfg.ssm_d_state
         scan_case(f"jamba prefill B{BATCH} S{PROMPT} di{di} st{st}", BATCH, PROMPT, di, st,
                   dt, True)
         scan_case(f"jamba decode B{BATCH} S1 di{di} st{st} h0!=0", BATCH, 1, di, st, dt, True)
+    # long prompts, f32, states that barely decay: no f32 scan holds 2e-5
+    # against the f64 one there (the f32 plain version's step-by-step
+    # rounding strays furthest); the prefill kernel must be nearer it
+    scan_long = {}
+    for B, S, di, st in [(2, 1024, 64, 16), (2, 2048, 64, 16)]:
+        args = scan_inputs(B, S, di, st, torch.float32, False)
+        kind, before = scan_kernel_for(args[0]), scan_counts()
+        y, hT = selective_scan(*args)
+        assert kind == "prefill" and scan_counts()["prefill"] == before["prefill"] + 1
+        ry, rh = selective_scan_ref(*(x.double() for x in args))
+        py, ph = selective_scan_ref(*args)
+        d = {k: max((yk.double() - ry).abs().max().item(), (hk.double() - rh).abs().max().item())
+             for k, (yk, hk) in {"prefill": (y, hT), "f32 plain": (py, ph)}.items()}
+        ok = d["prefill"] <= d["f32 plain"]
+        scan_long[f"B{B} S{S} di{di} st{st} f32"] = d
+        log(f"[kernel] selective_scan [prefill] B{B} S{S} di{di} st{st} float32: "
+            f"{d['prefill']:.3e} from the f64 scan, the f32 plain version {d['f32 plain']:.3e}: "
+            f"{'ok' if ok else 'FAIL'}")
+        assert ok, (S, d)
+    log(f"[kernel] selective_scan max_abs_err by kernel: {json.dumps(scan_err_by_kernel)}; "
+        f"the prefill kernel's largest distance from the f32 plain version "
+        f"{scan_vs_f32_plain[0]:.3e}")
 
     def served_on_card_and_cpu(label, rcfg):
         rparams = init_params(rcfg, torch.Generator().manual_seed(0), device="cpu")
@@ -616,17 +773,21 @@ def main() -> int:
             op.launches = 0
         flash_attention.launches_split_kv = flash_attention.launches_tensor_core = 0
         gmm.launches_tiled = gmm.launches_decode = gmm.launches_small = 0
+        rmsnorm.launches_warp = rmsnorm.launches_block = 0
+        selective_scan.launches_prefill = selective_scan.launches_sequential = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         done = engine.run_batch()
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         launches = {name: op.launches for name, op in kernel_ops.items()}
-        by_kernel, gmm_by_kernel = flash_counts(), gmm_counts()
+        by_kernel, gmm_by_kernel, rms_by_kernel = flash_counts(), gmm_counts(), rms_counts()
+        scan_by_kernel = scan_counts()
         forwards = len(finite)
         expect = per_forward(cfg)
         log(f"[serve] {len(done)} requests, {forwards} forwards ({steps}), launches "
-            f"{launches}, flash by kernel {by_kernel}, gmm by kernel {gmm_by_kernel}")
+            f"{launches}, flash by kernel {by_kernel}, gmm by kernel {gmm_by_kernel}, "
+            f"rmsnorm by kernel {rms_by_kernel}, selective_scan by kernel {scan_by_kernel}")
         assert forwards == (N_REQ // BATCH) * (1 + NEW), forwards
         assert len(done) == N_REQ
         assert all(len(r.output) == NEW and all(0 <= x < cfg.vocab_size for x in r.output)
@@ -634,6 +795,16 @@ def main() -> int:
         assert all(bool(f) for f in finite), "non-finite logits"
         for name, n in expect.items():
             assert launches[name] == n * forwards, (name, launches[name], n * forwards)
+        # bf16 rows of the configs' widths: every norm on the warp kernel
+        n_rms = expect["rmsnorm"]
+        assert rms_by_kernel == {"warp": n_rms * forwards, "block": 0}, rms_by_kernel
+        log(f"[serve] rmsnorm per forward: {n_rms} warp calls, 0 block")
+        # the scan: the prefill kernel at prefill, the sequential one at decode
+        n_scan = expect["selective_scan"]
+        assert scan_by_kernel == {"prefill": n_scan * steps["prefill"],
+                                  "sequential": n_scan * steps["decode"]}, (scan_by_kernel, steps)
+        log(f"[serve] selective_scan per forward: {n_scan} prefill calls per prefill, "
+            f"{n_scan} sequential calls per decode step")
         # bf16 attention: the tensor-core kernel at prefill, split-KV at decode
         n_attn = expect["flash_attention"]
         assert by_kernel == {"split_kv": n_attn * steps["decode"],
@@ -719,7 +890,8 @@ def main() -> int:
         torch.cuda.synchronize()
         log(f"[sync] {cfg.name}: one decode step ran with no host sync "
             "(set_sync_debug_mode('error'))")
-        return launches, expect, forwards, by_kernel, gmm_by_kernel
+        return (launches, expect, forwards, by_kernel, gmm_by_kernel, rms_by_kernel,
+                scan_by_kernel)
 
     def init_on_card(cfg, note=""):
         gc.collect()
@@ -786,17 +958,25 @@ def main() -> int:
     flush = L2Flush()
 
     def rms_times(rows, D):
+        """The serving kernel's row, with the block kernel timed on the same
+        inputs past the dispatch."""
         x = t(rows, D, dtype=torch.bfloat16)
         sc = (t(D) + 1.0).to(torch.bfloat16)
         nbytes = 2 * x.numel() * 2 + sc.numel() * 2
-        b_ms, b_by = bound(nbytes, 4 * x.numel(), "bfloat16")
-        return {"shape": f"({rows}, {D}) bf16",
-                "ms": device_ms(lambda: rmsnorm(x, sc), flush),
-                "event_ms": cuda_ms(lambda: rmsnorm(x, sc)),
-                "plain_ms": device_ms(lambda: rmsnorm_ref(x, sc), flush),
-                "library_ms": device_ms(lambda: torch.nn.functional.rms_norm(
-                    x, (D,), sc, 1e-6), flush),
-                "bound_ms": b_ms, "bound_by": b_by}
+        b_ms, b_by, _ = bound(nbytes, 4 * x.numel(), "bfloat16")
+        kind = rms_kernel_for(x, sc)
+        res = {"shape": f"({rows}, {D}) bf16", "kernel": kind,
+               "ms": device_ms(lambda: rmsnorm(x, sc), flush),
+               "event_ms": cuda_ms(lambda: rmsnorm(x, sc)),
+               "plain_ms": device_ms(lambda: rmsnorm_ref(x, sc), flush),
+               "library_ms": device_ms(lambda: torch.nn.functional.rms_norm(
+                   x, (D,), sc, 1e-6), flush),
+               "bound_ms": b_ms, "bound_by": b_by}
+        if kind == "warp":
+            o = torch.empty_like(x)
+            res["block_kernel_ms"] = device_ms(
+                lambda: rms_launch("block", x, sc, o, rows, D, 1e-6), flush)
+        return res
 
     def flash_times(acfg, Sq, Skv, q_offset, kv_pos, window):
         B, Hq, Hkv, hd = BATCH, acfg.n_heads, acfg.n_kv_heads, acfg.head_dim
@@ -813,7 +993,7 @@ def main() -> int:
         # never read: the kernel skips such tiles before loading them
         read = int(valid.any(axis=0).sum())
         nbytes = 2 * (2 * q.numel() + 2 * B * Hkv * hd * read) + (4 * Skv if kp is not None else 0)
-        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        b_ms, b_by, _ = bound(nbytes, flops, "bfloat16")
         cap = acfg.attn_softcap
         kw = dict(causal=True, window=window, softcap=cap, q_offset=q_offset)
         # a split-KV call is its split kernel and its combine kernel
@@ -855,7 +1035,7 @@ def main() -> int:
         gmm_err_by_kernel[kind] = max(gmm_err_by_kernel[kind], e)
         active = sum(1 for s in sizes if s)     # only these panels are read
         nbytes = 2 * (T * D + active * D * Fo + T * Fo) + 4 * E
-        b_ms, b_by = bound(nbytes, 2 * T * D * Fo, "bfloat16")
+        b_ms, b_by, _ = bound(nbytes, 2 * T * D * Fo, "bfloat16")
         # torch._grouped_mm is a yardstick only; the port never calls it
         offs = torch.cumsum(gs, 0, dtype=torch.int32)
         lib_out = torch._grouped_mm(x, w, offs=offs)
@@ -880,22 +1060,33 @@ def main() -> int:
                 lambda: gmm_launch(other, x, w, gs, o), flush)
         return res
 
-    def scan_times(S):
+    def scan_times(S, model_like=True):
+        """The serving kernel's row, with the other kernel timed on the same
+        inputs past the dispatch; the mamba block's draws, or the JAX tests'
+        (b and c sliced as the block slices them)."""
         di, st = hcfg.ssm_d_inner, hcfg.ssm_d_state
-        args = scan_inputs(BATCH, S, di, st, torch.bfloat16, True)
+        args = scan_inputs(BATCH, S, di, st, torch.bfloat16, model_like, strided=True)
         n = BATCH * S * di
         # u, dt, y (bf16); the b, c slices; A (f32), D; h0, hT (f32)
         nbytes = 3 * 2 * n + 2 * 2 * BATCH * S * st + 4 * di * st + 2 * di + 2 * 4 * BATCH * di * st
         # per state: dt*A, exp, the state FMA and product, the y FMA;
-        # per channel: dt*u and the D*u FMA
-        b_ms, b_by = bound(nbytes, n * (7 * st + 3), "float32")
-        return {"shape": f"B{BATCH} S{S} di{di} st{st} bf16",
+        # per channel: dt*u and the D*u FMA; one exponential per (t, s) on
+        # the SFU
+        b_ms, b_by, b_unit = bound(nbytes, n * (7 * st + 3), "float32", exps=n * st)
+        kind = scan_kernel_for(args[0])
+        other = "sequential" if kind == "prefill" else "prefill"
+        y, hT = torch.empty_like(args[0]), torch.empty_like(args[-1])
+        draws = "the mamba block's draws" if model_like else "the JAX tests' draws"
+        return {"shape": f"B{BATCH} S{S} di{di} st{st} bf16, {draws}", "kernel": kind,
                 "ms": device_ms(lambda: selective_scan(*args), flush),
                 "event_ms": cuda_ms(lambda: selective_scan(*args)),
+                f"{other}_kernel_ms": device_ms(lambda: scan_launch(other, *args, y, hT), flush),
                 "plain_ms": device_ms(lambda: selective_scan_ref(*args), flush,
                                       iters=5 if S > 1 else 20, warmup=1),
                 "library_ms": None, "library_note": "no PyTorch call computes the scan",
-                "bound_ms": b_ms, "bound_by": b_by}
+                "bound_ms": b_ms, "bound_by": b_by, "bound_unit": b_unit,
+                "bound_note": "bytes, f32 FLOPs or exponentials on the SFU "
+                              "(16 a clock an SM at the max SM clock), whichever is largest"}
 
     rms_prefill, rms_decode = rms_times(BATCH * PROMPT, cfg.d_model), rms_times(BATCH, cfg.d_model)
     rms_jamba = {"prefill": rms_times(BATCH * PROMPT, hcfg.d_model),
@@ -934,6 +1125,10 @@ def main() -> int:
             gmm_more["batch128_decode_down"] = gmm_times(
                 sizes, f, d, "batch-128 decode routing", beside)
     scan_prefill, scan_decode = scan_times(PROMPT), scan_times(1)
+    # both sides of the dispatch's edge (kernel_for: the prefill kernel from
+    # 32 steps), each with the other kernel beside it
+    scan_edge = {f"S{S}": scan_times(S) for S in (31, 32)}
+    scan_jax_draws = scan_times(PROMPT, model_like=False)
     log(f"[profile] phase 4's profiler sessions: {SESSIONS}")
 
     kernels = []
@@ -947,9 +1142,9 @@ def main() -> int:
             ("gmm", "src/repro_torch/kernels/csrc/gmm_prefill.cu",
              "src/repro/kernels/gmm/gmm.py:28", gmm_prefill, gmm_more["decode"],
              {k: v for k, v in gmm_more.items() if k != "decode"}),
-            ("selective_scan", "src/repro_torch/kernels/csrc/selective_scan.cu",
+            ("selective_scan", "src/repro_torch/kernels/csrc/scan_prefill.cu",
              "src/repro/kernels/selective_scan/selective_scan.py:51", scan_prefill,
-             scan_decode, {})]:
+             scan_decode, {"edge": scan_edge, "jax_draws": scan_jax_draws})]:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(p[0][name] for p in paths.values()),
@@ -957,6 +1152,25 @@ def main() -> int:
             "launches_per_forward": {k: p[1][name] for k, p in paths.items()},
             "max_abs_err": err[name], **main_t, "kernel_ms": main_t["ms"],
             "decode": dec_t, **more, "device": smi})
+        if name == "rmsnorm":
+            kernels[-1]["sources"] = ["src/repro_torch/kernels/csrc/rmsnorm.cu"]
+            for served in ("warp", "block"):
+                kernels[-1][f"launches_{served}"] = sum(p[5][served] for p in paths.values())
+                kernels[-1][f"launches_{served}_by_path"] = {k: p[5][served]
+                                                             for k, p in paths.items()}
+            kernels[-1]["resources"] = rms_res
+            kernels[-1]["max_abs_err_by_kernel"] = rms_err_by_kernel
+        if name == "selective_scan":
+            kernels[-1]["sources"] = ["src/repro_torch/kernels/csrc/scan_prefill.cu",
+                                      "src/repro_torch/kernels/csrc/selective_scan.cu"]
+            for served in ("prefill", "sequential"):
+                kernels[-1][f"launches_{served}"] = sum(p[6][served] for p in paths.values())
+                kernels[-1][f"launches_{served}_by_path"] = {k: p[6][served]
+                                                             for k, p in paths.items()}
+            kernels[-1]["resources"] = scan_res
+            kernels[-1]["max_abs_err_by_kernel"] = scan_err_by_kernel
+            kernels[-1]["prefill_max_abs_diff_from_f32_plain"] = scan_vs_f32_plain[0]
+            kernels[-1]["long_f32_max_abs_err_from_f64"] = scan_long
         if name == "flash_attention":
             kernels[-1]["sources"] = ["src/repro_torch/kernels/csrc/flash_prefill.cu",
                                       "src/repro_torch/kernels/csrc/flash_decode.cu",

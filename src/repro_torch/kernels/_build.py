@@ -42,6 +42,9 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # returns a cudaError_t as int
 SIGNATURES = {
     "rmsnorm_launch": [_P, _P, _P, _LL, _I, _LL, _F, _I, _I, _P],
+    # x, scale, out, rows, D, x row stride, eps, scale dtype, stream
+    "rmsnorm_warp_launch": [_P, _P, _P, _LL, _I, _LL, _F, _I, _P],
+    "rmsnorm_warp_attrs": [_I, _IP],        # D, int[4] as flash_prefill_attrs
     "flash_attention_launch": [
         _P, _P, _P, _P, _P,                 # q, k, v, kv_pos, out
         _I, _I, _I, _I, _I, _I,             # B, Sq, Skv, Hq, Hkv, hd
@@ -73,6 +76,9 @@ SIGNATURES = {
         _I, _I, _I, _I,                     # B, S, di, st
         _LL, _LL, _LL, _LL,                 # b strides (batch, seq), c strides
         _I, _P],                            # dtype, stream
+    "selective_scan_prefill_launch": [      # as selective_scan_launch
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _I, _P],
+    "selective_scan_prefill_attrs": [_I, _IP],   # dtype, int[4] as flash_prefill_attrs
     "gmm_launch": [_P, _P, _P, _P,          # x, w, group_sizes, out
                    _I, _I, _I, _I, _I, _P],  # T, D, F, E, dtype, stream
     "gmm_prefill_launch": [_P, _P, _P, _P,  # x, w, group_sizes, out (bf16)

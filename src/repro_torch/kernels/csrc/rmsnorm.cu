@@ -1,12 +1,25 @@
 // Fused RMSNorm for Hopper: out = x * rsqrt(mean(x^2) + eps) * scale.
 //
 // Replaces src/repro/kernels/rmsnorm/rmsnorm.py::rmsnorm_pallas
-// (_rmsnorm_kernel). The TPU kernel tiles 128 rows into VMEM; here one
-// block of 256 threads owns one row. The work is a few operations per byte,
-// so the H100 bounds it by memory (3.35 TB/s): the row is read from device
-// memory once (16-byte vector loads where the row allows them) into shared
-// memory as f32, the sum of squares is reduced with warp shuffles, and the
-// normalised row is written once in x's dtype.
+// (_rmsnorm_kernel). The TPU kernel tiles 128 rows into VMEM. The work is a
+// few operations per byte, so the H100 bounds it by memory (3.35 TB/s): each
+// row is read from device memory once and written once. Two kernels:
+//
+//  * warp (rmsnorm_warp_kernel): bf16 rows of the widths the configs use
+//    (RMSNORM_WARP_WIDTHS), 16-byte aligned and evenly strided. One warp
+//    owns one row, kRowsPerBlock rows a block. Each lane holds its share of
+//    the row in registers as VPL 16-byte vectors (lane l takes vectors l,
+//    l + 32, ..., so every load of the warp is 512 contiguous bytes), sums
+//    squares in f32, reduces them with warp shuffles and writes its vectors
+//    back, reading scale as 16-byte vectors that every row shares from
+//    L1/L2. No shared memory and no block barrier: a row costs one DRAM
+//    round trip.
+//  * block (rmsnorm_kernel): every other call (f32 x, other widths,
+//    unaligned or oddly strided rows). One block of 256 threads owns one
+//    row, staged in shared memory as f32 (16-byte loads where the row allows
+//    them), with a block reduction.
+//
+// Which one serves a call is kernels/rmsnorm/rmsnorm.py::kernel_for's choice.
 #include "common.cuh"
 
 namespace {
@@ -101,6 +114,88 @@ cudaError_t launch(const void* x, const void* scale, void* out, long long rows,
   return cudaGetLastError();
 }
 
+constexpr int kRowsPerBlock = 4;            // warps (rows) a block of the warp kernel
+constexpr int kWarpThreads = 32 * kRowsPerBlock;
+
+// 8 consecutive elements of scale as f32 (one or two 16-byte loads)
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float f[8]) {
+  uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(h[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float f[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
+// x: bf16 rows of D = VPL * 256 elements, x_row_stride apart (a multiple of
+// 8); out contiguous. A warp past the last row returns at once: there is no
+// barrier to keep it for.
+template <typename S, int VPL>
+__global__ void __launch_bounds__(kWarpThreads)
+rmsnorm_warp_kernel(const __nv_bfloat16* __restrict__ x, const S* __restrict__ scale,
+                    __nv_bfloat16* __restrict__ out, long long rows,
+                    long long x_row_stride, float eps) {
+  constexpr int D = VPL * 256;
+  const int lane = threadIdx.x % 32;
+  const long long r = (long long)blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
+  if (r >= rows) return;
+  const uint4* xv = reinterpret_cast<const uint4*>(x + r * x_row_stride);
+  uint4 v[VPL];
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) v[i] = xv[lane + 32 * i];
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v[i]);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __bfloat1622float2(h[k]);
+      ss += f.x * f.x + f.y * f.y;
+    }
+  }
+  const float rs = rsqrtf(warp_sum(ss) / D + eps);
+  uint4* ov = reinterpret_cast<uint4*>(out + r * D);
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    const int c = lane + 32 * i;
+    float sc[8];
+    load8(scale + c * 8, sc);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v[i]);
+    uint4 o;
+    __nv_bfloat162* oh = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __bfloat1622float2(h[k]);
+      oh[k] = __floats2bfloat162_rn(f.x * rs * sc[2 * k], f.y * rs * sc[2 * k + 1]);
+    }
+    ov[c] = o;
+  }
+}
+
+template <typename S, int VPL>
+cudaError_t launch_warp(const void* x, const void* scale, void* out, long long rows,
+                        long long x_row_stride, float eps, cudaStream_t stream) {
+  const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  rmsnorm_warp_kernel<S, VPL><<<(unsigned)blocks, kWarpThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const S*>(scale),
+      static_cast<__nv_bfloat16*>(out), rows, x_row_stride, eps);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// the widths the warp kernel is built for: gemma2-2b's 2304 and jamba's 4096
+// (kernels/rmsnorm/rmsnorm.py::WARP_WIDTHS)
+#define RMSNORM_WARP_WIDTHS(X) X(9) X(16)
+
 }  // namespace
 
 // x: (rows, D) with rows x_row_stride elements apart; out: (rows, D)
@@ -118,5 +213,40 @@ extern "C" int rmsnorm_launch(const void* x, const void* scale, void* out,
     return launch<__nv_bfloat16, float>(x, scale, out, rows, D, x_row_stride, eps, st);
   if (x_dtype == kBFloat16 && s_dtype == kBFloat16)
     return launch<__nv_bfloat16, __nv_bfloat16>(x, scale, out, rows, D, x_row_stride, eps, st);
+  return cudaErrorInvalidValue;
+}
+
+// The warp kernel: x (rows, D) bf16, rows x_row_stride elements apart;
+// scale (D,) bf16 or f32; out (rows, D) bf16 contiguous. D must be one of
+// the built widths, x_row_stride a multiple of 8 and every pointer 16-byte
+// aligned; anything else is refused (kernel_for sends it to the block kernel).
+extern "C" int rmsnorm_warp_launch(const void* x, const void* scale, void* out,
+                                   long long rows, int D, long long x_row_stride,
+                                   float eps, int s_dtype, void* stream) {
+  if (rows == 0) return 0;
+  if (x_row_stride % 8 || !aligned16(x) || !aligned16(scale) || !aligned16(out))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define RMSNORM_WARP_CASE(VPL)                                                        \
+  if (D == (VPL) * 256) {                                                             \
+    if (s_dtype == kBFloat16)                                                         \
+      return launch_warp<__nv_bfloat16, VPL>(x, scale, out, rows, x_row_stride, eps, st); \
+    if (s_dtype == kFloat32)                                                          \
+      return launch_warp<float, VPL>(x, scale, out, rows, x_row_stride, eps, st);     \
+    return cudaErrorInvalidValue;                                                     \
+  }
+  RMSNORM_WARP_WIDTHS(RMSNORM_WARP_CASE)
+#undef RMSNORM_WARP_CASE
+  return cudaErrorInvalidValue;
+}
+
+// The warp kernel at width D with a bf16 scale: kernel_attrs' out[0..2], then
+// in out[3] its dynamic shared memory (none).
+extern "C" int rmsnorm_warp_attrs(int D, int* out) {
+  out[3] = 0;
+#define RMSNORM_WARP_ATTRS(VPL) \
+  if (D == (VPL) * 256) return kernel_attrs(rmsnorm_warp_kernel<__nv_bfloat16, VPL>, out);
+  RMSNORM_WARP_WIDTHS(RMSNORM_WARP_ATTRS)
+#undef RMSNORM_WARP_ATTRS
   return cudaErrorInvalidValue;
 }

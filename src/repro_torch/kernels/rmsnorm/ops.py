@@ -1,11 +1,17 @@
-"""Public RMSNorm entry point: the CUDA kernel for CUDA tensors, the plain
+"""Public RMSNorm entry point: the CUDA kernels for CUDA tensors, the plain
 version for CPU tensors.
 
 Replaces ``repro/kernels/rmsnorm/ops.py::rmsnorm`` (whose Pallas kernel is
-``rmsnorm.py::rmsnorm_pallas``). A CUDA tensor launches the kernel or
-raises; only a CPU tensor takes ``rmsnorm_ref``. ``rmsnorm.launches`` counts
-the kernel launches, so a run can show that its path went through the
-kernel. What bounds the kernel: device memory bandwidth (see
+``rmsnorm.py::rmsnorm_pallas``). A CUDA tensor launches a kernel or raises;
+only a CPU tensor takes ``rmsnorm_ref``. Which kernel serves a CUDA call is
+``rmsnorm.kernel_for``'s choice, with no fallback between them: the
+warp-per-row kernel for bf16 rows of the configs' widths, the block-per-row
+kernel for everything else.
+
+Counters, plain ints on this function, moved by the kernel that
+``rmsnorm_cuda`` reports it launched: ``launches`` counts calls that
+launched a kernel; ``launches_warp`` and ``launches_block`` the calls each
+kernel served. What bounds the kernels: device memory bandwidth (see
 ``csrc/rmsnorm.cu``).
 """
 from __future__ import annotations
@@ -21,9 +27,16 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
         return rmsnorm_ref(x, scale, eps)
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm: no kernel for device {x.device}")
-    out = rmsnorm_cuda(x, scale, eps)
-    rmsnorm.launches += 1
+    out, launched = rmsnorm_cuda(x, scale, eps)
+    if launched is not None:
+        rmsnorm.launches += 1
+    if launched == "warp":
+        rmsnorm.launches_warp += 1
+    elif launched == "block":
+        rmsnorm.launches_block += 1
     return out
 
 
 rmsnorm.launches = 0
+rmsnorm.launches_warp = 0
+rmsnorm.launches_block = 0

@@ -1,11 +1,19 @@
-"""Public selective-scan entry point: the CUDA kernel for CUDA tensors, the
+"""Public selective-scan entry point: the CUDA kernels for CUDA tensors, the
 plain sequential scan for CPU tensors.
 
 Replaces ``repro/kernels/selective_scan/ops.py::selective_scan`` (whose
 Pallas kernel is ``selective_scan.py::selective_scan_pallas``). A CUDA
-tensor launches the kernel or raises; only a CPU tensor takes
-``selective_scan_ref``. ``selective_scan.launches`` counts the kernel
-launches. What bounds the kernel: see ``csrc/selective_scan.cu``.
+tensor launches a kernel or raises; only a CPU tensor takes
+``selective_scan_ref``. Which kernel serves a CUDA call is
+``selective_scan.kernel_for``'s choice, from S alone, with no fallback
+between them: the associative prefill kernel from 32 steps, the sequential
+kernel below (every decode step).
+
+Counters, plain ints on this function, moved by the kernel that
+``selective_scan_cuda`` reports it launched: ``launches`` counts calls that
+launched a kernel; ``launches_prefill`` and ``launches_sequential`` the
+calls each kernel served. What bounds the kernels: see
+``csrc/scan_prefill.cu`` and ``csrc/selective_scan.cu``.
 """
 from __future__ import annotations
 
@@ -20,9 +28,16 @@ def selective_scan(u, dt, a, b, c, d_skip, h0):
         return selective_scan_ref(u, dt, a, b, c, d_skip, h0)
     if u.device.type != "cuda":
         raise ValueError(f"selective_scan: no kernel for device {u.device}")
-    out = selective_scan_cuda(u, dt, a, b, c, d_skip, h0)
-    selective_scan.launches += 1
-    return out
+    y, hT, launched = selective_scan_cuda(u, dt, a, b, c, d_skip, h0)
+    if launched is not None:
+        selective_scan.launches += 1
+    if launched == "prefill":
+        selective_scan.launches_prefill += 1
+    elif launched == "sequential":
+        selective_scan.launches_sequential += 1
+    return y, hT
 
 
 selective_scan.launches = 0
+selective_scan.launches_prefill = 0
+selective_scan.launches_sequential = 0

@@ -1,26 +1,55 @@
-"""ctypes binding of the CUDA selective-scan kernel
-(``kernels/csrc/selective_scan.cu``).
+"""ctypes bindings of the CUDA selective-scan kernels.
 
 Counterpart of ``repro/kernels/selective_scan/selective_scan.py::
 selective_scan_pallas``: the Mamba recurrence over S with f32 state, the
 final state returned in f32 and ``D * u`` folded into y. The TPU kernel
-carries a (bd x d_state) VMEM block across a sequential grid axis; the CUDA
-kernel gives each (batch, channel) one thread that holds its d_state (<= 16)
-states in registers and loops over S. b and c may be strided views (the
-model slices them out of one projection), with the last dim contiguous.
+carries a (bd x d_state) VMEM block across a sequential grid axis. Two CUDA
+kernels serve it (``kernel_for``):
+  * ``prefill`` (``csrc/scan_prefill.cu``): the associative form of
+    ``repro/models/ssm.py::selective_scan_assoc`` across lanes: each lane a
+    run of up to 16 consecutive steps of one channel, a channel's 4 runs'
+    (A, B) aggregates joined by a scan of warp shuffles, 8 channels a warp
+    (plain twin: ``ref.selective_scan_tiled``);
+  * ``sequential`` (``csrc/selective_scan.cu``): one thread a (batch,
+    channel) that holds its d_state (<= 16) states in registers and loops
+    over S; it takes every call of fewer steps, so every decode step.
+b and c may be strided views (the model slices them out of one
+projection), with the last dim contiguous.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.selective_scan.ref import RUNS
 
 MAX_STATE = 16
+# the fewest steps the prefill kernel takes: runs of 8 steps or more
+PREFILL_MIN_STEPS = 8 * RUNS
+
+
+def kernel_for(u: torch.Tensor) -> str:
+    """Which kernel serves a call: ``prefill`` or ``sequential``, from the
+    sequence length S of u (B, S, di) alone.
+
+    ``prefill`` takes S >= ``PREFILL_MIN_STEPS`` = 32, ``sequential`` the
+    rest, which includes every S = 1 decode step. The edge is a design rule,
+    not a reading: from 32 steps each of a channel's 4 runs holds 8 steps or
+    more, and each state's scan over the runs (shuffles, its carry) is spread
+    over that many; below it the sequential kernel, which has no such fixed
+    cost a state, takes the call. ``chip_smoke.py`` phase 4 times both
+    kernels at S = 32 (PERF.md §6). Both kernels take any dtype, width, state
+    size (<= 16) and b/c strides the wrapper accepts, so nothing but S
+    decides.
+    """
+    return "prefill" if u.shape[1] >= PREFILL_MIN_STEPS else "sequential"
 
 
 def selective_scan_cuda(u, dt, a, b, c, d_skip, h0):
     """u, dt: (B, S, di); a: (di, st) f32; b, c: (B, S, st); d_skip: (di,);
-    h0: (B, di, st) f32 -> (y (B, S, di) in u's dtype, hT (B, di, st) f32)."""
+    h0: (B, di, st) f32 -> (y (B, S, di) in u's dtype, hT (B, di, st) f32,
+    the kernel that was launched: ``kernel_for``'s name, or None for an empty
+    call, which launches nothing)."""
     tensors = (u, dt, a, b, c, d_skip, h0)
     if not (u.is_cuda and all(t.device == u.device for t in tensors)):
         raise ValueError("selective_scan_cuda: all inputs must be on one CUDA device")
@@ -48,12 +77,25 @@ def selective_scan_cuda(u, dt, a, b, c, d_skip, h0):
     y = torch.empty_like(u)
     hT = torch.empty((B, di, st), dtype=torch.float32, device=u.device)
     if B == 0 or di == 0:
-        return y, hT
+        return y, hT, None
+    kind = kernel_for(u)
+    launch(kind, u, dt, a, b, c, d_skip, h0, y, hT)
+    return y, hT, kind
+
+
+def launch(kind: str, u, dt, a, b, c, d_skip, h0, y, hT) -> None:
+    """Launch the scan kernel ``kind`` on tensors ``selective_scan_cuda`` has
+    checked, into y and hT, or raise. ``selective_scan_cuda`` calls it with
+    ``kernel_for``'s choice; ``chip_smoke.py`` also calls it past the
+    dispatch, to hold and time one kernel beside the other on the same
+    inputs."""
+    if kind not in ("prefill", "sequential"):
+        raise ValueError(f"selective_scan: no kernel {kind!r}")
+    B, S, di = u.shape
     lib = _build.load_library()
-    err = lib.selective_scan_launch(
-        u.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-        d_skip.data_ptr(), h0.data_ptr(), y.data_ptr(), hT.data_ptr(),
-        B, S, di, st, b.stride(0), b.stride(1), c.stride(0), c.stride(1),
-        _build.DTYPES[u.dtype], torch.cuda.current_stream(u.device).cuda_stream)
-    _build.check(lib, err, "selective_scan_launch")
-    return y, hT
+    fn = lib.selective_scan_prefill_launch if kind == "prefill" else lib.selective_scan_launch
+    err = fn(u.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+             d_skip.data_ptr(), h0.data_ptr(), y.data_ptr(), hT.data_ptr(),
+             B, S, di, a.shape[-1], b.stride(0), b.stride(1), c.stride(0), c.stride(1),
+             _build.DTYPES[u.dtype], torch.cuda.current_stream(u.device).cuda_stream)
+    _build.check(lib, err, f"selective_scan ({kind})")

@@ -81,6 +81,62 @@ def test_rmsnorm_kernel_takes_evenly_strided_rows(cuda):
         rmsnorm(_t(rng, (4, 9, 256), torch.bfloat16, cuda)[:, ::2][:, :3], sc)
 
 
+def _rms_counts():
+    return (rmsnorm.launches, rmsnorm.launches_warp, rmsnorm.launches_block)
+
+
+# D, the rows' layout, x's dtype, the kernel that serves it
+RMS_DISPATCH_CASES = [
+    *[(D, layout, torch.bfloat16, "warp" if D in (2304, 4096) and layout != "odd" else "block")
+      for D in (2304, 4096, 1000, 257) for layout in ("prefill", "decode", "last", "odd")],
+    (2304, "prefill", torch.float32, "block"), (4096, "decode", torch.float32, "block"),
+]
+
+
+@pytest.mark.parametrize("D,layout,dtype,kind", RMS_DISPATCH_CASES)
+def test_rmsnorm_kernels_match_plain_by_kernel(cuda, D, layout, dtype, kind):
+    """Prefill rows, decode rows, the last position of a prefill (rows 9 * D
+    apart) and rows D + 3 apart: each call moves the counter of the kernel
+    ``kernel_for`` names; at the warp kernel's rows the block kernel, called
+    past the dispatch, gives the same output."""
+    from repro_torch.kernels.rmsnorm.rmsnorm import kernel_for as rms_kernel_for
+    from repro_torch.kernels.rmsnorm.rmsnorm import launch, row_stride
+    rng = np.random.default_rng(13)
+    x = {"prefill": lambda: _t(rng, (512, D), dtype, cuda),
+         "decode": lambda: _t(rng, (4, D), dtype, cuda),
+         "last": lambda: _t(rng, (4, 9, D), dtype, cuda)[:, -1:],
+         "odd": lambda: _t(rng, (6, D + 3), dtype, cuda)[:, :D]}[layout]()
+    sc = (_t(rng, D, torch.float32, cuda) + 1.0).to(dtype)
+    assert rms_kernel_for(x, sc) == kind
+    before = _rms_counts()
+    out = rmsnorm(x, sc)
+    torch.cuda.synchronize()
+    moved = tuple(a - b for a, b in zip(_rms_counts(), before))
+    assert moved == {"warp": (1, 1, 0), "block": (1, 0, 1)}[kind], moved
+    ref = rmsnorm_ref(x, sc).float().cpu().numpy()
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref, atol=RMS_TOL[dtype])
+    if kind == "warp":
+        o = torch.full_like(out, float("nan"))
+        launch("block", x, sc, o, x.numel() // D, row_stride(x), 1e-6)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(o.float().cpu().numpy(), ref, atol=RMS_TOL[dtype])
+
+
+def test_rmsnorm_warp_kernel_makes_no_host_sync(cuda):
+    rng = np.random.default_rng(14)
+    x = _t(rng, (4, 1, 2304), torch.bfloat16, cuda)
+    sc = _t(rng, 2304, torch.bfloat16, cuda)
+    rmsnorm(x, sc)                              # build, warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = rmsnorm(x, sc)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               rmsnorm_ref(x, sc).float().cpu().numpy(), atol=5e-2)
+
+
 @pytest.mark.parametrize("case", [
     # B, Hq, Hkv, Sq, Skv, hd, causal, window, softcap, q_offset, ring
     (2, 4, 2, 64, 64, 32, True, 0, 0.0, 0, False),
@@ -354,6 +410,126 @@ def test_selective_scan_kernel_matches_plain(cuda, B, S, di, st, dtype):
     assert y.dtype == dtype and hT.dtype == torch.float32
     ry, rh = selective_scan_ref(u, dt, a, b, c, d, h0)
     atol, rtol = SCAN_TOL[dtype]
+    np.testing.assert_allclose(y.float().cpu().numpy(), ry.float().cpu().numpy(),
+                               atol=atol, rtol=rtol)
+    np.testing.assert_allclose(hT.cpu().numpy(), rh.cpu().numpy(), atol=2e-5)
+
+
+def _scan_counts():
+    return (selective_scan.launches, selective_scan.launches_prefill,
+            selective_scan.launches_sequential)
+
+
+# B, S, di, st, b/c strided, the draws: S = 77 (two tiles, runs cut short),
+# S = 600 (ten tiles, a carry from each to the next), di = 130 (an item of
+# 2 channels past 128), strided b and c, S = 31 and 32 (both sides of the
+# edge) with the JAX tests' draws (A = -|N(0, 1)|: states that barely decay);
+# jamba's prefill and decode with the mamba block's (A = -(1..16), dt =
+# softplus near its init)
+SCAN_DISPATCH_CASES = [(2, 77, 40, 5, False, "jax"), (2, 600, 24, 16, False, "jax"),
+                       (1, 96, 130, 16, False, "jax"), (2, 300, 64, 16, True, "jax"),
+                       (2, 31, 64, 16, True, "jax"), (2, 32, 64, 16, True, "jax"),
+                       (4, 512, 8192, 16, True, "model"), (4, 1, 8192, 16, True, "model")]
+
+
+def _scan_inputs(rng, B, S, di, st, strided, draw, dtype, dev):
+    u = _t(rng, (B, S, di), dtype, dev)
+    if draw == "model":
+        dt = torch.nn.functional.softplus(
+            _t(rng, (B, S, di), torch.float32, dev) * 0.5 + np.log(np.e - 1)).to(dtype)
+        a = -torch.arange(1, st + 1, dtype=torch.float32, device=dev).expand(di, st).contiguous()
+    else:
+        dt = (_t(rng, (B, S, di), torch.float32, dev).abs() * 0.1 + 0.01).to(dtype)
+        a = -_t(rng, (di, st), torch.float32, dev).abs()
+    if strided:     # as the model slices them out of one projection
+        bc = _t(rng, (B, S, 2 * st + 3), dtype, dev)
+        b, c = bc[..., :st], bc[..., st + 3:]
+    else:
+        b, c = _t(rng, (B, S, st), dtype, dev), _t(rng, (B, S, st), dtype, dev)
+    d = _t(rng, (di,), dtype, dev)
+    h0 = _t(rng, (B, di, st), torch.float32, dev) * 0.2
+    return u, dt, a, b, c, d, h0
+
+
+@pytest.mark.parametrize("B,S,di,st,strided,draw", SCAN_DISPATCH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_kernels_match_plain_by_kernel(cuda, B, S, di, st, strided, draw, dtype):
+    """Each call moves the counter of the kernel ``kernel_for`` names (the
+    prefill kernel from 32 steps). The sequential kernel sums in the plain
+    version's order and is held to it; the prefill kernel sums in another
+    (the associative form), and is held to the plain version carried out in
+    f64: over hundreds of steps that barely decay, the f32 plain version's
+    own rounding reaches the f32 limit (see
+    ``test_scan_prefill_kernel_is_nearer_f64_than_the_f32_plain_version``).
+    The prefill kernel is also held past the dispatch where the sequential one serves, and the
+    sequential one past the dispatch at jamba's prefill; with the JAX tests'
+    draws at S >= 32 its f32 sums stray up to the limit from the plain
+    version's, so it is not held there."""
+    from repro_torch.kernels.selective_scan.selective_scan import kernel_for as scan_kernel_for
+    from repro_torch.kernels.selective_scan.selective_scan import launch
+    args = _scan_inputs(np.random.default_rng(15), B, S, di, st, strided, draw, dtype, cuda)
+    kind = scan_kernel_for(args[0])
+    assert kind == ("prefill" if S >= 32 else "sequential")
+    before = _scan_counts()
+    y, hT = selective_scan(*args)
+    torch.cuda.synchronize()
+    moved = tuple(x - z for x, z in zip(_scan_counts(), before))
+    assert moved == {"prefill": (1, 1, 0), "sequential": (1, 0, 1)}[kind], moved
+    yardstick = {"sequential": selective_scan_ref(*args),
+                 "prefill": selective_scan_ref(*(x.double() for x in args))}
+    atol, rtol = SCAN_TOL[dtype]
+    other = "sequential" if kind == "prefill" else "prefill"
+    checked = [(kind, y, hT)]
+    if other == "prefill" or draw == "model":
+        yo, ho = torch.full_like(y, float("nan")), torch.full_like(hT, float("nan"))
+        launch(other, *args, yo, ho)
+        torch.cuda.synchronize()
+        checked.append((other, yo, ho))
+    for k, yk, hk in checked:
+        ry, rh = yardstick[k]
+        np.testing.assert_allclose(yk.float().cpu().numpy(), ry.double().cpu().numpy(),
+                                   atol=atol, rtol=rtol, err_msg=k)
+        np.testing.assert_allclose(hk.cpu().numpy(), rh.cpu().numpy(), atol=2e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("B,S,di,st", [(2, 600, 24, 16), (4, 600, 130, 16), (2, 1024, 64, 16)])
+def test_scan_prefill_kernel_is_nearer_f64_than_the_f32_plain_version(cuda, B, S, di, st):
+    """Why the prefill kernel is held to the plain version carried out in f64:
+    with states that barely decay (the JAX tests' draws), the f32 plain
+    version's step-by-step rounding strays past the f32 limit over hundreds
+    of steps, while the kernel (da on the SFU, each run's A and the carry
+    from tile to tile in one accurate exponential a run) stays within it and
+    nearer the f64 scan than the f32 plain version is."""
+    from repro_torch.kernels.selective_scan.selective_scan import launch
+    args = _scan_inputs(np.random.default_rng(17), B, S, di, st, False, "jax", torch.float32,
+                        cuda)
+    ry, rh = selective_scan_ref(*(x.double() for x in args))
+    y, hT = torch.full_like(args[0], float("nan")), torch.full_like(args[-1], float("nan"))
+    launch("prefill", *args, y, hT)
+    py, ph = selective_scan_ref(*args)
+    err = {name: max((yk.double() - ry).abs().max().item(), (hk.double() - rh).abs().max().item())
+           for name, (yk, hk) in {"prefill": (y, hT), "f32 plain": (py, ph)}.items()}
+    assert err["prefill"] <= err["f32 plain"], err
+    assert err["prefill"] <= SCAN_TOL[torch.float32][0], err
+
+
+def test_scan_prefill_kernel_makes_no_host_sync(cuda):
+    rng = np.random.default_rng(16)
+    u = _t(rng, (2, 256, 64), torch.bfloat16, cuda)
+    dt = (_t(rng, (2, 256, 64), torch.float32, cuda).abs() * 0.1 + 0.01).to(torch.bfloat16)
+    a = -_t(rng, (64, 16), torch.float32, cuda).abs()
+    b, c = (_t(rng, (2, 256, 16), torch.bfloat16, cuda) for _ in range(2))
+    d = _t(rng, (64,), torch.bfloat16, cuda)
+    h0 = _t(rng, (2, 64, 16), torch.float32, cuda) * 0.2
+    selective_scan(u, dt, a, b, c, d, h0)           # build, warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, hT = selective_scan(u, dt, a, b, c, d, h0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ry, rh = selective_scan_ref(u, dt, a, b, c, d, h0)
+    atol, rtol = SCAN_TOL[torch.bfloat16]
     np.testing.assert_allclose(y.float().cpu().numpy(), ry.float().cpu().numpy(),
                                atol=atol, rtol=rtol)
     np.testing.assert_allclose(hT.cpu().numpy(), rh.cpu().numpy(), atol=2e-5)
