@@ -85,7 +85,22 @@ Phases, each of which passes or ends the script with a non-zero exit:
      beside the kernel that serves a row, the other kernels named for it
      (RMSNorm: the block kernel; scan: the other one) are timed on the same
      inputs, called past the dispatch.
-The last two lines are the kernels' JSON line and the result line.
+  5. train: the reduced gemma2-2b and a reduced hybrid with a MoE layer
+     take 3 AdamW steps on the card and on the CPU from the same seed, whose
+     losses, aux losses and grad norms must agree. Then full-width gemma2-2b
+     (nothing cut) and full-width jamba cut to two layers of its block
+     (mamba + MoE, attention + MLP: all four kernels) each take 10 AdamW
+     steps through ``Trainer`` (lr 3e-4, batch 4 x 512 bigram tokens; an
+     out-of-memory error fails the run): every loss finite, the mean of the
+     last 3 below the first, and per step the kernel launches of one forward
+     (the backward recomputes the plain versions and launches none): gemma2
+     53 RMSNorm (warp) and 26 flash (tensor-core); jamba-2 5 RMSNorm, 1
+     flash, 1 scan (prefill kernel), 3 gmm (tiled). Prints step ms (CUDA
+     events, median of steps 3-10), tokens/s, peak memory, and a profiled
+     eleventh step split into the four kernels' forwards, the
+     plain-recompute backward of each op, cuBLAS and the optimizer.
+Seconds per phase are printed as each ends. The last two lines are the
+kernels' JSON line and the result line.
 """
 from __future__ import annotations
 
@@ -114,6 +129,16 @@ ARCH, N_REQ, BATCH, PROMPT, NEW, MAX_SEQ = "gemma2-2b", 8, 4, 512, 16, 1024
 # layers (51.6B parameters, 103 GB in bf16) do not fit one 80 GB card
 HYBRID, HYBRID_LAYERS = "jamba-v0.1-52b", 8
 INVALID = 2 ** 30
+# phase 5: AdamW steps at lr 3e-4 of batch TRAIN_BATCH x TRAIN_SEQ bigram
+# tokens; jamba at full width cut to two layers of
+# its block, ("mamba", "moe") then ("attn", "mlp"): with AdamW's f32 moments
+# the 8-layer serve cut (13.3B parameters, 160 GB) does not fit one card
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 10, 4, 512, 3e-4
+HYBRID_TRAIN_PATTERN = slice(3, 5)
+# the reduced models' 3 AdamW steps, card against CPU, in f32: loss, aux and
+# grad norm within TRAIN_ATOL + TRAIN_RTOL * |cpu| (the f32 kernels sum in
+# another order than the plain versions; a loss is a mean over 128 tokens)
+REDUCED_TRAIN_STEPS, TRAIN_ATOL, TRAIN_RTOL = 3, 1e-5, 1e-5
 
 
 def log(*a):
@@ -256,6 +281,21 @@ def bound(nbytes, flops, dtype, exps=0):
     return t[unit], "bytes" if unit == "bytes" else "operations", unit
 
 
+def matmul_bound_ms(cfg, tokens):
+    """A training step's floor: 6 N T FLOPs over the bf16 peak, with N the
+    weights a token meets (every weight but the embedding table; the
+    experts' at top_k of n_experts) and T ``tokens``. Returns (ms, N)."""
+    from repro_torch.models.schema import _leaves, model_schema
+    n = 0.0
+    for name, d in _leaves(model_schema(cfg)):
+        leaf = name.split("/")[-1]
+        if leaf == "embed":
+            continue
+        share = cfg.top_k / cfg.n_experts if leaf in ("we_up", "we_gate", "we_down") else 1.0
+        n += math.prod(d.shape) * share
+    return 6 * n * tokens / PEAK_FLOPS["bfloat16"] * 1e3, n
+
+
 def per_forward(cfg):
     """Kernel launches in one forward, from the config's block pattern: a
     norm per mixer and per FFN plus the final norm, a flash call per
@@ -337,6 +377,20 @@ def main() -> int:
 
     kernel_ops = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
                   "selective_scan": selective_scan, "gmm": gmm}
+    clock = {"t": time.perf_counter()}
+
+    def phase_done(name):
+        now = time.perf_counter()
+        log(f"[phase] {name}: {now - clock['t']:.1f} s")
+        clock["t"] = now
+
+    def zero_counts():
+        for op in kernel_ops.values():
+            op.launches = 0
+        flash_attention.launches_split_kv = flash_attention.launches_tensor_core = 0
+        gmm.launches_tiled = gmm.launches_decode = gmm.launches_small = 0
+        rmsnorm.launches_warp = rmsnorm.launches_block = 0
+        selective_scan.launches_prefill = selective_scan.launches_sequential = 0
 
     # -- 0. device -----------------------------------------------------------
     smi = subprocess.run(
@@ -355,6 +409,8 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {device_name}")
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    phase_done("0 device")
+
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
     lib = _build.load_library()
@@ -370,6 +426,8 @@ def main() -> int:
                for D in RMS_WARP_WIDTHS}
     for name, r in sorted({**flash_res, **gmm_res, **rms_res, **scan_res}.items()):
         log(f"[build] {name}: {json.dumps(r)}")
+
+    phase_done("1 build")
 
     # -- 2. kernels vs plain versions ----------------------------------------
     rng = np.random.default_rng(0)
@@ -747,6 +805,8 @@ def main() -> int:
     served_on_card_and_cpu(f"{HYBRID} 8-block pattern", dataclasses.replace(
         hcfg.reduced(), pattern=hcfg.pattern, n_layers=HYBRID_LAYERS))
 
+    phase_done("2 kernels vs plain")
+
     # -- 3. serve ------------------------------------------------------------
     def serve_model(cfg, params):
         def requests():
@@ -769,12 +829,7 @@ def main() -> int:
         engine._decode = recorded(engine._decode, "decode")
         for r in requests():
             engine.submit(r)
-        for op in kernel_ops.values():
-            op.launches = 0
-        flash_attention.launches_split_kv = flash_attention.launches_tensor_core = 0
-        gmm.launches_tiled = gmm.launches_decode = gmm.launches_small = 0
-        rmsnorm.launches_warp = rmsnorm.launches_block = 0
-        selective_scan.launches_prefill = selective_scan.launches_sequential = 0
+        zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         done = engine.run_batch()
@@ -942,6 +997,8 @@ def main() -> int:
     paths = {ARCH: serve_model(cfg, params)}
     del params
 
+    phase_done("3 serve gemma2-2b")
+
     # -- 3b. serve full-width jamba, one period of its block ----------------
     jcfg = dataclasses.replace(hcfg, n_layers=HYBRID_LAYERS)
     params = init_on_card(
@@ -953,6 +1010,8 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+
+    phase_done("3b serve jamba-8")
 
     # -- 4. times at the serving shapes --------------------------------------
     flush = L2Flush()
@@ -1130,6 +1189,173 @@ def main() -> int:
     scan_edge = {f"S{S}": scan_times(S) for S in (31, 32)}
     scan_jax_draws = scan_times(PROMPT, model_like=False)
     log(f"[profile] phase 4's profiler sessions: {SESSIONS}")
+    phase_done("4 times")
+
+    # -- 5. train -------------------------------------------------------------
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.synthetic import DataPipeline
+    from repro_torch.optim.optimizers import init_opt_state
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.train.trainer import Trainer
+
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def reduced_steps(rcfg, d):
+        """REDUCED_TRAIN_STEPS AdamW steps from seed-0 weights drawn on the
+        CPU: each step's loss, aux loss and grad norm."""
+        tc = TrainConfig(optimizer="adamw", learning_rate=1e-3)
+        params = init_params(rcfg, torch.Generator().manual_seed(0), device="cpu").to(d)
+        state, step = init_opt_state(tc, params), make_train_step(rcfg, tc)
+        data = DataPipeline(rcfg, 2, 64, seed=0, device=d)
+        out = []
+        for _ in range(REDUCED_TRAIN_STEPS):
+            params, state, m = step(params, state, next(data))
+            out.append({k: v.item() for k, v in m.items()})
+        return out
+
+    hybrid_train_pattern = hcfg.pattern[HYBRID_TRAIN_PATTERN]
+    assert hybrid_train_pattern == (("mamba", "moe"), ("attn", "mlp")), hybrid_train_pattern
+    for label, rcfg in ((ARCH, get_config(ARCH).reduced()),
+                        (f"{HYBRID} {hybrid_train_pattern}", dataclasses.replace(
+                            hcfg.reduced(), pattern=hybrid_train_pattern, n_layers=2))):
+        cpu, card = reduced_steps(rcfg, "cpu"), reduced_steps(rcfg, dev)
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(cpu, card)):
+            for key in a:
+                excess = abs(b[key] - a[key]) - TRAIN_RTOL * abs(a[key])
+                worst = max(worst, abs(b[key] - a[key]))
+                assert math.isfinite(b[key]) and excess <= TRAIN_ATOL, (label, i, key, a, b)
+        log(f"[train] reduced {label}: {REDUCED_TRAIN_STEPS} AdamW steps, card {card}, "
+            f"cpu {cpu}; max |card - cpu| {worst:.3e} (limit {TRAIN_ATOL:g} + "
+            f"{TRAIN_RTOL:g} * |cpu|) ok")
+
+    def profiled_step(tcfg, trainer):
+        """One more step under the profiler, its device time split: the four
+        kernels' forwards, each op's plain-recompute backward (the
+        ``PlainGrad.backward[...]`` ranges, their matmuls included), cuBLAS
+        outside those ranges, the optimizer (the train step's ``optimizer``
+        range) and the rest."""
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trainer.run(1)
+            torch.cuda.synchronize()
+        ranges = {}
+
+        def kernels_under(ev):
+            found = [(k.name, k.duration) for k in ev.kernels]
+            for ch in ev.cpu_children:
+                found += kernels_under(ch)
+            return found
+
+        for ev in prof.events():
+            if ev.name == "optimizer" or ev.name.startswith("PlainGrad.backward["):
+                ranges.setdefault(ev.name, []).extend(kernels_under(ev))
+        # a range's own span on the device (its gpu_user_annotation, which
+        # covers the gaps between its kernels) is no kernel: left out
+        ranges = {k: [(n, d) for n, d in v if n not in ranges] for k, v in ranges.items()}
+        kern = [a for a in device_kernels(prof) if a.key not in ranges]
+        busy = sum(a.self_device_time_total for a in kern) / 1e3
+
+        def is_ours(name):
+            return any(k in name for k in ("rmsnorm", "flash_", "scan_prefill_kernel",
+                                           "selective_scan", "gmm_"))
+
+        def is_blas(name):
+            return any(k in name.lower() for k in ("gemm", "xmma", "cutlass", "nvjet", "cublas"))
+
+        ours = sum(a.self_device_time_total for a in kern if is_ours(a.key)) / 1e3
+        blas = sum(a.self_device_time_total for a in kern if is_blas(a.key)) / 1e3
+        plain = {k[len("PlainGrad.backward["):-1]: sum(d for _, d in v) / 1e3
+                 for k, v in ranges.items() if k != "optimizer"}
+        plain_blas = sum(d for k, v in ranges.items() if k != "optimizer"
+                         for n, d in v if is_blas(n)) / 1e3
+        opt = sum(d for _, d in ranges.get("optimizer", [])) / 1e3
+        split = {"device_busy_ms": busy, "forward_kernels_ms": ours,
+                 "plain_recompute_backward_ms": sum(plain.values()),
+                 "plain_recompute_backward_ms_by_op": plain,
+                 "cublas_ms": blas, "cublas_inside_plain_recompute_ms": plain_blas,
+                 "cublas_outside_plain_recompute_ms": blas - plain_blas,
+                 "optimizer_ms": opt}
+        split["other_ms"] = busy - ours - split["plain_recompute_backward_ms"] - (
+            blas - plain_blas) - opt
+        log(f"[train] {tcfg.name} profiled step: {json.dumps(split)}")
+        for a in sorted(kern, key=lambda a: -a.self_device_time_total)[:12]:
+            log(f"[profile]   {a.self_device_time_total / 1e3:9.3f} ms {a.count:5d}x "
+                f"{a.key[:90]}")
+        return split
+
+    def train_model(tcfg, batch, note=""):
+        """TRAIN_STEPS AdamW steps of ``Trainer`` at full width, each one
+        ``Trainer.run(1)`` between two CUDA events."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = Trainer(tcfg, TrainConfig(optimizer="adamw", learning_rate=TRAIN_LR),
+                          batch, TRAIN_SEQ, seed=0, device=dev)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in trainer.params.parameters())
+        log(f"[train] {tcfg.name}: {tcfg.n_layers} layers {tcfg.pattern} d_model "
+            f"{tcfg.d_model} {tcfg.dtype}, {n_params / 1e9:.3f}B params, weights + grads "
+            f"(bf16) + AdamW moments (f32) {12 * n_params / 1e9:.1f} GB, set up in "
+            f"{time.perf_counter() - t0:.1f}s{note}")
+        events = []
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            trainer.run(1)
+            e.record()
+            events.append((s, e))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {name: op.launches for name, op in kernel_ops.items()}
+        by = (flash_counts(), gmm_counts(), rms_counts(), scan_counts())
+        expect = per_forward(tcfg)
+        losses = trainer.losses
+        log(f"[train] {tcfg.name}: losses {losses}; launches {launches}, flash by kernel "
+            f"{by[0]}, gmm by kernel {by[1]}, rmsnorm by kernel {by[2]}, selective_scan by "
+            f"kernel {by[3]}")
+        assert all(math.isfinite(x) for x in losses), losses
+        assert sum(losses[-3:]) / 3 < losses[0], f"{tcfg.name}: the loss did not fall"
+        for name, n in expect.items():
+            assert launches[name] == n * TRAIN_STEPS, (name, launches[name], n * TRAIN_STEPS)
+        assert by[0] == {"split_kv": 0, "tensor_core": expect["flash_attention"] * TRAIN_STEPS}
+        assert by[1] == {"tiled": expect["gmm"] * TRAIN_STEPS, "decode": 0, "small": 0}
+        assert by[2] == {"warp": expect["rmsnorm"] * TRAIN_STEPS, "block": 0}
+        assert by[3] == {"prefill": expect["selective_scan"] * TRAIN_STEPS, "sequential": 0}
+        log(f"[train] {tcfg.name} per step: {expect} kernel launches, all in the forward")
+        step_ms = [s.elapsed_time(e) for s, e in events]
+        med = float(np.median(step_ms[2:]))
+        bound_ms, active = matmul_bound_ms(tcfg, batch * TRAIN_SEQ)
+        res = {"arch": tcfg.name, "n_layers": tcfg.n_layers, "params": n_params,
+               "batch": batch, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+               "step_ms": step_ms, "step_ms_median_3_10": med,
+               "matmul_bound_ms": bound_ms, "matmul_bound_weights": active,
+               "tokens_per_s": batch * TRAIN_SEQ / (med / 1e3), "run_s": wall_s,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "loss_first": losses[0], "loss_last3_mean": sum(losses[-3:]) / 3}
+        log("[train] " + json.dumps(res))
+        res["profile"] = profiled_step(tcfg, trainer)
+        del trainer
+        return (launches, expect, TRAIN_STEPS, *by), res
+
+    train_cfgs = [(cfg, ""), (dataclasses.replace(hcfg, n_layers=2, pattern=hybrid_train_pattern),
+                             f"; cut to 2 of {hcfg.n_layers} layers (two of its block; the "
+                             f"{HYBRID_LAYERS}-layer serve cut with AdamW's moments is "
+                             f"{12 * count_params(jcfg) / 1e9:.0f} GB, with RMSProp's "
+                             f"{8 * count_params(jcfg) / 1e9:.0f} GB)")]
+    trained = {}
+    for tcfg, note in train_cfgs:
+        path, trained[tcfg.name] = train_model(tcfg, TRAIN_BATCH, note)
+        paths[f"train {tcfg.name}-{tcfg.n_layers}L"] = path
+    phase_done("5 train")
+
 
     kernels = []
     for name, src, replaces, main_t, dec_t, more in [

@@ -1,7 +1,8 @@
-"""Model configuration for the PyTorch port.
+"""Model and training configuration for the PyTorch port.
 
-A copy of ``repro.configs.base.ModelConfig`` (the port imports nothing of the
-JAX package), without the fields only the JAX package reads. Every assigned architecture gets a ``ModelConfig`` in
+Copies of ``repro.configs.base.ModelConfig`` and ``TrainConfig`` (the port
+imports nothing of the JAX package), without the fields only the JAX
+package reads. Every assigned architecture gets a ``ModelConfig`` in
 ``repro_torch/configs/<id>.py`` citing its source; ``reduced()`` returns the
 CPU smoke-test variant of the same family.
 """
@@ -145,3 +146,22 @@ class ModelConfig:
             ssm_dt_rank=8,
             dtype="float32",
         )
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The reference's ``TrainConfig`` without ``microbatch`` and
+    ``zero_sharded_opt`` (gradient accumulation and ZeRO specs are not
+    ported: the port trains on one card)."""
+    learning_rate: float = 3e-4
+    optimizer: str = "rmsprop"       # rmsprop (paper: non-centered) | adamw
+    rmsprop_decay: float = 0.99
+    rmsprop_eps: float = 0.1
+    adam_b1: float = 0.9
+    adam_b2: float = 0.95
+    weight_decay: float = 0.0
+    grad_clip: float = 1.0
+    warmup_steps: int = 0
+    seed: int = 0
+    remat: str = "none"              # none | full | dots
+    loss_chunk: int = 1024           # sequence chunking for vocab xent

@@ -10,6 +10,15 @@ weight-streaming kernel for bf16 calls of fewer (decode), and the small
 kernel for f32 calls and the bf16 calls that neither of the other two can
 take (widths not a multiple of 8, unaligned pointers).
 
+Gradients: where autograd needs one, the CUDA call goes through
+``kernels.autograd.PlainGrad``. Its forward is the same kernel launch; its
+backward recomputes ``gmm_ref`` on the saved x and w and returns that
+gradient (no backward kernel: the reference has none). ``group_sizes``
+takes no gradient. ``gmm_ref`` reads the group sizes on the host, so the
+backward waits on the card once a call: a training step may, a serving
+step never runs it. On the card the plain version runs only inside a
+backward. A CPU tensor's autograd differentiates ``gmm_ref`` as it stands.
+
 Counters, plain ints on this function, moved by the kernel that
 ``gmm_cuda`` reports it launched: ``launches`` counts calls that launched a
 kernel; ``launches_tiled``, ``launches_decode`` and ``launches_small`` count
@@ -18,17 +27,12 @@ the calls each of the three kernels served. What bounds each kernel: see
 """
 from __future__ import annotations
 
+from repro_torch.kernels.autograd import kernel_op
 from repro_torch.kernels.gmm.gmm import gmm_cuda
 from repro_torch.kernels.gmm.ref import gmm_ref
 
 
-def gmm(x, w, group_sizes):
-    """x: (T, D) rows sorted by group; w: (E, D, F); group_sizes: (E,) int32
-    on x's device -> (T, F) in x's dtype."""
-    if x.device.type == "cpu":
-        return gmm_ref(x, w, group_sizes)
-    if x.device.type != "cuda":
-        raise ValueError(f"gmm: no kernel for device {x.device}")
+def _kernel(x, w, group_sizes):
     out, launched = gmm_cuda(x, w, group_sizes)
     if launched is not None:
         gmm.launches += 1
@@ -39,6 +43,16 @@ def gmm(x, w, group_sizes):
     elif launched == "small":
         gmm.launches_small += 1
     return out
+
+
+def gmm(x, w, group_sizes):
+    """x: (T, D) rows sorted by group; w: (E, D, F); group_sizes: (E,) int32
+    on x's device -> (T, F) in x's dtype."""
+    if x.device.type == "cpu":
+        return gmm_ref(x, w, group_sizes)
+    if x.device.type != "cuda":
+        raise ValueError(f"gmm: no kernel for device {x.device}")
+    return kernel_op(_kernel, gmm_ref, x, w, group_sizes)
 
 
 gmm.launches = 0

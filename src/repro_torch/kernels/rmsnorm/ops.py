@@ -8,6 +8,13 @@ only a CPU tensor takes ``rmsnorm_ref``. Which kernel serves a CUDA call is
 warp-per-row kernel for bf16 rows of the configs' widths, the block-per-row
 kernel for everything else.
 
+Gradients: where autograd needs one, the CUDA call goes through
+``kernels.autograd.PlainGrad``. Its forward is the same kernel launch; its
+backward recomputes ``rmsnorm_ref`` on the saved inputs and returns that
+gradient (no backward kernel: the reference has none). So on the card the
+plain version runs only inside a backward. A CPU tensor's autograd
+differentiates ``rmsnorm_ref`` as it stands.
+
 Counters, plain ints on this function, moved by the kernel that
 ``rmsnorm_cuda`` reports it launched: ``launches`` counts calls that
 launched a kernel; ``launches_warp`` and ``launches_block`` the calls each
@@ -18,15 +25,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.autograd import kernel_op
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_cuda
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
-    if x.device.type == "cpu":
-        return rmsnorm_ref(x, scale, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"rmsnorm: no kernel for device {x.device}")
+def _kernel(x: torch.Tensor, scale: torch.Tensor, eps: float):
     out, launched = rmsnorm_cuda(x, scale, eps)
     if launched is not None:
         rmsnorm.launches += 1
@@ -35,6 +39,14 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     elif launched == "block":
         rmsnorm.launches_block += 1
     return out
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    if x.device.type == "cpu":
+        return rmsnorm_ref(x, scale, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm: no kernel for device {x.device}")
+    return kernel_op(_kernel, rmsnorm_ref, x, scale, eps)
 
 
 rmsnorm.launches = 0

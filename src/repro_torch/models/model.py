@@ -2,15 +2,19 @@
 
 Port of ``repro/models/model.py`` for the attention, mamba, MLP and MoE
 blocks. A Python loop over the ``n_repeat`` stacked layers takes the place
-of ``lax.scan``.
+of ``lax.scan``; ``remat`` checkpoints each repetition as the reference's
+``jax.checkpoint(body)`` does.
 Modes: 'train' (full sequence, no cache), 'prefill' (full sequence, fills
 the cache), 'decode' (one token against the cache).
 """
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -48,31 +52,76 @@ def _layer(stack: dict, r: int) -> dict:
     return {n: t[r] for n, t in stack.items()}
 
 
+def _apply_superblock(cfg: ModelConfig, dec: dict, r: int, x, *, mode: str,
+                      pos: int, cache):
+    """One repetition ``r`` of the pattern -> (x, its MoE layers' aux
+    losses, a list)."""
+    auxes = []
+    for i, (mixer, ffn) in enumerate(cfg.pattern):
+        key = f"b{i}_{mixer}"
+        p = _layer(dec[key], r)
+        c = None if cache is None else _layer(cache[key], r)
+        if mixer.startswith("attn"):
+            x = attn_block(cfg, p, x, mode=mode, pos=pos, cache=c,
+                           window=_mixer_window(cfg, mixer))
+        elif mixer == "mamba":
+            x = mamba_block(cfg, p, x, mode=mode, cache=c)
+        else:
+            raise NotImplementedError(f"mixer {mixer!r} is not ported")
+        if ffn == "mlp":
+            x = mlp_block(cfg, _layer(dec[f"b{i}_mlp"], r), x)
+        elif ffn == "moe":
+            x, a = moe_block(cfg, _layer(dec[f"b{i}_moe"], r), x)
+            auxes.append(a)
+        elif ffn:
+            raise NotImplementedError(f"ffn {ffn!r} is not ported")
+    return x, auxes
+
+
+# 2-D matmuls: the projections, MLPs and router, not the batched attention
+# products (the reference's ``dots_with_no_batch_dims_saveable``)
+_SAVED_BY_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def forward(cfg: ModelConfig, params, batch: dict, *, mode: str = "train",
-            pos: int = 0, cache=None):
-    """Returns (hidden (B, S, D), cache); the cache is updated in place.
-    The MoE aux loss is dropped: the port serves, it does not train yet."""
+            pos: int = 0, cache=None, remat: str = "none"):
+    """Returns (hidden (B, S, D), cache, aux loss); the cache is updated in
+    place. In train mode the aux loss is the sum of the MoE layers'
+    load-balance losses (an f32 scalar on the hidden's device, 0 without MoE
+    layers). In prefill and decode it is None: their callers discard it, and
+    summing it would add launches to every serving step.
+
+    ``remat`` (train mode): 'none' keeps every activation for the backward;
+    'full' recomputes each repetition of the pattern in the backward
+    (``torch.utils.checkpoint``), 'dots' keeps its 2-D matmul outputs and
+    recomputes the rest. A recomputed repetition launches its kernels again.
+    """
+    if remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat {remat!r}")
     x = embed_tokens(cfg, params, batch["tokens"])
     dec = params["dec"]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device) if mode == "train" else None
     for r in range(cfg.n_repeat):
-        for i, (mixer, ffn) in enumerate(cfg.pattern):
-            key = f"b{i}_{mixer}"
-            p = _layer(dec[key], r)
-            c = None if cache is None else _layer(cache[key], r)
-            if mixer.startswith("attn"):
-                x = attn_block(cfg, p, x, mode=mode, pos=pos, cache=c,
-                               window=_mixer_window(cfg, mixer))
-            elif mixer == "mamba":
-                x = mamba_block(cfg, p, x, mode=mode, cache=c)
-            else:
-                raise NotImplementedError(f"mixer {mixer!r} is not ported")
-            if ffn == "mlp":
-                x = mlp_block(cfg, _layer(dec[f"b{i}_mlp"], r), x)
-            elif ffn == "moe":
-                x, _ = moe_block(cfg, _layer(dec[f"b{i}_moe"], r), x)
-            elif ffn:
-                raise NotImplementedError(f"ffn {ffn!r} is not ported")
-    return x, cache
+        body = partial(_apply_superblock, cfg, dec, r, mode=mode, pos=pos, cache=cache)
+        if remat == "none" or cache is not None or not torch.is_grad_enabled():
+            x, auxes = body(x)
+        elif remat == "full":
+            x, auxes = checkpoint(body, x, use_reentrant=False)
+        else:
+            x, auxes = checkpoint(body, x, use_reentrant=False,
+                                  context_fn=partial(create_selective_checkpoint_contexts,
+                                                     _save_dots))
+        if aux is not None and auxes:
+            part = auxes[0]         # a repetition's sum, then the total: the reference's order
+            for a in auxes[1:]:
+                part = part + a
+            aux = aux + part
+    return x, cache, aux
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *,

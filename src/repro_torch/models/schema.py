@@ -164,8 +164,9 @@ class ModelParams(nn.Module):
 
     ``params["embed"]``, ``params["final_norm_scale"]`` and
     ``params["dec"]["b0_attn_local"]["wq"]`` (stacked on a leading
-    ``n_repeat`` axis) index as the JAX pytree does. Weights are frozen:
-    the port serves, it does not train yet.
+    ``n_repeat`` axis) index as the JAX pytree does. Weights are built
+    frozen (``requires_grad=False``) for serving; a train step turns on
+    ``requires_grad`` for them (``train/steps.py``).
     """
 
     def __init__(self, tree: dict):

@@ -4,7 +4,9 @@ Port of ``repro/serving/engine.py``. Requests with the same (prompt length,
 max_new_tokens) are served together in groups of ``batch_size``; a short
 group is padded with zero prompts. Each group gets a fresh cache, one
 prefill and ``max_new_tokens`` decode steps. Tokens stay on the device until
-the group is done, so decode never waits on the host.
+the group is done, so decode never waits on the host. ``_run_one`` serves
+one request alone in a batch of one, as the reference's single-request
+path does.
 """
 from __future__ import annotations
 
@@ -48,6 +50,12 @@ class ServingEngine:
     def submit(self, req: Request):
         self.queue.append(req)
 
+    def _run_one(self, req: Request):
+        """Single-request path: a batch of one with its own cache."""
+        req.output.extend(self._generate(np.asarray(req.prompt)[None], req.max_new_tokens)[0])
+        req.done = True
+        return req
+
     def run_batch(self):
         """Drain the queue: batched prefill + lockstep decode per group."""
         by_len: dict = {}
@@ -62,10 +70,19 @@ class ServingEngine:
     def _run_group(self, reqs: List[Request], plen: int, mnt: int):
         prompts = np.zeros((self.B, plen), np.int64)
         prompts[:len(reqs)] = np.stack([r.prompt for r in reqs])
-        tokens = torch.from_numpy(prompts).to(self.device)
-        cache = init_cache(self.cfg, self.B, self.max_seq, device=self.device)
+        out = self._generate(prompts, mnt)
+        for j, r in enumerate(reqs):
+            r.output.extend(out[j])
+            r.done = True
+            self.done.append(r)
+
+    def _generate(self, prompts: np.ndarray, mnt: int) -> list:
+        """Greedy tokens, a list for each row of ``prompts`` (B, plen): one
+        prefill and ``mnt`` decode steps on a fresh cache of B rows."""
+        tokens = torch.from_numpy(prompts.astype(np.int64)).to(self.device)
+        cache = init_cache(self.cfg, prompts.shape[0], self.max_seq, device=self.device)
         logits, cache = self._prefill(self.params, {"tokens": tokens}, cache)
-        pos = plen
+        pos = prompts.shape[1]
         tok = logits.argmax(-1, keepdim=True)
         emitted = []
         for _ in range(mnt):
@@ -73,8 +90,4 @@ class ServingEngine:
             logits, cache = self._decode(self.params, cache, tok, pos)
             tok = logits.argmax(-1, keepdim=True)
             pos += 1
-        out = torch.cat(emitted, 1).tolist() if emitted else [[] for _ in reqs]
-        for j, r in enumerate(reqs):
-            r.output.extend(out[j])
-            r.done = True
-            self.done.append(r)
+        return torch.cat(emitted, 1).tolist() if emitted else [[] for _ in prompts]

@@ -541,3 +541,161 @@ def test_selective_scan_kernel_refuses_a_large_state(cuda):
         selective_scan(u, u, torch.zeros((8, 17), device=cuda), torch.zeros((1, 2, 17), device=cuda),
                        torch.zeros((1, 2, 17), device=cuda), torch.zeros(8, device=cuda),
                        torch.zeros((1, 8, 17), device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# gradients: each op's kernel Function against the plain version, on the card
+# ---------------------------------------------------------------------------
+def _grads_of(fn, args, cts):
+    """Gradients of sum(out * ct) over ``fn``'s outputs with respect to the
+    arguments that require one, and the outputs."""
+    outs = fn(*args)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    loss = sum((o.float() * ct).sum() for o, ct in zip(outs, cts))
+    wrt = [a for a in args if isinstance(a, torch.Tensor) and a.requires_grad]
+    return outs, torch.autograd.grad(loss, wrt)
+
+
+def _check_function_grads(op, plain, args, cts, tol, counted=None):
+    """The op on CUDA tensors that require a gradient: one forward launch
+    (the kernel, on ``counted``'s counter: ``op``'s own by default), a
+    ``PlainGrad`` node, and the plain version's gradients."""
+    counted = counted or op
+    before = counted.launches
+    outs, grads = _grads_of(op, args, cts)
+    torch.cuda.synchronize()
+    assert counted.launches == before + 1, "one kernel launch, in the forward only"
+    assert all(type(o.grad_fn).__name__ == "PlainGradBackward" for o in outs)
+    ref_outs, ref_grads = _grads_of(plain, args, cts)
+    for o, r in zip(outs, ref_outs):
+        np.testing.assert_allclose(o.detach().float().cpu().numpy(),
+                                   r.detach().float().cpu().numpy(),
+                                   atol=tol[0], rtol=tol[1])
+    for g, r in zip(grads, ref_grads):
+        assert g.dtype == r.dtype
+        np.testing.assert_allclose(g.float().cpu().numpy(), r.float().cpu().numpy(),
+                                   atol=tol[0], rtol=tol[1])
+
+
+def _leaf(rng, shape, dtype, dev, scale=1.0):
+    return (_t(rng, shape, torch.float32, dev) * scale).to(dtype).requires_grad_(True)
+
+
+@pytest.mark.parametrize("rows,D", [(256, 2304), (64, 257)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_function_grads_match_plain(cuda, rows, D, dtype):
+    rng = np.random.default_rng(20)
+    x = _leaf(rng, (rows, D), dtype, cuda)
+    sc = (_t(rng, D, torch.float32, cuda) + 1.0).to(dtype).requires_grad_(True)
+    ct = _t(rng, (rows, D), torch.float32, cuda)
+    _check_function_grads(rmsnorm, rmsnorm_ref, (x, sc), (ct,), (RMS_TOL[dtype], 0.0))
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,window,softcap", [(2, 128, 8, 4, 256, 64, 50.0),
+                                                          (1, 96, 8, 2, 128, 0, 0.0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_function_grads_match_plain(cuda, B, S, Hq, Hkv, hd, window, softcap, dtype):
+    """Sq = Skv as in training: the tensor-core kernel in bf16, the FMA
+    kernel in f32."""
+    rng = np.random.default_rng(21)
+    q = _leaf(rng, (B, S, Hq, hd), dtype, cuda)
+    k, v = _leaf(rng, (B, S, Hkv, hd), dtype, cuda), _leaf(rng, (B, S, Hkv, hd), dtype, cuda)
+    ct = _t(rng, (B, S, Hq, hd), torch.float32, cuda)
+    kw = dict(causal=True, window=window, softcap=softcap)
+    _check_function_grads(lambda *a: flash_attention(*a, **kw),
+                          lambda *a: chunked_attention(*a, **kw),
+                          (q, k, v), (ct,), (FLASH_TOL[dtype], 0.0), counted=flash_attention)
+
+
+@pytest.mark.parametrize("sizes,D,F", [([100, 0, 60, 96], 64, 96), ([3, 5], 32, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_function_grads_match_plain(cuda, sizes, D, F, dtype):
+    """The tiled kernel (bf16, 256 rows), the decode kernel (bf16, 8 rows),
+    the small one (f32); group_sizes takes no gradient."""
+    rng = np.random.default_rng(22)
+    x = _leaf(rng, (sum(sizes), D), dtype, cuda)
+    w = _leaf(rng, (len(sizes), D, F), dtype, cuda, scale=D ** -0.5)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    ct = _t(rng, (sum(sizes), F), torch.float32, cuda)
+    _check_function_grads(gmm, gmm_ref, (x, w, gs), (ct,), GMM_TOL[dtype])
+
+
+@pytest.mark.parametrize("S", [64, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_function_grads_match_plain(cuda, S, dtype):
+    """The prefill kernel (S = 64) and the sequential one (S = 8); the
+    final state's gradient missing, as in training."""
+    rng = np.random.default_rng(23)
+    args = [t.detach().clone().requires_grad_(True)
+            for t in _scan_inputs(rng, 2, S, 40, 16, False, "model", dtype, cuda)]
+    ct = _t(rng, (2, S, 40), torch.float32, cuda)
+    _check_function_grads(selective_scan, selective_scan_ref, args, (ct,), SCAN_TOL[dtype])
+
+
+@pytest.mark.parametrize("pattern", [None, (("mamba", "moe"), ("attn", "mlp"))])
+def test_reduced_train_step_on_card_matches_cpu(cuda, pattern):
+    """One RMSProp and one AdamW step of the reduced gemma2 / hybrid (f32,
+    seq 40: the f32 kernels, the scan's prefill kernel) on the card and on
+    the CPU from the same weights: loss, aux, grad norm; and RMSProp's
+    weights (AdamW's first step is lr * sign(g), which a gradient at the
+    rounding level may flip)."""
+    import dataclasses
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.schema import init_params
+    from repro_torch.optim.optimizers import init_opt_state
+    from repro_torch.train.steps import make_train_step
+    arch = "gemma2-2b" if pattern is None else "jamba-v0.1-52b"
+    cfg = get_config(arch).reduced()
+    if pattern is not None:
+        cfg = dataclasses.replace(cfg, pattern=pattern, n_layers=2)
+    chain = torch.from_numpy(np.random.default_rng(24).integers(0, cfg.vocab_size, (2, 41)))
+    batch = {"tokens": chain[:, :-1], "labels": chain[:, 1:]}
+    for opt in ("rmsprop", "adamw"):
+        tc = TrainConfig(optimizer=opt, learning_rate=1e-3)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu").to(dev)
+            step = make_train_step(cfg, tc)
+            params, _, m = step(params, init_opt_state(tc, params),
+                                {k: v.to(dev) for k, v in batch.items()})
+            out[dev] = params, {k: v.item() for k, v in m.items()}
+        for key in ("loss", "aux_loss", "grad_norm"):
+            np.testing.assert_allclose(out["cuda"][1][key], out["cpu"][1][key],
+                                       rtol=1e-4, atol=1e-5, err_msg=f"{opt} {key}")
+        if opt == "rmsprop":
+            cpu = dict(out["cpu"][0].named_parameters())
+            for n, t in out["cuda"][0].named_parameters():
+                np.testing.assert_allclose(t.detach().cpu().numpy(), cpu[n].detach().numpy(),
+                                           atol=1e-6, err_msg=n)
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_launches_the_kernels_again_and_keeps_the_grads(cuda, remat):
+    """Under remat each repetition's forward runs again in the backward, so
+    its kernels launch twice (the final norm in ``lm_loss`` is outside the
+    checkpoint: once); the gradients are those without remat."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import forward
+    from repro_torch.models.schema import init_params
+    from repro_torch.train.steps import lm_loss
+    cfg = get_config("gemma2-2b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu").to(cuda)
+    params.requires_grad_(True)
+    chain = torch.from_numpy(np.random.default_rng(25).integers(0, cfg.vocab_size, (2, 41)))
+    chain = chain.to(cuda)
+
+    def grads(mode):
+        rms0, fa0 = rmsnorm.launches, flash_attention.launches
+        h, _, aux = forward(cfg, params, {"tokens": chain[:, :-1]}, mode="train", remat=mode)
+        g = torch.autograd.grad(lm_loss(cfg, params, h, chain[:, 1:]) + aux,
+                                list(params.parameters()))
+        torch.cuda.synchronize()
+        return g, rmsnorm.launches - rms0, flash_attention.launches - fa0
+
+    base, rms_none, fa_none = grads("none")
+    got, rms, fa = grads(remat)
+    assert (rms_none, fa_none) == (2 * cfg.n_layers + 1, cfg.n_layers)
+    assert (rms, fa) == (2 * (rms_none - 1) + 1, 2 * fa_none), (rms, fa)
+    for g, b in zip(got, base):
+        np.testing.assert_allclose(g.cpu().numpy(), b.cpu().numpy(), rtol=1e-5, atol=1e-7)

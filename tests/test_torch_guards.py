@@ -11,11 +11,14 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.configs.registry import get_config  # noqa: E402
-from repro_torch.launch import serve, step_times  # noqa: E402
+from repro_torch.configs.base import TrainConfig  # noqa: E402
+from repro_torch.data.synthetic import DataPipeline  # noqa: E402
+from repro_torch.launch import serve, step_times, train  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.models.model import init_cache  # noqa: E402
 from repro_torch.models.schema import init_params  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from repro_torch.train.trainer import Trainer, make_lm_objective  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = re.compile(r"^(jax|jaxlib|repro)(\.|$)")
@@ -67,6 +70,18 @@ def test_entry_points_raise_without_gpu(no_gpu):
         params_from_numpy(tree, cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--arch", "gemma2-2b", "--reduced"])
+
+
+def test_train_entry_points_raise_without_gpu(no_gpu):
+    cfg = get_config("gemma2-2b").reduced()
+    with pytest.raises(RuntimeError, match="cuda"):
+        Trainer(cfg, TrainConfig(), batch=2, seq=8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        DataPipeline(cfg, 2, 8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_lm_objective("gemma2-2b", steps_per_phase=1)({}, 0, None)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--arch", "gemma2-2b", "--reduced", "--steps", "1"])
 
 
 def test_step_times_needs_a_card(no_gpu):

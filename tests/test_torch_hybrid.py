@@ -202,7 +202,7 @@ def test_train_forward_matches_reference(jamba8):
     jh, _, _ = jax.jit(lambda p, t: jax_forward(jcfg, p, {"tokens": t}, mode="train"))(
         jparams, jnp.asarray(tokens, jnp.int32))
     with torch.inference_mode():
-        h, cache = forward(cfg, params, {"tokens": torch.from_numpy(tokens)}, mode="train")
+        h, cache, _ = forward(cfg, params, {"tokens": torch.from_numpy(tokens)}, mode="train")
     assert cache is None
     np.testing.assert_allclose(h.numpy(), np.asarray(jh), atol=HIDDEN_ATOL)
 

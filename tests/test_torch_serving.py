@@ -67,3 +67,18 @@ def test_output_lengths():
     assert sorted(r.request_id for r in done) == list(range(5))
     assert all(len(r.output) == 4 and r.done for r in done)
     assert all(0 <= t < cfg.vocab_size for r in done for t in r.output)
+
+
+def test_run_one_matches_reference_engine():
+    """The single-request path, against the reference engine's ``_run_one``."""
+    jcfg, cfg = jax_get_config(ARCH).reduced(), get_config(ARCH).reduced()
+    jparams = jax_schema.init_params(jcfg, jax.random.PRNGKey(0))
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
+    ref_engine = JaxServingEngine(jcfg, jparams, batch_size=1, max_seq=64)
+    engine = ServingEngine(cfg, params, batch_size=1, max_seq=64, device="cpu")
+    for i, p in enumerate(_prompts(cfg, n=2, size=10, seed=2)):
+        ref = ref_engine._run_one(JaxRequest(i, p, max_new_tokens=5))
+        out = engine._run_one(Request(i, p, max_new_tokens=5))
+        assert out.done and len(out.output) == 5
+        assert out.output == ref.output, (i, out.output, ref.output)
+    assert engine._run_one(Request(9, p, max_new_tokens=0)).output == []
