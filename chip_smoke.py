@@ -43,9 +43,15 @@ Phases, each of which passes or ends the script with a non-zero exit:
      multiples of 8 but not of 32 or 64, both sides of the 128-row edge,
      jamba's prefill and decode; f32 runs on the small kernel, which is
      also held in bf16 at jamba's decode shapes, called past the dispatch.
-     Plus a reduced gemma2-2b and a reduced hybrid (jamba's 8-block
-     pattern) served on the card (kernels) and on the CPU (plain path),
-     which must agree;
+     The zoo's shapes: flash at yi-9b's, grok-1's (softcap 30) and
+     starcoder2's head groups (8, 6, 12) at hd 128, prefill on the
+     tensor-core kernel and decode on split-KV; RMSNorm in bf16 at grok's
+     width 6144 on the block kernel; gmm at grok's 8 experts of 6144 ->
+     32768 and back, at prefill on the tiled kernel and decode on the decode
+     kernel. Plus a reduced gemma2-2b, a reduced hybrid (jamba's 8-block
+     pattern), and reduced yi-9b, grok-1 and starcoder2 (one layer and a
+     2-layer stack each) served on the card (kernels) and on the CPU (plain
+     path), which must agree;
   3. serve: full-width gemma2-2b (26 layers, bf16, seed-0 weights) through
      ``ServingEngine``: 8 requests, batch 4, prompt 512, 16 new tokens,
      max_seq 1024. Every RMSNorm and attention must have gone through the
@@ -55,7 +61,10 @@ Phases, each of which passes or ends the script with a non-zero exit:
      Prints prefill ms, decode ms per step and tokens/s, and a profile of
      one prefill and one decode step (device busy share, top kernels, the
      host's self CPU time and top host events), and one decode step under
-     ``torch.cuda.set_sync_debug_mode("error")``;
+     ``torch.cuda.set_sync_debug_mode("error")``. A profile is of 3 calls,
+     and a session that lost kernel events is retaken, as phase 4's are;
+     then one more prefill and decode step print the largest |attention
+     output|;
   3b. serve: full-width jamba-v0.1-52b cut to 8 layers (one period of its
      block: 7 mamba, 1 attention, 4 MoE, 4 MLP layers; bf16, seed-0
      weights), gemma2-2b freed first, with the same requests. Launch counts
@@ -66,6 +75,13 @@ Phases, each of which passes or ends the script with a non-zero exit:
      warp kernel. The same
      timings, profile and sync check; then the group sizes each MoE layer
      routes in one prefill and decode step;
+  3c-3e. serve, each model freed before the next is built: yi-9b whole (97
+     RMSNorm on the warp kernel, 48 flash per forward), grok-1-314b at full
+     width cut to 6 of 64 layers (13 RMSNorm on the block kernel, d_model
+     6144 not being a warp width; 6 flash; 18 gmm, tiled at prefill and
+     decode at decode; its routing as jamba's), starcoder2-3b whole
+     (LayerNorm and GELU plain PyTorch: 0 RMSNorm, 30 flash); the same
+     timings, profiles, sync check and |attention output|;
   4. times at the serving shapes, after warm-up: each kernel's, its plain
      version's and the library call's device time per call (the summed
      kernel time under the profiler, with a 256 MB scratch buffer read
@@ -84,7 +100,10 @@ Phases, each of which passes or ends the script with a non-zero exit:
      decay, da near 1);
      beside the kernel that serves a row, the other kernels named for it
      (RMSNorm: the block kernel; scan: the other one) are timed on the same
-     inputs, called past the dispatch.
+     inputs, called past the dispatch. The zoo's rows: flash at yi-9b's,
+     grok-1's and starcoder2's prefill and decode, RMSNorm at (2048, 6144)
+     and (4, 6144) on the block kernel, gmm at grok's served routing, up
+     and down, prefill and decode (drawn after grok-6 is freed);
   5. train: the reduced gemma2-2b and a reduced hybrid with a MoE layer
      take 3 AdamW steps on the card and on the CPU from the same seed, whose
      losses, aux losses and grad norms must agree. Then full-width gemma2-2b
@@ -95,7 +114,9 @@ Phases, each of which passes or ends the script with a non-zero exit:
      last 3 below the first, and per step the kernel launches of one forward
      (the backward recomputes the plain versions and launches none): gemma2
      53 RMSNorm (warp) and 26 flash (tensor-core); jamba-2 5 RMSNorm, 1
-     flash, 1 scan (prefill kernel), 3 gmm (tiled). Prints step ms (CUDA
+     flash, 1 scan (prefill kernel), 3 gmm (tiled). Then starcoder2-3b
+     whole, the same way at lr 1e-4: 30 flash and 0 RMSNorm a step (its
+     reduced config also takes the card-vs-CPU steps). Prints step ms (CUDA
      events, median of steps 3-10), tokens/s, peak memory, and a profiled
      eleventh step split into the four kernels' forwards, the
      plain-recompute backward of each op, cuBLAS and the optimizer.
@@ -107,9 +128,11 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import gc
+import collections
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -128,12 +151,25 @@ ARCH, N_REQ, BATCH, PROMPT, NEW, MAX_SEQ = "gemma2-2b", 8, 4, 512, 16, 1024
 # jamba at full width, one period of its 8-layer block: the 32 published
 # layers (51.6B parameters, 103 GB in bf16) do not fit one 80 GB card
 HYBRID, HYBRID_LAYERS = "jamba-v0.1-52b", 8
+# yi-9b (8.83B parameters, 17.7 GB) and starcoder2-3b (3.18B) are served
+# whole; grok-1 at full width cut to 6 of its 64 layers: 6 are 31.13B
+# parameters (62.3 GB in bf16), 7 would be 72.1 GB, too little of one 80 GB
+# card left to serve in; all 64 are 316.5B (633 GB)
+YI, STARCODER = "yi-9b", "starcoder2-3b"
+GROK, GROK_LAYERS = "grok-1-314b", 6
 INVALID = 2 ** 30
 # phase 5: AdamW steps at lr 3e-4 of batch TRAIN_BATCH x TRAIN_SEQ bigram
 # tokens; jamba at full width cut to two layers of
 # its block, ("mamba", "moe") then ("attn", "mlp"): with AdamW's f32 moments
 # the 8-layer serve cut (13.3B parameters, 160 GB) does not fit one card
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 10, 4, 512, 3e-4
+# starcoder2-3b trains at lr 1e-4: from its seed-0 weights AdamW at 3e-4
+# (or 1e-3) makes its loss rise over these 10 steps on an H100, as
+# ``python -m repro_torch.launch.train --arch starcoder2-3b --steps 10
+# --batch 4 --seq 512 --lr 3e-4`` shows, and the CPU's plain versions make
+# it rise the same way from the same weights and batches
+# (``python -m repro_torch.launch.train_devices``; PERF.md §4)
+STARCODER_TRAIN_LR = 1e-4
 HYBRID_TRAIN_PATTERN = slice(3, 5)
 # the reduced models' 3 AdamW steps, card against CPU, in f32: loss, aux and
 # grad norm within TRAIN_ATOL + TRAIN_RTOL * |cpu| (the f32 kernels sum in
@@ -159,55 +195,109 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_kernels(prof, required=True):
-    """The profiler's device-side events (kernels, copies, sets)."""
+def device_kernels(prof, required=True, skip_lead_in=False):
+    """The profiler's device-side events (kernels, copies, sets) summed by
+    key, as ``key_averages`` sums them: ``.key``, ``.count`` and
+    ``.self_device_time_total`` (µs). With ``skip_lead_in``, a session's lead-in
+    (``lead_in``) is left out by its place in the trace: it ran on a stream
+    of its own, and only the events on the stream of the session's last
+    event are kept."""
     from torch.autograd import DeviceType
-    kern = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if skip_lead_in and evs:
+        stream = max(evs, key=lambda e: e.time_range.end).device_resource_id
+        timed = [e for e in evs if e.device_resource_id == stream]
+        # nothing but the lead-in's fills runs on another stream
+        assert len(evs) - len(timed) <= LEAD_IN, (len(evs) - len(timed), LEAD_IN)
+        evs = timed
+    sums = {}
+    for e in evs:
+        n, us = sums.get(e.key, (0, 0.0))
+        sums[e.key] = (n + 1, us + e.self_device_time_total)
+    kern = [Kernel(k, n, us) for k, (n, us) in sums.items()]
     assert kern or not required, "the profiler saw no device time"
     return kern
 
 
-# profiler sessions of the timed phases: taken, retaken, kept though the
-# L2 flush lost some of its own events
-SESSIONS = {"taken": 0, "retaken": 0, "flush_lost": 0}
+Kernel = collections.namedtuple("Kernel", "key count self_device_time_total")
+
+# A profiler session on an H100 drops the first one or two kernel events
+# it would record, now and then or every time: an L2 flush's memset, a
+# grok-6 prefill's first RMSNorm. So every session opens with LEAD_IN int8
+# fills on a stream of their own, which take that loss.
+LEAD_IN = 4
 
 
-def profiled_kernels(fn, iters, sessions=5, ignore=frozenset()):
-    """The profiler's device events of ``iters`` calls of ``fn``. A profiler
-    session now and then records no device event at all (seen on an H100),
-    and one that loses some events would read short. Every call of ``fn``
-    launches the same kernels, so a session is kept only if each event's
-    count is a multiple of ``iters``; else it is repeated, up to ``sessions``
-    in all, and if none is whole the run fails. Events keyed in ``ignore``
-    (the L2 flush's own, one each a call, which no time includes) may fall
-    short of ``iters`` (an H100 once lost one flush memset in each of five
-    sessions in a row); such a session is kept and counted in
-    ``SESSIONS["flush_lost"]``. A count over ``iters`` under such a key means
-    a timed call shares it, and it is then held to whole multiples like
-    every other key."""
+def lead_in():
+    """Launch the lead-in's fills on a stream of their own and wait for them."""
+    import torch
+    with torch.cuda.stream(torch.cuda.Stream()):
+        mark = torch.empty(LEAD_IN, dtype=torch.int8, device="cuda")
+        for i in range(LEAD_IN):
+            mark[i:i + 1].fill_(1)
+    torch.cuda.synchronize()
+
+
+# profiler sessions of the timed phases: taken, and retaken for lost events
+SESSIONS = {"taken": 0, "retaken": 0}
+
+
+def profiled_session(fn, iters, sessions=5, ignore=frozenset(), ours=None):
+    """The profiler's device events of ``iters`` calls of ``fn``, and its
+    wall ms a call. A profiler session now and then records no device event
+    at all, and one that loses events reads short: past the lead-in, an
+    H100 lost 1-5 of 20 calls' kernels in sessions of ``torch._grouped_mm``
+    and of the plain attention. So a session is kept only
+    when it is whole, else taken again, up to ``sessions`` in all, and if
+    none is whole the run fails. Whole means: every call of ``fn`` launches
+    the same kernels, so each key's count is a multiple of ``iters``; or,
+    for a model step (``ours`` given: the port's kernels one call launches,
+    as the launch counters read), exactly ``ours`` x ``iters`` of the port's
+    kernel events, since its PyTorch ops may pick another kernel call by
+    call (a jamba-8 prefill's ``index_select`` launched its vectorized
+    gather 14 times in 3 calls on an H100). Keys in ``ignore`` (the L2
+    flush's own, which no time includes) are held only where a timed call
+    shares them, a count over ``iters``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for session in range(sessions):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            lead_in()
+            t0 = time.perf_counter()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / iters
         SESSIONS["taken"] += 1
-        kern = device_kernels(prof, required=False)
-        off = {a.key: a.count for a in kern if a.count % iters}
-        lost = {k: n for k, n in off.items() if k in ignore and n < iters}
-        short = {k[:60]: n for k, n in off.items() if k not in lost}
-        if not short and any(a.key not in ignore for a in kern):
-            if lost:
-                SESSIONS["flush_lost"] += 1
-                log(f"[profile] session {session + 1} kept: the L2 flush's own events read "
-                    f"{ {k[:60]: n for k, n in lost.items()} } of {iters} calls")
-            return kern
+        kern = device_kernels(prof, required=False, skip_lead_in=True)
+        if ours is None:
+            off = {a.key[:60]: a.count for a in kern if a.count % iters
+                   and not (a.key in ignore and a.count < iters)}
+        else:
+            port = {a.key: a.count for a in kern if is_port_kernel(a.key)}
+            off = {}
+            if sum(port.values()) != ours * iters:
+                off = {f"the port's kernels, of {ours * iters}": sum(port.values()),
+                       **{k.replace("(anonymous namespace)::", "")[:50]: n
+                          for k, n in port.items()}}
+        if not off and any(a.key not in ignore for a in kern):
+            return kern, wall_ms
         SESSIONS["retaken"] += 1
-        what = f"counts off {iters} calls: {short}" if short else "no event of the timed calls"
+        what = f"counts off {iters} calls: {off}" if off else "no event of the timed calls"
         log(f"[profile] session {session + 1} of {sessions} recorded {what}; again")
     raise AssertionError(f"the profiler recorded no whole session of {iters} calls")
+
+
+PORT_KERNEL = re.compile(
+    r"(^|[\s:])(rmsnorm_kernel|rmsnorm_warp_kernel|flash_kernel|flash_prefill_kernel|"
+    r"flash_split_kernel|flash_combine_kernel|gmm_kernel|gmm_prefill_kernel|"
+    r"gmm_decode_kernel|scan_kernel|scan_prefill_kernel)[<(]")
+
+
+def is_port_kernel(name):
+    """A profiler key of one of the port's CUDA kernels (``csrc/*.cu``)."""
+    return PORT_KERNEL.search(name) is not None
 
 
 class L2Flush:
@@ -221,7 +311,7 @@ class L2Flush:
     def __init__(self, iters=10):
         import torch
         self.buf = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
-        kern = profiled_kernels(self, iters)
+        kern, _ = profiled_session(self, iters)
         assert all(a.count == iters for a in kern), [(a.key[:60], a.count) for a in kern]
         self.keys = {a.key for a in kern}
         self.ms = {a.key: a.self_device_time_total / 1e3 / iters for a in kern}
@@ -245,7 +335,7 @@ def device_ms_by_kernel(fn, flush, iters=20, warmup=3):
     for _ in range(warmup):
         flushed()
     out = {}
-    for a in profiled_kernels(flushed, iters, ignore=flush.keys):
+    for a in profiled_session(flushed, iters, ignore=flush.keys)[0]:
         ms = a.self_device_time_total / 1e3 / iters
         if a.key in flush.keys:
             if a.count <= iters:    # the flush's own, once a call
@@ -297,11 +387,13 @@ def matmul_bound_ms(cfg, tokens):
 
 
 def per_forward(cfg):
-    """Kernel launches in one forward, from the config's block pattern: a
-    norm per mixer and per FFN plus the final norm, a flash call per
-    attention layer, a scan per mamba layer, three grouped matmuls per MoE."""
+    """Kernel launches in one forward, from the config's block pattern and
+    norm: a norm per mixer and per FFN plus the final norm (RMSNorm's kernel;
+    LayerNorm is plain PyTorch), a flash call per attention layer, a scan per
+    mamba layer, three grouped matmuls per MoE."""
     R, pat = cfg.n_repeat, cfg.pattern
-    return {"rmsnorm": R * sum(1 + bool(ffn) for _, ffn in pat) + 1,
+    norms = R * sum(1 + bool(ffn) for _, ffn in pat) + 1
+    return {"rmsnorm": norms if cfg.norm == "rmsnorm" else 0,
             "flash_attention": R * sum(m.startswith("attn") for m, _ in pat),
             "selective_scan": R * sum(m == "mamba" for m, _ in pat),
             "gmm": 3 * R * sum(ffn == "moe" for _, ffn in pat)}
@@ -467,12 +559,14 @@ def main() -> int:
     def rms_counts():
         return {"warp": rmsnorm.launches_warp, "block": rmsnorm.launches_block}
 
-    def rms_case(label, x, sc):
+    def rms_case(label, x, sc, want=None):
         """One RMSNorm call through the dispatch, which must move the counter
-        of ``kernel_for``'s kernel alone; where that is the warp kernel, the
-        block kernel is held on the same inputs too, past the dispatch."""
+        of ``kernel_for``'s kernel (``want``, where given) alone; where that
+        is the warp kernel, the block kernel is held on the same inputs too,
+        past the dispatch."""
         tol = 5e-2 if x.dtype == torch.bfloat16 else 1e-5
         kind, before = rms_kernel_for(x, sc), rms_counts()
+        assert want in (None, kind), (label, kind, want)
         out = rmsnorm(x, sc)
         moved = {n: c - before[n] for n, c in rms_counts().items()}
         assert moved == {n: int(n == kind) for n in moved}, (label, kind, moved)
@@ -503,6 +597,16 @@ def main() -> int:
                  (t(D) + 1.0).to(torch.bfloat16))
     rms_case("(4, 9, 1000)[:, -1:] bf16", t(4, 9, 1000, dtype=torch.bfloat16)[:, -1:],
              (t(1000) + 1.0).to(torch.bfloat16))
+    # grok-1's width, 6144, is not one the warp kernel is built for: the
+    # block kernel serves its prefill and decode rows and a prefill's last
+    # position
+    gfull = get_config(GROK)
+    gw = gfull.d_model
+    for shape in [(BATCH * PROMPT, gw), (BATCH, gw), (BATCH, PROMPT, gw)]:
+        x = t(*shape, dtype=torch.bfloat16)
+        rms_case(f"grok {shape} bf16" + ("[:, -1:]" if len(shape) == 3 else ""),
+                 x[:, -1:] if len(shape) == 3 else x, (t(gw) + 1.0).to(torch.bfloat16),
+                 want="block")
     log(f"[kernel] rmsnorm max_abs_err by kernel: {json.dumps(rms_err_by_kernel)}")
 
     # bf16 flash: the tensor-core kernel rounds P to bf16 before the PV
@@ -518,12 +622,13 @@ def main() -> int:
                 "tensor_core": flash_attention.launches_tensor_core}
 
     def flash_case(label, B, Hq, Hkv, Sq, Skv, hd, causal, window, cap, dt,
-                   q_offset, kv_pos=None):
+                   q_offset, kv_pos=None, want=None):
         q, k, v = t(B, Sq, Hq, hd, dtype=dt), t(B, Skv, Hkv, hd, dtype=dt), \
             t(B, Skv, Hkv, hd, dtype=dt)
         kp = None if kv_pos is None else torch.as_tensor(kv_pos, dtype=torch.int32,
                                                          device=dev)
         kind, before = kernel_for(dt, Sq, Hq, Hkv), flash_counts()
+        assert want in (None, kind), (label, kind, want)
         out = flash_attention(q, k, v, causal=causal, window=window, softcap=cap,
                               q_offset=q_offset, kv_pos=kp)
         moved = {n: c - before[n] for n, c in flash_counts().items()}
@@ -584,6 +689,19 @@ def main() -> int:
                    128, True, 0, 0.0, dt, 0)
         flash_case(f"jamba decode Sq1 L1024 half-invalid {dt}", 4, 32, 8, 1, 1024,
                    128, True, 0, 0.0, dt, 511, half)
+    # the zoo's groups at their serving shapes, hd 128: yi 32 over 4 (G 8),
+    # grok 48 over 8 (G 6) with its softcap 30, starcoder2 24 over 2 (G 12);
+    # groups of 6 and 12 are not powers of two
+    for zname in (YI, GROK, STARCODER):
+        zc = get_config(zname)
+        Hq, Hkv, hd, cap = zc.n_heads, zc.n_kv_heads, zc.head_dim, zc.attn_softcap
+        tag = f"{zname} Hq{Hq} Hkv{Hkv} G{Hq // Hkv} hd{hd} cap{cap}"
+        flash_case(f"{tag} prefill B4 S512 bf16", 4, Hq, Hkv, 512, 512, hd, True, 0, cap,
+                   torch.bfloat16, 0, want="tensor_core")
+        flash_case(f"{tag} decode Sq1 L1024 half-invalid bf16", 4, Hq, Hkv, 1, 1024, hd,
+                   True, 0, cap, torch.bfloat16, 511, half, want="split_kv")
+        flash_case(f"{tag} decode wrapped ring L1024 bf16", 4, Hq, Hkv, 1, 1024, hd, True, 0,
+                   cap, torch.bfloat16, 1500, ring_pos(1024, 1500), want="split_kv")
     # both bf16 kernels at every head dim; ragged tiles (33 x 65, 100 x 100)
     bf16 = torch.bfloat16
     for hd in HEAD_DIMS:
@@ -620,14 +738,15 @@ def main() -> int:
                 "small": gmm.launches_small}
 
 
-    def gmm_case(label, sizes, D, Fo, dt, scale=1.0, tail=0, beside=()):
+    def gmm_case(label, sizes, D, Fo, dt, scale=1.0, tail=0, beside=(), want=None):
         """``tail`` rows past the last group, whose output must be 0; each
         kernel named in ``beside`` is held on the same inputs too, called
-        past the dispatch."""
+        past the dispatch; ``want``, where given, the kernel that must serve."""
         x = td(sum(sizes) + tail, D, dtype=dt)
         w = td(len(sizes), D, Fo, dtype=dt, scale=scale)
         gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
         kind, before = gmm_kernel_for(x, w), gmm_counts()
+        assert want in (None, kind), (label, kind, want)
         out = gmm(x, w, gs)
         moved = {n: c - before[n] for n, c in gmm_counts().items()}
         assert moved == {n: int(n == kind) for n in moved}, (label, kind, moved)
@@ -676,6 +795,18 @@ def main() -> int:
              328)]:
         gmm_case(f"{label} sizes {sizes} D{D} F{Fo}", sizes, D, Fo, torch.bfloat16,
                  D ** -0.5, tail)
+    # grok-1's expert FFN, 8 experts of 6144 -> 32768 (1.61e9 weights a
+    # projection: 64-bit offsets) and back (K = 32768 f32 sums), at prefill
+    # (B4 x 512 tokens x top-2, one expert empty: the tiled kernel, 256
+    # column tiles at up) and decode (8 rows: the decode kernel)
+    gd, gf = gfull.d_model, gfull.expert_d_ff
+    for tag, sizes, want in (
+            ("prefill", skewed_sizes(BATCH * PROMPT * gfull.top_k, gfull.n_experts, 5), "tiled"),
+            ("decode", [2, 1, 0, 1, 2, 0, 1, 1], "decode")):
+        gmm_case(f"grok {tag} up T{sum(sizes)} {gd}->{gf} sizes {sizes}", sizes, gd, gf,
+                 torch.bfloat16, gd ** -0.5, want=want)
+        gmm_case(f"grok {tag} down T{sum(sizes)} {gf}->{gd}", sizes, gf, gd, torch.bfloat16,
+                 gf ** -0.5, want=want)
     log(f"[kernel] gmm max_abs_err by kernel: {json.dumps(gmm_err_by_kernel)}")
 
     # selective scan: f32 sums over d_state in another order; bf16 as gmm
@@ -804,6 +935,14 @@ def main() -> int:
     served_on_card_and_cpu(ARCH, get_config(ARCH).reduced())
     served_on_card_and_cpu(f"{HYBRID} 8-block pattern", dataclasses.replace(
         hcfg.reduced(), pattern=hcfg.pattern, n_layers=HYBRID_LAYERS))
+    # the zoo's reduced configs (f32: the FMA flash kernel, the block
+    # RMSNorm, the small gmm; starcoder2's LayerNorm and GELU plain on both),
+    # one layer and a 2-layer stack
+    for zname in (YI, GROK, STARCODER):
+        zc = get_config(zname).reduced()
+        served_on_card_and_cpu(f"{zname} reduced", zc)
+        served_on_card_and_cpu(f"{zname} reduced, 2 layers",
+                               dataclasses.replace(zc, n_layers=2 * len(zc.pattern)))
 
     phase_done("2 kernels vs plain")
 
@@ -850,10 +989,14 @@ def main() -> int:
         assert all(bool(f) for f in finite), "non-finite logits"
         for name, n in expect.items():
             assert launches[name] == n * forwards, (name, launches[name], n * forwards)
-        # bf16 rows of the configs' widths: every norm on the warp kernel
+        # bf16 rows of the config's width: on the warp kernel where it is
+        # built for that width (WARP_WIDTHS), else on the block kernel
         n_rms = expect["rmsnorm"]
-        assert rms_by_kernel == {"warp": n_rms * forwards, "block": 0}, rms_by_kernel
-        log(f"[serve] rmsnorm per forward: {n_rms} warp calls, 0 block")
+        rms_served = "warp" if cfg.d_model in RMS_WARP_WIDTHS else "block"
+        assert rms_by_kernel == {k: n_rms * forwards * (k == rms_served)
+                                 for k in ("warp", "block")}, rms_by_kernel
+        log(f"[serve] rmsnorm per forward: {n_rms} {rms_served} calls (d_model "
+            f"{cfg.d_model}; norm {cfg.norm}: LayerNorm is plain PyTorch)")
         # the scan: the prefill kernel at prefill, the sequential one at decode
         n_scan = expect["selective_scan"]
         assert scan_by_kernel == {"prefill": n_scan * steps["prefill"],
@@ -908,32 +1051,46 @@ def main() -> int:
         log("[serve] " + json.dumps(serve))
 
         # where a step's time goes: device busy share and the top kernels
-        def profiled(label, fn):
-            from torch.profiler import ProfilerActivity, profile
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            kern = device_kernels(prof)
-            busy_ms = sum(a.self_device_time_total for a in kern) / 1e3
+        def profiled(label, fn, iters=3):
+            """``iters`` calls of ``fn`` under the profiler, per call: the
+            device's events in a session that is retaken, as phase 4's are,
+            when it lost kernel events (``profiled_session``: the port's
+            kernels as many as the launch counters read in one call before
+            it, a split-KV call launching its combine too), then the host's
+            in another."""
+            zero_counts()
+            fn()
+            torch.cuda.synchronize()
+            ours = (sum(op.launches for op in kernel_ops.values())
+                    + flash_attention.launches_split_kv)
+            kern, wall_ms = profiled_session(fn, iters, ours=ours)
+            busy_ms = sum(a.self_device_time_total for a in kern) / 1e3 / iters
             log(f"[profile] {label}: wall {wall_ms:.3f} ms under the profiler, "
                 f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
-                f"{sum(a.count for a in kern)} kernels")
+                f"{sum(a.count for a in kern) // iters} kernels ({ours} the port's); "
+                f"per call, mean of {iters}")
             for a in sorted(kern, key=lambda a: -a.self_device_time_total)[:10]:
-                log(f"[profile]   {a.self_device_time_total / 1e3:9.3f} ms {a.count:5d}x "
-                    f"{a.key[:90]}")
-            # where the host's time goes (the profiler's own cost included)
+                log(f"[profile]   {a.self_device_time_total / 1e3 / iters:9.3f} ms "
+                    f"{a.count // iters:5d}x {a.key[:90]}")
+            # where the host's time goes (the profiler's own cost included),
+            # from a session of its own: the device's events are read above
             from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
             host = [a for a in prof.key_averages() if a.device_type == DeviceType.CPU]
-            log(f"[profile]   host: {sum(a.self_cpu_time_total for a in host) / 1e3:.3f} ms "
-                f"self CPU time in {sum(a.count for a in host)} events, the most:")
+            log(f"[profile]   host: {sum(a.self_cpu_time_total for a in host) / 1e3 / iters:.3f} "
+                f"ms self CPU time in {sum(a.count for a in host) // iters} events, the most:")
             for a in sorted(host, key=lambda a: -a.self_cpu_time_total)[:6]:
-                log(f"[profile]   host {a.self_cpu_time_total / 1e3:9.3f} ms {a.count:5d}x "
-                    f"{a.key[:90]}")
+                log(f"[profile]   host {a.self_cpu_time_total / 1e3 / iters:9.3f} ms "
+                    f"{a.count // iters:5d}x {a.key[:90]}")
+            return busy_ms
 
-        profiled(f"{cfg.name} prefill", lambda: prefill(params, {"tokens": tokens}, cache))
-        profiled(f"{cfg.name} decode step", one_decode)
+        serve["prefill_busy_ms"] = profiled(
+            f"{cfg.name} prefill", lambda: prefill(params, {"tokens": tokens}, cache))
+        serve["decode_busy_ms"] = profiled(f"{cfg.name} decode step", one_decode)
         # any host sync in a decode step (a .item(), a boolean index, a
         # bincount, ...) raises in this mode
         torch.cuda.synchronize()
@@ -946,11 +1103,12 @@ def main() -> int:
         log(f"[sync] {cfg.name}: one decode step ran with no host sync "
             "(set_sync_debug_mode('error'))")
         return (launches, expect, forwards, by_kernel, gmm_by_kernel, rms_by_kernel,
-                scan_by_kernel)
+                scan_by_kernel, serve)
 
     def init_on_card(cfg, note=""):
         gc.collect()
         torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()    # what an earlier phase left behind
         torch.cuda.reset_peak_memory_stats()    # the peak of this model's serving alone
         t0 = time.perf_counter()
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
@@ -958,60 +1116,108 @@ def main() -> int:
         log(f"[serve] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
             f"vocab {cfg.vocab_size} {cfg.dtype}, "
             f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f}B params "
-            f"initialised in {time.perf_counter() - t0:.1f}s{note}")
+            f"initialised in {time.perf_counter() - t0:.2f}s ({held / 1e9:.3f} GB "
+            f"allocated on the card before){note}")
         return params
 
-    def routed_sizes(cfg, params):
-        """The group sizes the served model routes, per MoE layer, in one
-        prefill of the first batch of prompts and the decode step after it:
-        the traffic phase 4 times gmm at. Run after the counted serve."""
-        from repro_torch.models import moe
-        seen = []
+    def probe(cfg, params):
+        """One prefill of the first batch of prompts and the decode step after
+        it, run after the counted serve: the largest |attention output| of
+        each (the flash kernels' outputs, as each attention layer multiplies
+        them by its ``wo``; from |ref| >= 4 one bf16 ulp, 3.1e-2, exceeds
+        phase 2's 2e-2 limit) and, for a model with MoE layers, the group
+        sizes each routes (its router's top-k experts, counted as
+        ``moe_local`` counts them): the traffic phase 4 times gmm at. A
+        ``TorchFunctionMode`` sees both calls; no module is patched."""
+        from torch.overrides import TorchFunctionMode
+        wo = {t.untyped_storage().data_ptr() for n, t in params.named_parameters()
+              if n.endswith(".wo")}
+        routed, amax = [], []
 
-        def recording(x, w, group_sizes):
-            seen.append(group_sizes.tolist())
-            return gmm(x, w, group_sizes)
+        class Watch(TorchFunctionMode):
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                if (func is torch.Tensor.matmul      # ``a @ b`` reaches the mode so
+                        and args[1].untyped_storage().data_ptr() in wo):
+                    amax.append(args[0].abs().amax())
+                elif func is torch.topk:
+                    routed.append(torch.bincount(out.indices.reshape(-1),
+                                                 minlength=cfg.n_experts))
+                return out
 
         prefill, decode = make_prefill_step(cfg), make_serve_step(cfg)
         r = np.random.default_rng(0)
         tokens = torch.from_numpy(np.stack([r.integers(0, cfg.vocab_size, size=PROMPT)
                                             for _ in range(BATCH)])).to(dev)
         cache = init_cache(cfg, BATCH, MAX_SEQ, device=dev)
-        moe.gmm = recording
-        try:
+        with Watch():
             logits, cache = prefill(params, {"tokens": tokens}, cache)
-            n_prefill = len(seen)
+            n_moe, n_attn = len(routed), len(amax)
             decode(params, cache, logits.argmax(-1)[:, None], PROMPT)
-        finally:
-            moe.gmm = gmm
-        # three calls per MoE layer share its sizes: keep the first of each
-        sizes = {"prefill": seen[:n_prefill:3], "decode": seen[n_prefill::3]}
-        for step, per_layer in sizes.items():
-            for i, s in enumerate(per_layer):
-                log(f"[routing] {cfg.name} {step} MoE layer {i}: "
-                    f"{sum(1 for n in s if n)} of {len(s)} experts get rows, sizes {s}")
-        return {step: per_layer[0] for step, per_layer in sizes.items()}
+        assert n_attn == per_forward(cfg)["flash_attention"], (n_attn, per_forward(cfg))
+        assert 3 * n_moe == per_forward(cfg)["gmm"], (n_moe, per_forward(cfg))
+        attn = {"prefill": max(a.item() for a in amax[:n_attn]),
+                "decode": max(a.item() for a in amax[n_attn:])}
+        over = max(attn.values()) >= 4.0
+        log(f"[attn] {cfg.name}: largest |attention output| {json.dumps(attn)}"
+            + (": reaches 4, where one bf16 ulp exceeds the 2e-2 limit" if over else
+               ": below 4"))
+        found = {"attn_abs_max": attn}
+        if routed:
+            sizes = {"prefill": [s.tolist() for s in routed[:n_moe]],
+                     "decode": [s.tolist() for s in routed[n_moe:]]}
+            for step, per_layer in sizes.items():
+                for i, s in enumerate(per_layer):
+                    log(f"[routing] {cfg.name} {step} MoE layer {i}: "
+                        f"{sum(1 for n in s if n)} of {len(s)} experts get rows, sizes {s}")
+            found["routed"] = {step: per_layer[0] for step, per_layer in sizes.items()}
+        return found
 
+    def serve_phase(cfg, key, note=""):
+        """Serve ``cfg`` at full width (``serve_model``) from seed-0 weights
+        drawn on the card, probe it, and free it before the next model."""
+        params = init_on_card(cfg, note)
+        paths[key] = serve_model(cfg, params)
+        probes[key] = probe(cfg, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    paths, probes = {}, {}
     cfg = get_config(ARCH)
-    params = init_on_card(cfg)
-    paths = {ARCH: serve_model(cfg, params)}
-    del params
+    serve_phase(cfg, ARCH)
 
     phase_done("3 serve gemma2-2b")
 
     # -- 3b. serve full-width jamba, one period of its block ----------------
     jcfg = dataclasses.replace(hcfg, n_layers=HYBRID_LAYERS)
-    params = init_on_card(
-        jcfg, f"; cut to {HYBRID_LAYERS} of {hcfg.n_layers} layers (one period of the "
-              f"block; all {hcfg.n_layers} are {count_params(hcfg) / 1e9:.2f}B params, "
-              f"{2 * count_params(hcfg) / 1e9:.0f} GB in bf16, over one card's 80 GB)")
-    paths[f"{HYBRID}-{HYBRID_LAYERS}L"] = serve_model(jcfg, params)
-    routed = routed_sizes(jcfg, params)
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
+    jamba_key = f"{HYBRID}-{HYBRID_LAYERS}L"
+    serve_phase(jcfg, jamba_key,
+                f"; cut to {HYBRID_LAYERS} of {hcfg.n_layers} layers (one period of the "
+                f"block; all {hcfg.n_layers} are {count_params(hcfg) / 1e9:.2f}B params, "
+                f"{2 * count_params(hcfg) / 1e9:.0f} GB in bf16, over one card's 80 GB)")
+    routed = probes[jamba_key]["routed"]
 
     phase_done("3b serve jamba-8")
+
+    # -- 3c-3e. serve yi-9b and starcoder2-3b whole, grok-1 cut ---------------
+    ycfg, scfg = get_config(YI), get_config(STARCODER)
+    serve_phase(ycfg, YI, "; nothing cut")
+    phase_done("3c serve yi-9b")
+    gcfg = dataclasses.replace(gfull, n_layers=GROK_LAYERS)
+    grok_key = f"{GROK}-{GROK_LAYERS}L"
+    serve_phase(gcfg, grok_key, (
+        f"; cut to {GROK_LAYERS} of {gfull.n_layers} layers, every width as published (one "
+        f"layer with the embeddings' share is {count_params(dataclasses.replace(gfull, n_layers=1)) / 1e9:.2f}B; "
+        f"{GROK_LAYERS + 1} layers are {2 * count_params(dataclasses.replace(gfull, n_layers=GROK_LAYERS + 1)) / 1e9:.1f} GB "
+        f"in bf16, all {gfull.n_layers} {count_params(gfull) / 1e9:.1f}B params, "
+        f"{2 * count_params(gfull) / 1e9:.0f} GB, over one card's 80 GB)"))
+    routed_grok = probes[grok_key]["routed"]
+    phase_done("3d serve grok-6")
+    serve_phase(scfg, STARCODER, "; nothing cut")
+    log(f"[profile] phase 3's profiler sessions: {SESSIONS}")
+    SESSIONS.update(taken=0, retaken=0)
+    phase_done("3e serve starcoder2-3b")
 
     # -- 4. times at the serving shapes --------------------------------------
     flush = L2Flush()
@@ -1188,6 +1394,20 @@ def main() -> int:
     # 32 steps), each with the other kernel beside it
     scan_edge = {f"S{S}": scan_times(S) for S in (31, 32)}
     scan_jax_draws = scan_times(PROMPT, model_like=False)
+    # the zoo's rows: flash at yi's, grok's and starcoder2's serving shapes;
+    # grok's RMSNorm width on the block kernel; grok's expert FFN at its
+    # served routing (inputs drawn after grok-6 was freed: the f32 plain
+    # version of one projection alone holds 6.4 GB)
+    fa_zoo = {z.name: {"prefill": flash_times(z, PROMPT, PROMPT, 0, None, 0),
+                       "decode": flash_times(z, 1, MAX_SEQ, written - 1, half_written, 0)}
+              for z in (ycfg, gcfg, scfg)}
+    rms_grok = {"prefill": rms_times(BATCH * PROMPT, gcfg.d_model),
+                "decode": rms_times(BATCH, gcfg.d_model)}
+    gd, gf = gcfg.d_model, gcfg.expert_d_ff
+    gmm_grok = {f"{step}_{proj}": gmm_times(routed_grok[step], *dims, "grok served routing",
+                                            beside=())
+                for step in ("prefill", "decode")
+                for proj, dims in (("up", (gd, gf)), ("down", (gf, gd)))}
     log(f"[profile] phase 4's profiler sessions: {SESSIONS}")
     phase_done("4 times")
 
@@ -1219,7 +1439,8 @@ def main() -> int:
     assert hybrid_train_pattern == (("mamba", "moe"), ("attn", "mlp")), hybrid_train_pattern
     for label, rcfg in ((ARCH, get_config(ARCH).reduced()),
                         (f"{HYBRID} {hybrid_train_pattern}", dataclasses.replace(
-                            hcfg.reduced(), pattern=hybrid_train_pattern, n_layers=2))):
+                            hcfg.reduced(), pattern=hybrid_train_pattern, n_layers=2)),
+                        (STARCODER, scfg.reduced())):
         cpu, card = reduced_steps(rcfg, "cpu"), reduced_steps(rcfg, dev)
         worst = 0.0
         for i, (a, b) in enumerate(zip(cpu, card)):
@@ -1259,14 +1480,10 @@ def main() -> int:
         kern = [a for a in device_kernels(prof) if a.key not in ranges]
         busy = sum(a.self_device_time_total for a in kern) / 1e3
 
-        def is_ours(name):
-            return any(k in name for k in ("rmsnorm", "flash_", "scan_prefill_kernel",
-                                           "selective_scan", "gmm_"))
-
         def is_blas(name):
             return any(k in name.lower() for k in ("gemm", "xmma", "cutlass", "nvjet", "cublas"))
 
-        ours = sum(a.self_device_time_total for a in kern if is_ours(a.key)) / 1e3
+        ours = sum(a.self_device_time_total for a in kern if is_port_kernel(a.key)) / 1e3
         blas = sum(a.self_device_time_total for a in kern if is_blas(a.key)) / 1e3
         plain = {k[len("PlainGrad.backward["):-1]: sum(d for _, d in v) / 1e3
                  for k, v in ranges.items() if k != "optimizer"}
@@ -1287,14 +1504,14 @@ def main() -> int:
                 f"{a.key[:90]}")
         return split
 
-    def train_model(tcfg, batch, note=""):
+    def train_model(tcfg, batch, note, lr):
         """TRAIN_STEPS AdamW steps of ``Trainer`` at full width, each one
         ``Trainer.run(1)`` between two CUDA events."""
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        trainer = Trainer(tcfg, TrainConfig(optimizer="adamw", learning_rate=TRAIN_LR),
+        trainer = Trainer(tcfg, TrainConfig(optimizer="adamw", learning_rate=lr),
                           batch, TRAIN_SEQ, seed=0, device=dev)
         torch.cuda.synchronize()
         n_params = sum(p.numel() for p in trainer.params.parameters())
@@ -1334,7 +1551,7 @@ def main() -> int:
         med = float(np.median(step_ms[2:]))
         bound_ms, active = matmul_bound_ms(tcfg, batch * TRAIN_SEQ)
         res = {"arch": tcfg.name, "n_layers": tcfg.n_layers, "params": n_params,
-               "batch": batch, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+               "batch": batch, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "lr": lr,
                "step_ms": step_ms, "step_ms_median_3_10": med,
                "matmul_bound_ms": bound_ms, "matmul_bound_weights": active,
                "tokens_per_s": batch * TRAIN_SEQ / (med / 1e3), "run_s": wall_s,
@@ -1345,14 +1562,23 @@ def main() -> int:
         del trainer
         return (launches, expect, TRAIN_STEPS, *by), res
 
-    train_cfgs = [(cfg, ""), (dataclasses.replace(hcfg, n_layers=2, pattern=hybrid_train_pattern),
-                             f"; cut to 2 of {hcfg.n_layers} layers (two of its block; the "
-                             f"{HYBRID_LAYERS}-layer serve cut with AdamW's moments is "
-                             f"{12 * count_params(jcfg) / 1e9:.0f} GB, with RMSProp's "
-                             f"{8 * count_params(jcfg) / 1e9:.0f} GB)")]
+    train_cfgs = [(cfg, "", TRAIN_LR),
+                  (dataclasses.replace(hcfg, n_layers=2, pattern=hybrid_train_pattern),
+                   f"; cut to 2 of {hcfg.n_layers} layers (two of its block; the "
+                   f"{HYBRID_LAYERS}-layer serve cut with AdamW's moments is "
+                   f"{12 * count_params(jcfg) / 1e9:.0f} GB, with RMSProp's "
+                   f"{8 * count_params(jcfg) / 1e9:.0f} GB)", TRAIN_LR),
+                  (scfg, "; nothing cut (LayerNorm and GELU are plain PyTorch)",
+                   STARCODER_TRAIN_LR)]
+    # not trained here: yi-9b runs gemma2-2b's modules (and at 12 bytes a
+    # weight needs 106 GB); one grok-1 layer with the embeddings is 6.53B
+    # weights, 78 GB with AdamW's moments
+    log(f"[train] not trained: {YI} ({12 * count_params(ycfg) / 1e9:.0f} GB with AdamW), "
+        f"{GROK} (one layer {12 * count_params(dataclasses.replace(gcfg, n_layers=1)) / 1e9:.0f}"
+        " GB with AdamW)")
     trained = {}
-    for tcfg, note in train_cfgs:
-        path, trained[tcfg.name] = train_model(tcfg, TRAIN_BATCH, note)
+    for tcfg, note, lr in train_cfgs:
+        path, trained[tcfg.name] = train_model(tcfg, TRAIN_BATCH, note, lr)
         paths[f"train {tcfg.name}-{tcfg.n_layers}L"] = path
     phase_done("5 train")
 
@@ -1361,13 +1587,13 @@ def main() -> int:
     for name, src, replaces, main_t, dec_t, more in [
             ("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
              "src/repro/kernels/rmsnorm/rmsnorm.py:22", rms_prefill, rms_decode,
-             {"jamba": rms_jamba}),
+             {"jamba": rms_jamba, "grok": rms_grok}),
             ("flash_attention", "src/repro_torch/kernels/csrc/flash_prefill.cu",
              "src/repro/kernels/flash_attention/flash_attention.py:75", fa_prefill, fa_decode,
-             {"jamba": fa_jamba}),
+             {"jamba": fa_jamba, "zoo": fa_zoo}),
             ("gmm", "src/repro_torch/kernels/csrc/gmm_prefill.cu",
              "src/repro/kernels/gmm/gmm.py:28", gmm_prefill, gmm_more["decode"],
-             {k: v for k, v in gmm_more.items() if k != "decode"}),
+             {**{k: v for k, v in gmm_more.items() if k != "decode"}, "grok": gmm_grok}),
             ("selective_scan", "src/repro_torch/kernels/csrc/scan_prefill.cu",
              "src/repro/kernels/selective_scan/selective_scan.py:51", scan_prefill,
              scan_decode, {"edge": scan_edge, "jax_draws": scan_jax_draws})]:
@@ -1418,6 +1644,8 @@ def main() -> int:
             kernels[-1]["resources"] = gmm_res
             kernels[-1]["max_abs_err_by_kernel"] = gmm_err_by_kernel
         assert kernels[-1]["launches"] > 0, f"{name}: no launch on the main paths"
+    serves = {k: {**p[7], **probes[k]} for k, p in paths.items() if k in probes}
+    log("[serve] summary " + json.dumps(serves))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                            "count": torch.cuda.device_count()}}))

@@ -28,4 +28,5 @@ def list_archs() -> list[str]:
 def _load_all():
     # import every config module for its register() side effect; a module
     # registers once, however often this runs
-    from repro_torch.configs import gemma2_2b, jamba_v0_1_52b  # noqa: F401
+    from repro_torch.configs import (gemma2_2b, grok_1_314b, jamba_v0_1_52b,  # noqa: F401
+                                     starcoder2_3b, yi_9b)

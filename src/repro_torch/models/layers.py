@@ -1,10 +1,12 @@
 """Norms, the MLP, and the attention block (projections + KV-cache management).
 
-Port of ``repro/models/layers.py``. ``norm`` goes through the RMSNorm op and
+Port of ``repro/models/layers.py``. RMSNorm goes through the RMSNorm op and
 attention through the flash-attention op: on CUDA tensors both launch the
-port's kernels, on CPU tensors their plain versions. Unlike the functional
-reference, the blocks write the KV cache in place (a (R, B, L, Hkv, hd)
-stack is too large to copy every decode step).
+port's kernels, on CPU tensors their plain versions. LayerNorm and the GELU
+MLP are plain PyTorch on every device, as they are plain ``jnp`` in the
+reference. Unlike the functional reference, the blocks write the KV cache
+in place (a (R, B, L, Hkv, hd) stack is too large to copy every decode
+step).
 """
 from __future__ import annotations
 
@@ -18,16 +20,30 @@ from repro_torch.models.attention import rope
 
 
 def norm(cfg: ModelConfig, p, x, prefix: str = "norm"):
-    if cfg.norm != "rmsnorm" or not cfg.norm_f32:
-        raise NotImplementedError("only f32-statistics RMSNorm is ported")
+    if not cfg.norm_f32:
+        raise NotImplementedError("only f32-statistics norms are ported")
+    if cfg.norm == "layernorm":
+        # plain PyTorch on every device: the reference has no kernel for it
+        xf = x.float()
+        xf = xf - xf.mean(-1, keepdim=True)
+        var = (xf * xf).mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(var + 1e-6) * p[f"{prefix}_scale"].float() \
+            + p[f"{prefix}_bias"].float()
+        return out.to(x.dtype)
+    if cfg.norm != "rmsnorm":
+        raise NotImplementedError(f"norm {cfg.norm!r} is not ported")
     return rmsnorm(x, p[f"{prefix}_scale"], eps=1e-6)
 
 
 def mlp_block(cfg: ModelConfig, p, x):
-    if cfg.act != "silu":
-        raise NotImplementedError(f"act {cfg.act!r} is not ported")
     h = norm(cfg, p, x)
-    up = F.silu(h @ p["w_gate"]) * (h @ p["w_up"])      # SwiGLU
+    up = h @ p["w_up"]
+    if cfg.act == "silu":
+        up = F.silu(h @ p["w_gate"]) * up                 # SwiGLU
+    elif cfg.act == "gelu":
+        up = F.gelu(up, approximate="tanh")               # jax.nn.gelu's default
+    else:
+        raise NotImplementedError(f"act {cfg.act!r} is not ported")
     return x + up @ p["w_down"]
 
 

@@ -4,7 +4,8 @@ Port of the attn/mamba/mlp/moe part of ``repro/models/schema.py``: a model
 is a nested dict of ``ParamDef`` leaves, with per-layer weights stacked on a
 leading ``n_repeat`` axis. ``init_params`` draws them with the reference's
 shapes and scales (normal x 1/sqrt(fan_in), embedding scale 1.0, norm scales
-ones, mamba's A and dt-bias inits) from a ``torch.Generator``; the random
+ones and LayerNorm biases zeros, mamba's A and dt-bias inits) from a
+``torch.Generator``; the random
 numbers differ from ``jax.random``'s. The weights
 live in ``ModelParams``, an ``nn.Module`` that keeps the reference's
 nested-dict layout, so weights carry across as a rename
@@ -57,9 +58,10 @@ class Dims:
 
 
 def _norm_schema(cfg: ModelConfig, name: str = "norm") -> dict:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported")
-    return {f"{name}_scale": ParamDef((cfg.d_model,), "ones")}
+    d = {f"{name}_scale": ParamDef((cfg.d_model,), "ones")}
+    if cfg.norm == "layernorm":
+        d[f"{name}_bias"] = ParamDef((cfg.d_model,), "zeros")
+    return d
 
 
 def attn_schema(cfg: ModelConfig, dims: Dims) -> dict:
@@ -185,6 +187,12 @@ class ModelParams(nn.Module):
         return getattr(self, key)
 
 
+# a leaf of more elements is drawn a leading slice at a time: grok-1's
+# stacked expert weights (6 x 8 x 6144 x 32768 at the 6 layers one card
+# serves) would need a 38.7 GB f32 draw beside their 19.3 GB in bf16
+_DRAW_WHOLE = 1 << 32
+
+
 def _init_leaf(d: ParamDef, generator: torch.Generator, device, dtype):
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=dtype, device=device)
@@ -198,6 +206,13 @@ def _init_leaf(d: ParamDef, generator: torch.Generator, device, dtype):
         return torch.full(d.shape, math.log(math.e - 1), dtype=dtype, device=device)  # softplus^-1(1)
     scale = d.scale or 1.0 / math.sqrt(max(d.shape[0] if len(d.shape) == 1
                                            else d.shape[-2], 1))
+    if math.prod(d.shape) > _DRAW_WHOLE:
+        # one leading slice at a time, so the f32 draw never holds the leaf
+        out = torch.empty(d.shape, dtype=dtype, device=device)
+        for i in range(d.shape[0]):
+            out[i] = torch.randn(d.shape[1:], generator=generator,
+                                 device=device).mul_(scale)
+        return out
     x = torch.randn(d.shape, generator=generator, device=device)
     return (x.mul_(scale)).to(dtype)
 

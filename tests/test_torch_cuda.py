@@ -88,7 +88,8 @@ def _rms_counts():
 # D, the rows' layout, x's dtype, the kernel that serves it
 RMS_DISPATCH_CASES = [
     *[(D, layout, torch.bfloat16, "warp" if D in (2304, 4096) and layout != "odd" else "block")
-      for D in (2304, 4096, 1000, 257) for layout in ("prefill", "decode", "last", "odd")],
+      for D in (2304, 4096, 1000, 257, 6144)
+      for layout in ("prefill", "decode", "last", "odd")],
     (2304, "prefill", torch.float32, "block"), (4096, "decode", torch.float32, "block"),
 ]
 
@@ -193,6 +194,12 @@ BF16_CASES = [
     (1, 8, 4, 8, 256, 64, 32, 30.0, 120, (127, None), "split_kv"),      # Sq x G = 16
     (1, 1, 1, 17, 256, 64, 32, 30.0, 120, (136, None), "tensor_core"),  # Sq x G = 17
     (1, 4, 2, 40, 200, 128, 0, 0.0, 300, (339, None), "tensor_core"),   # prefill onto a ring
+    # the zoo's groups at hd 128: yi 32 over 4, grok 48 over 8 with softcap
+    # 30, starcoder2 24 over 2 (groups of 8, 6, 12), prefill and decode
+    *[case for Hq, Hkv, cap in ((32, 4, 0.0), (48, 8, 30.0), (24, 2, 0.0)) for case in (
+        (2, Hq, Hkv, 128, 128, 128, 0, cap, 0, None, "tensor_core"),
+        (4, Hq, Hkv, 1, 1024, 128, 0, cap, 519, (519, 520), "split_kv"),
+        (4, Hq, Hkv, 1, 1024, 128, 0, cap, 1500, (1500, None), "split_kv"))],
 ]
 
 
@@ -370,6 +377,32 @@ def test_gmm_decode_kernel_matches_plain(cuda, sizes, tail, D, F):
     np.testing.assert_allclose(out.float().cpu().numpy(), gmm_ref(x, w, gs).float().cpu().numpy(),
                                atol=atol, rtol=rtol)
     assert not out[sum(sizes):].any()
+
+
+@pytest.mark.parametrize("step,proj", [("prefill", "up"), ("prefill", "down"),
+                                       ("decode", "up"), ("decode", "down")])
+def test_gmm_at_grok_widths_matches_plain(cuda, step, proj):
+    """grok-1's expert FFN: 8 experts of 6144 -> 32768 (1.61e9 weights, 3.2
+    GB: byte offsets past 2^31) and back (K = 32768), at the tiled kernel's
+    prefill rows (4096) and the decode kernel's 8. Inputs are drawn on the
+    card."""
+    D, F = (6144, 32768) if proj == "up" else (32768, 6144)
+    sizes = [700, 300, 0, 1200, 500, 600, 400, 396] if step == "prefill" else [2, 1, 0, 1, 2, 0, 1, 1]
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    x = torch.randn((sum(sizes), D), generator=gen, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((len(sizes), D, F), generator=gen, device=cuda) * D ** -0.5).to(torch.bfloat16)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    kind = {"prefill": "tiled", "decode": "decode"}[step]
+    assert kernel_for(x, w) == kind
+    before = _gmm_counts()
+    out = gmm(x, w, gs)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_gmm_counts(), before)) == \
+        {"tiled": (1, 1, 0, 0), "decode": (1, 0, 1, 0)}[kind]
+    ref = gmm_ref(x, w, gs)
+    atol, rtol = GMM_TOL[torch.bfloat16]
+    excess = ((out.float() - ref.float()).abs() - rtol * ref.float().abs()).max().item()
+    assert excess <= atol, excess
 
 
 def test_gmm_decode_kernel_makes_no_host_sync(cuda):
@@ -699,3 +732,52 @@ def test_remat_launches_the_kernels_again_and_keeps_the_grads(cuda, remat):
     assert (rms, fa) == (2 * (rms_none - 1) + 1, 2 * fa_none), (rms, fa)
     for g, b in zip(got, base):
         np.testing.assert_allclose(g.cpu().numpy(), b.cpu().numpy(), rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "grok-1-314b", "starcoder2-3b"])
+@pytest.mark.parametrize("n_layers", [1, 2])
+def test_reduced_zoo_served_on_card_matches_cpu(cuda, arch, n_layers):
+    """The reduced yi-9b, grok-1 and starcoder2 (one layer, and a 2-layer
+    stack) serve the same greedy tokens on the card (the kernels; LayerNorm
+    and GELU plain) and on the CPU (the plain path)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.schema import init_params
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=n_layers)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(26)
+    prompts = [rng.integers(0, cfg.vocab_size, size=12) for _ in range(3)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(cfg, params.to(dev), batch_size=3, max_seq=64, device=dev)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(i, p, max_new_tokens=6))
+        outs[dev] = [r.output for r in eng.run_batch()]
+    assert outs["cuda"] == outs["cpu"]
+
+
+def test_reduced_starcoder2_train_step_on_card_matches_cpu(cuda):
+    """One AdamW step of the reduced starcoder2 (LayerNorm, GELU, f32 flash
+    kernel) on the card and on the CPU from the same weights."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.schema import init_params
+    from repro_torch.optim.optimizers import init_opt_state
+    from repro_torch.train.steps import make_train_step
+    cfg = get_config("starcoder2-3b").reduced()
+    chain = torch.from_numpy(np.random.default_rng(27).integers(0, cfg.vocab_size, (2, 41)))
+    batch = {"tokens": chain[:, :-1], "labels": chain[:, 1:]}
+    tc = TrainConfig(optimizer="adamw", learning_rate=1e-3)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu").to(dev)
+        before = flash_attention.launches
+        _, _, m = make_train_step(cfg, tc)(params, init_opt_state(tc, params),
+                                           {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = {k: v.item() for k, v in m.items()}
+        if dev == "cuda":
+            assert flash_attention.launches == before + cfg.n_layers
+    for key in ("loss", "aux_loss", "grad_norm"):
+        np.testing.assert_allclose(out["cuda"][key], out["cpu"][key], rtol=1e-4, atol=1e-5,
+                                   err_msg=key)

@@ -13,7 +13,7 @@ torch.set_num_threads(1)
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.data.synthetic import DataPipeline  # noqa: E402
-from repro_torch.launch import serve, step_times, train  # noqa: E402
+from repro_torch.launch import serve, step_times, train, train_devices  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.models.model import init_cache  # noqa: E402
 from repro_torch.models.schema import init_params  # noqa: E402
@@ -88,6 +88,12 @@ def test_step_times_needs_a_card(no_gpu):
     # a timing of the card has no CPU path to fall back to
     with pytest.raises(RuntimeError, match="cuda"):
         step_times.main(["--arch", "gemma2-2b", "--layers", "1", "--repeats", "1"])
+
+
+def test_train_devices_needs_a_card_unless_told_otherwise(no_gpu):
+    # its default devices are the card and the CPU
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_devices.main(["--arch", "gemma2-2b", "--reduced", "--steps", "1"])
 
 
 def test_engine_refuses_params_on_another_device():
