@@ -48,10 +48,22 @@ Phases, each of which passes or ends the script with a non-zero exit:
      tensor-core kernel and decode on split-KV; RMSNorm in bf16 at grok's
      width 6144 on the block kernel; gmm at grok's 8 experts of 6144 ->
      32768 and back, at prefill on the tiled kernel and decode on the decode
-     kernel. Plus a reduced gemma2-2b, a reduced hybrid (jamba's 8-block
-     pattern), and reduced yi-9b, grok-1 and starcoder2 (one layer and a
-     2-layer stack each) served on the card (kernels) and on the CPU (plain
-     path), which must agree;
+     kernel. phi3-mini-3.8b's and kimi-k2's shapes: flash at head dims 96
+     (32 over 32 heads) and 112 (64 over 8) on all three kernels (the
+     tensor-core kernel at prefill, split-KV at decode, the FMA kernel in
+     f32), RMSNorm in bf16 at 3072 and 7168 on the block kernel, gmm at
+     kimi's 384 experts of 7168 -> 2048 and back, at prefill on the tiled
+     kernel and at a decode step's 32 rows (most groups empty) on the decode
+     kernel. Where |out| reaches 4: flash at gemma2's, phi3's and kimi's
+     prefill shapes with v ~ N(0, 2^2) clipped to |v| <= 7.9 (hundreds of
+     outputs in [4, 8), none at 8), held to 2e-2 (8e-3 where |ref| < 1)
+     against the plain version run on f32 copies of the same bf16 inputs,
+     with the count of outputs in [4, 8) and the distance from the bf16 plain
+     output printed. Plus a reduced gemma2-2b, a reduced hybrid (jamba's
+     8-block pattern), reduced yi-9b, grok-1, starcoder2, phi3 and kimi (one
+     layer and a 2-layer stack each) and phi3 and kimi reduced at their real
+     head dims, served on the card (kernels) and on the CPU (plain path),
+     which must agree;
   3. serve: full-width gemma2-2b (26 layers, bf16, seed-0 weights) through
      ``ServingEngine``: 8 requests, batch 4, prompt 512, 16 new tokens,
      max_seq 1024. Every RMSNorm and attention must have gone through the
@@ -82,6 +94,13 @@ Phases, each of which passes or ends the script with a non-zero exit:
      decode at decode; its routing as jamba's), starcoder2-3b whole
      (LayerNorm and GELU plain PyTorch: 0 RMSNorm, 30 flash); the same
      timings, profiles, sync check and |attention output|;
+  3f-3g. serve phi3-mini-3.8b whole (65 RMSNorm on the block kernel, d_model
+     3072 not being a warp width; 32 flash at head dim 96, 32 q-heads over 32
+     kv-heads) and kimi-k2 at full width cut to 1 of 61 layers (3 RMSNorm on
+     the block kernel at 7168, 1 flash at head dim 112, 3 gmm over 384
+     experts at top-8, tiled at prefill and decode at decode; its routing as
+     grok's, with the experts that get no row counted); the same timings,
+     profiles, sync check and |attention output|;
   4. times at the serving shapes, after warm-up: each kernel's, its plain
      version's and the library call's device time per call (the summed
      kernel time under the profiler, with a 256 MB scratch buffer read
@@ -103,7 +122,10 @@ Phases, each of which passes or ends the script with a non-zero exit:
      inputs, called past the dispatch. The zoo's rows: flash at yi-9b's,
      grok-1's and starcoder2's prefill and decode, RMSNorm at (2048, 6144)
      and (4, 6144) on the block kernel, gmm at grok's served routing, up
-     and down, prefill and decode (drawn after grok-6 is freed);
+     and down, prefill and decode (drawn after grok-6 is freed); flash at
+     phi3's and kimi's prefill and decode, RMSNorm at (2048, 3072), (4,
+     3072), (2048, 7168) and (4, 7168) on the block kernel, gmm at kimi's
+     served routing, up and down, prefill and decode;
   5. train: the reduced gemma2-2b and a reduced hybrid with a MoE layer
      take 3 AdamW steps on the card and on the CPU from the same seed, whose
      losses, aux losses and grad norms must agree. Then full-width gemma2-2b
@@ -116,7 +138,9 @@ Phases, each of which passes or ends the script with a non-zero exit:
      53 RMSNorm (warp) and 26 flash (tensor-core); jamba-2 5 RMSNorm, 1
      flash, 1 scan (prefill kernel), 3 gmm (tiled). Then starcoder2-3b
      whole, the same way at lr 1e-4: 30 flash and 0 RMSNorm a step (its
-     reduced config also takes the card-vs-CPU steps). Prints step ms (CUDA
+     reduced config also takes the card-vs-CPU steps, as do phi3's and
+     kimi's reduced configs at their real head dims, 96 and 112, whose
+     training forward runs the FMA flash kernel there). Prints step ms (CUDA
      events, median of steps 3-10), tokens/s, peak memory, and a profiled
      eleventh step split into the four kernels' forwards, the
      plain-recompute backward of each op, cuBLAS and the optimizer.
@@ -157,6 +181,16 @@ HYBRID, HYBRID_LAYERS = "jamba-v0.1-52b", 8
 # card left to serve in; all 64 are 316.5B (633 GB)
 YI, STARCODER = "yi-9b", "starcoder2-3b"
 GROK, GROK_LAYERS = "grok-1-314b", 6
+# phi3-mini-3.8b (3.82B parameters, 7.6 GB) is served whole; kimi-k2 at full
+# width cut to 1 of its 61 layers, one period of its pattern: 19.38B
+# parameters (38.8 GB in bf16); 2 layers would be 72.8 GB, more than grok's
+# 7 (72.1 GB); all 61 are 1.04T
+PHI3 = "phi3-mini-3.8b"
+KIMI, KIMI_LAYERS = "kimi-k2-1t-a32b", 1
+# the reduced configs of phi3 and kimi at their own head dims, 96 and 112
+# (reduced() gives 64); phi3 keeps MHA, as its 32 q-heads over 32 kv-heads
+REAL_HEAD_DIM = {PHI3: dict(head_dim=96, d_model=384, n_kv_heads=4),
+                 KIMI: dict(head_dim=112, d_model=448)}
 INVALID = 2 ** 30
 # phase 5: AdamW steps at lr 3e-4 of batch TRAIN_BATCH x TRAIN_SEQ bigram
 # tokens; jamba at full width cut to two layers of
@@ -434,6 +468,14 @@ def skewed_sizes(total, E, empty):
     return s.tolist()
 
 
+def routed_sizes(tokens, E, k, seed):
+    """A decode step's group sizes: top-``k`` of ``E`` experts drawn per
+    token for ``tokens`` tokens from one seeded draw."""
+    pick = np.random.default_rng(seed)
+    return np.bincount(np.concatenate([pick.choice(E, k, replace=False)
+                                       for _ in range(tokens)]), minlength=E).tolist()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -529,7 +571,14 @@ def main() -> int:
         return torch.from_numpy(rng.standard_normal(shape) * scale).to(dev, dtype)
 
     def td(*shape, dtype=torch.float32, scale=1.0):
-        """Seeded normals drawn on the card (large tensors)."""
+        """Seeded normals drawn on the card (large tensors); past 2^31
+        elements (kimi's 384 stacked experts) a leading slice at a time, so
+        no f32 draw holds the whole tensor."""
+        if math.prod(shape) > 1 << 31:
+            out = torch.empty(shape, dtype=dtype, device=dev)
+            for i in range(shape[0]):
+                out[i] = torch.randn(shape[1:], generator=gen, device=dev) * scale
+            return out
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
     err = {name: 0.0 for name in kernel_ops}
@@ -553,7 +602,7 @@ def main() -> int:
         err[name] = max(err[name], e)
         return e
 
-    hcfg = get_config(HYBRID)
+    hcfg, cfg0 = get_config(HYBRID), get_config(ARCH)
     rms_err_by_kernel = {"warp": 0.0, "block": 0.0}
 
     def rms_counts():
@@ -597,24 +646,30 @@ def main() -> int:
                  (t(D) + 1.0).to(torch.bfloat16))
     rms_case("(4, 9, 1000)[:, -1:] bf16", t(4, 9, 1000, dtype=torch.bfloat16)[:, -1:],
              (t(1000) + 1.0).to(torch.bfloat16))
-    # grok-1's width, 6144, is not one the warp kernel is built for: the
-    # block kernel serves its prefill and decode rows and a prefill's last
-    # position
-    gfull = get_config(GROK)
-    gw = gfull.d_model
-    for shape in [(BATCH * PROMPT, gw), (BATCH, gw), (BATCH, PROMPT, gw)]:
-        x = t(*shape, dtype=torch.bfloat16)
-        rms_case(f"grok {shape} bf16" + ("[:, -1:]" if len(shape) == 3 else ""),
-                 x[:, -1:] if len(shape) == 3 else x, (t(gw) + 1.0).to(torch.bfloat16),
-                 want="block")
+    # grok-1's width 6144, phi3's 3072 and kimi's 7168 are not ones the warp
+    # kernel is built for: the block kernel serves their prefill and decode
+    # rows and a prefill's last position
+    gfull, kfull = get_config(GROK), get_config(KIMI)
+    for zname in (GROK, PHI3, KIMI):
+        zw = get_config(zname).d_model
+        for shape in [(BATCH * PROMPT, zw), (BATCH, zw), (BATCH, PROMPT, zw)]:
+            x = t(*shape, dtype=torch.bfloat16)
+            rms_case(f"{zname} {shape} bf16" + ("[:, -1:]" if len(shape) == 3 else ""),
+                     x[:, -1:] if len(shape) == 3 else x, (t(zw) + 1.0).to(torch.bfloat16),
+                     want="block")
     log(f"[kernel] rmsnorm max_abs_err by kernel: {json.dumps(rms_err_by_kernel)}")
 
-    # bf16 flash: the tensor-core kernel rounds P to bf16 before the PV
-    # product, so outputs in [2, 4) may sit one bf16 ulp (1.56e-2) off, which
+    # bf16 flash: the kernel and the plain version each round the output to
+    # bf16, so the two may sit one bf16 ulp apart (1.56e-2 in [2, 4)), which
     # the 2e-2 limit admits; the bulk, |ref| < 1, is held to 8e-3, two ulps
-    # of [0.5, 1): P's rounding and the output's take one each
+    # of [0.5, 1). Where |ref| reaches 4 one ulp is 3.1e-2: those cases are
+    # held to the plain version run in f32 instead (flash_large_out_case)
     FLASH_BF16_BULK = (8e-3, 1.0)
-    MAG_EDGES = (0.0, 0.5, 1.0, 2.0, 4.0, math.inf)
+    # against the f32 plain version the bulk's error is the kernel's own
+    # output rounding, half an ulp of [0.5, 1) (1.95e-3), when P reaches the
+    # PV product whole; with P rounded to bf16 once it read 6.8e-3 to 7.1e-3
+    FLASH_LARGE_OUT_BULK = (4e-3, 1.0)
+    MAG_EDGES = (0.0, 0.5, 1.0, 2.0, 4.0, 8.0, math.inf)
     flash_bf16_by_mag = {f"[{lo:g}, {hi:g})": 0.0 for lo, hi in zip(MAG_EDGES, MAG_EDGES[1:])}
 
     def flash_counts():
@@ -638,13 +693,57 @@ def main() -> int:
         bf = dt == torch.bfloat16
         check("flash_attention", f"[{kind}] {label}", out, ref, 2e-2 if bf else 1e-4,
               bulk=FLASH_BF16_BULK if bf else None)
-        if bf:      # the error against the output's magnitude, over every bf16 case
-            diff, mag = (out.float() - ref.float()).abs(), ref.float().abs()
-            for (lo, hi), key in zip(zip(MAG_EDGES, MAG_EDGES[1:]), flash_bf16_by_mag):
-                sel = (mag >= lo) & (mag < hi)
-                if sel.any().item():
-                    flash_bf16_by_mag[key] = max(flash_bf16_by_mag[key],
-                                                 diff[sel].max().item())
+        if bf:
+            flash_by_magnitude(out, ref)
+
+    def flash_by_magnitude(out, ref):
+        """The error against the output's magnitude, over every bf16 case."""
+        diff, mag = (out.float() - ref.float()).abs(), ref.float().abs()
+        for (lo, hi), key in zip(zip(MAG_EDGES, MAG_EDGES[1:]), flash_bf16_by_mag):
+            sel = (mag >= lo) & (mag < hi)
+            if sel.any().item():
+                flash_bf16_by_mag[key] = max(flash_bf16_by_mag[key], diff[sel].max().item())
+
+    flash_large_out = {}
+
+    def flash_large_out_case(zname, window):
+        """``zname``'s prefill (batch 4, prompt 512) where |out| reaches 4: q,
+        k ~ N(0, 1), v ~ N(0, 2^2) clipped to |v| <= 7.9, so rows that see
+        few keys give outputs in [4, 8) and none reaches 8. The kernel's bf16
+        output is held to the plain version run on f32 copies of the same
+        bf16 inputs (an f32 p times an f32 v, the reference's arithmetic): its
+        own rounding costs up to half an ulp there, 1.5625e-2, within 2e-2,
+        and the bulk is held to 4e-3 (``FLASH_LARGE_OUT_BULK``). Its distance
+        from the bf16 plain output is printed as a record only: two bf16
+        results may sit one ulp (3.1e-2) apart there when both are right."""
+        zc = get_config(zname)
+        B, Hq, Hkv, hd, cap = BATCH, zc.n_heads, zc.n_kv_heads, zc.head_dim, zc.attn_softcap
+        q = td(B, PROMPT, Hq, hd, dtype=torch.bfloat16)
+        k = td(B, PROMPT, Hkv, hd, dtype=torch.bfloat16)
+        v = td(B, PROMPT, Hkv, hd, scale=2.0).clamp_(-7.9, 7.9).to(torch.bfloat16)
+        kw = dict(causal=True, window=window, softcap=cap)
+        kind, before = kernel_for(q.dtype, PROMPT, Hq, Hkv), flash_counts()
+        assert kind == "tensor_core", (zname, kind)
+        out = flash_attention(q, k, v, **kw)
+        moved = {n: c - before[n] for n, c in flash_counts().items()}
+        assert moved == {"split_kv": 0, "tensor_core": 1}, (zname, moved)
+        ref = chunked_attention(q.float(), k.float(), v.float(), **kw)
+        mag = ref.abs()
+        band = (mag >= 4) & (mag < 8)
+        n4 = int(band.sum().item())
+        assert n4 >= 100 and mag.max().item() < 8, (zname, n4, mag.max().item())
+        label = (f"{zname} prefill B{B} S{PROMPT} Hq{Hq} Hkv{Hkv} hd{hd} w{window} cap{cap}, "
+                 "v ~ N(0, 2^2) clipped to 7.9")
+        e = check("flash_attention", f"[{kind}] {label}, against f32", out, ref, 2e-2,
+                  bulk=FLASH_LARGE_OUT_BULK)
+        flash_by_magnitude(out, ref)
+        e4 = (out.float() - ref)[band].abs().max().item()
+        d_bf = (out.float() - chunked_attention(q, k, v, **kw).float()).abs().max().item()
+        log(f"[kernel] flash_attention [{kind}] {zname}: {n4} outputs in [4, 8), max error "
+            f"there {e4:.3e} (half an ulp 1.5625e-2, limit 2e-2); {d_bf:.3e} from the bf16 "
+            "plain output (a record)")
+        flash_large_out[zname] = {"shape": label, "n_in_4_8": n4, "max_abs_err_in_4_8": e4,
+                                  "max_abs_err": e, "max_abs_diff_from_bf16_plain": d_bf}
 
     def ring_pos(L, pos, written=None):
         """Slot positions of a ring of L slots holding positions <= pos (p at
@@ -691,8 +790,9 @@ def main() -> int:
                    128, True, 0, 0.0, dt, 511, half)
     # the zoo's groups at their serving shapes, hd 128: yi 32 over 4 (G 8),
     # grok 48 over 8 (G 6) with its softcap 30, starcoder2 24 over 2 (G 12);
-    # groups of 6 and 12 are not powers of two
-    for zname in (YI, GROK, STARCODER):
+    # groups of 6 and 12 are not powers of two; phi3 32 over 32 (G 1) at hd
+    # 96, kimi 64 over 8 (G 8) at hd 112
+    for zname in (YI, GROK, STARCODER, PHI3, KIMI):
         zc = get_config(zname)
         Hq, Hkv, hd, cap = zc.n_heads, zc.n_kv_heads, zc.head_dim, zc.attn_softcap
         tag = f"{zname} Hq{Hq} Hkv{Hkv} G{Hq // Hkv} hd{hd} cap{cap}"
@@ -702,6 +802,20 @@ def main() -> int:
                    True, 0, cap, torch.bfloat16, 511, half, want="split_kv")
         flash_case(f"{tag} decode wrapped ring L1024 bf16", 4, Hq, Hkv, 1, 1024, hd, True, 0,
                    cap, torch.bfloat16, 1500, ring_pos(1024, 1500), want="split_kv")
+    # the FMA kernel (f32) at phi3's and kimi's head dims and groups
+    for zname in (PHI3, KIMI):
+        zc = get_config(zname)
+        Hq, Hkv, hd = zc.n_heads, zc.n_kv_heads, zc.head_dim
+        tag = f"{zname} Hq{Hq} Hkv{Hkv} G{Hq // Hkv} hd{hd}"
+        flash_case(f"{tag} prefill B1 S128 f32", 1, Hq, Hkv, 128, 128, hd, True, 0, 0.0,
+                   torch.float32, 0, want="fma")
+        flash_case(f"{tag} decode Sq1 L1024 half-invalid f32", 4, Hq, Hkv, 1, 1024, hd, True,
+                   0, 0.0, torch.float32, 511, half, want="fma")
+    # where |out| reaches 4: gemma2's local layer (window 4096, softcap 50),
+    # phi3's and kimi's prefill
+    flash_large_out_case(ARCH, cfg0.window)
+    flash_large_out_case(PHI3, 0)
+    flash_large_out_case(KIMI, 0)
     # both bf16 kernels at every head dim; ragged tiles (33 x 65, 100 x 100)
     bf16 = torch.bfloat16
     for hd in HEAD_DIMS:
@@ -724,6 +838,7 @@ def main() -> int:
                bf16, 120, ring_pos(256, 136))
 
     log(f"[kernel] flash_attention bf16 max_abs_err by |ref|: {json.dumps(flash_bf16_by_mag)}")
+    log(f"[kernel] flash_attention where |ref| reaches 4: {json.dumps(flash_large_out)}")
 
     # gmm: f32 sums over D in another order; bf16 output rounded once on both
     # sides, so the two may differ by one bf16 ulp of the value (2**-7 rel.)
@@ -807,6 +922,19 @@ def main() -> int:
                  torch.bfloat16, gd ** -0.5, want=want)
         gmm_case(f"grok {tag} down T{sum(sizes)} {gf}->{gd}", sizes, gf, gd, torch.bfloat16,
                  gf ** -0.5, want=want)
+    # kimi-k2's expert FFN, 384 experts of 7168 -> 2048 (5.6e9 weights, 11.3
+    # GB a projection) and back, at prefill (B4 x 512 tokens x top-8 = 16,384
+    # rows over all 384 experts, one empty: the tiled kernel) and decode (B4 x
+    # top-8 = 32 rows, at most 32 experts with rows: the decode kernel, most
+    # groups empty); every block walks all 384 group sizes
+    kd, kf, kE, kk = kfull.d_model, kfull.expert_d_ff, kfull.n_experts, kfull.top_k
+    for tag, sizes, want in (("prefill", skewed_sizes(BATCH * PROMPT * kk, kE, 5), "tiled"),
+                             ("decode", routed_sizes(BATCH, kE, kk, seed=2), "decode")):
+        n_rows = sum(1 for g in sizes if g)
+        gmm_case(f"kimi {tag} up T{sum(sizes)} {kd}->{kf}, {n_rows} of {kE} groups with rows",
+                 sizes, kd, kf, torch.bfloat16, kd ** -0.5, want=want)
+        gmm_case(f"kimi {tag} down T{sum(sizes)} {kf}->{kd}", sizes, kf, kd, torch.bfloat16,
+                 kf ** -0.5, want=want)
     log(f"[kernel] gmm max_abs_err by kernel: {json.dumps(gmm_err_by_kernel)}")
 
     # selective scan: f32 sums over d_state in another order; bf16 as gmm
@@ -938,11 +1066,16 @@ def main() -> int:
     # the zoo's reduced configs (f32: the FMA flash kernel, the block
     # RMSNorm, the small gmm; starcoder2's LayerNorm and GELU plain on both),
     # one layer and a 2-layer stack
-    for zname in (YI, GROK, STARCODER):
+    for zname in (YI, GROK, STARCODER, PHI3, KIMI):
         zc = get_config(zname).reduced()
         served_on_card_and_cpu(f"{zname} reduced", zc)
         served_on_card_and_cpu(f"{zname} reduced, 2 layers",
                                dataclasses.replace(zc, n_layers=2 * len(zc.pattern)))
+    # phi3 and kimi reduced at their own head dims (the FMA flash kernel at
+    # 96 and 112)
+    for zname, dims in REAL_HEAD_DIM.items():
+        served_on_card_and_cpu(f"{zname} reduced at hd {dims['head_dim']}",
+                               dataclasses.replace(get_config(zname).reduced(), **dims))
 
     phase_done("2 kernels vs plain")
 
@@ -1125,10 +1258,12 @@ def main() -> int:
         it, run after the counted serve: the largest |attention output| of
         each (the flash kernels' outputs, as each attention layer multiplies
         them by its ``wo``; from |ref| >= 4 one bf16 ulp, 3.1e-2, exceeds
-        phase 2's 2e-2 limit) and, for a model with MoE layers, the group
-        sizes each routes (its router's top-k experts, counted as
-        ``moe_local`` counts them): the traffic phase 4 times gmm at. A
-        ``TorchFunctionMode`` sees both calls; no module is patched."""
+        phase 2's 2e-2 limit, and ``flash_large_out_case`` holds the kernel
+        there against the f32 plain version) and, for a model with MoE
+        layers, the group sizes each routes (its router's top-k experts,
+        counted as ``moe_local`` counts them), the traffic phase 4 times gmm
+        at, and how many experts get no row. A ``TorchFunctionMode`` sees
+        both calls; no module is patched."""
         from torch.overrides import TorchFunctionMode
         wo = {t.untyped_storage().data_ptr() for n, t in params.named_parameters()
               if n.endswith(".wo")}
@@ -1160,8 +1295,8 @@ def main() -> int:
                 "decode": max(a.item() for a in amax[n_attn:])}
         over = max(attn.values()) >= 4.0
         log(f"[attn] {cfg.name}: largest |attention output| {json.dumps(attn)}"
-            + (": reaches 4, where one bf16 ulp exceeds the 2e-2 limit" if over else
-               ": below 4"))
+            + (": reaches 4, where phase 2 holds the kernel to the f32 plain version"
+               if over else ": below 4"))
         found = {"attn_abs_max": attn}
         if routed:
             sizes = {"prefill": [s.tolist() for s in routed[:n_moe]],
@@ -1171,6 +1306,10 @@ def main() -> int:
                     log(f"[routing] {cfg.name} {step} MoE layer {i}: "
                         f"{sum(1 for n in s if n)} of {len(s)} experts get rows, sizes {s}")
             found["routed"] = {step: per_layer[0] for step, per_layer in sizes.items()}
+            found["experts_without_rows"] = {step: [sum(1 for n in s if not n) for s in per_layer]
+                                             for step, per_layer in sizes.items()}
+            log(f"[routing] {cfg.name}: experts with no row, per MoE layer, of {cfg.n_experts}: "
+                f"{json.dumps(found['experts_without_rows'])}")
         return found
 
     def serve_phase(cfg, key, note=""):
@@ -1215,9 +1354,23 @@ def main() -> int:
     routed_grok = probes[grok_key]["routed"]
     phase_done("3d serve grok-6")
     serve_phase(scfg, STARCODER, "; nothing cut")
+    phase_done("3e serve starcoder2-3b")
+
+    # -- 3f-3g. serve phi3-mini-3.8b whole, kimi-k2 cut to one layer -------
+    pcfg = get_config(PHI3)
+    serve_phase(pcfg, PHI3, "; nothing cut")
+    phase_done("3f serve phi3-mini-3.8b")
+    kcfg = dataclasses.replace(kfull, n_layers=KIMI_LAYERS)
+    kimi_key = f"{KIMI}-{KIMI_LAYERS}L"
+    kimi_2 = 2 * count_params(dataclasses.replace(kfull, n_layers=2)) / 1e9
+    serve_phase(kcfg, kimi_key, (
+        f"; cut to {KIMI_LAYERS} of {kfull.n_layers} layers, one period of its pattern, every "
+        f"width as published (2 layers are {kimi_2:.1f} GB in bf16, all {kfull.n_layers} "
+        f"{count_params(kfull) / 1e12:.2f}T params)"))
+    routed_kimi = probes[kimi_key]["routed"]
     log(f"[profile] phase 3's profiler sessions: {SESSIONS}")
     SESSIONS.update(taken=0, retaken=0)
-    phase_done("3e serve starcoder2-3b")
+    phase_done("3g serve kimi-1")
 
     # -- 4. times at the serving shapes --------------------------------------
     flush = L2Flush()
@@ -1285,9 +1438,11 @@ def main() -> int:
                 qt, kt, vt, attn_mask=mask, enable_gqa=True), flush)
         return res
 
-    def gmm_times(sizes, D, Fo, routing="served routing", beside=("small",)):
+    def gmm_times(sizes, D, Fo, routing="served routing", beside=("small",), plain_iters=20):
         """The serving kernel's row, and each kernel named in ``beside``
-        timed on the same inputs, called past the dispatch."""
+        timed on the same inputs, called past the dispatch. The plain version
+        launches several kernels a group: ``plain_iters`` calls of it are
+        timed (after one warm-up when fewer than 20)."""
         T, E = sum(sizes), len(sizes)
         x = td(T, D, dtype=torch.bfloat16)
         w = td(E, D, Fo, dtype=torch.bfloat16, scale=D ** -0.5)
@@ -1309,7 +1464,8 @@ def main() -> int:
                "kernel": kind,
                "ms": device_ms(lambda: gmm(x, w, gs), flush),
                "event_ms": cuda_ms(lambda: gmm(x, w, gs)),
-               "plain_ms": device_ms(lambda: gmm_ref(x, w, gs), flush),
+               "plain_ms": device_ms(lambda: gmm_ref(x, w, gs), flush, iters=plain_iters,
+                                     warmup=3 if plain_iters >= 20 else 1),
                "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": device_ms(lambda: torch._grouped_mm(x, w, offs=offs), flush),
                "library_max_abs_diff": (lib_out.float() - out.float()).abs().max().item()}
@@ -1369,10 +1525,7 @@ def main() -> int:
         """A decode step's group sizes at batch ``batch``: top-2 of 16
         experts drawn per token, the first ``batch`` tokens of one seeded
         draw (so batch 128 routes as in earlier runs)."""
-        pick = np.random.default_rng(1)
-        return np.bincount(np.concatenate([
-            pick.choice(hcfg.n_experts, hcfg.top_k, replace=False) for _ in range(batch)]),
-            minlength=hcfg.n_experts).tolist()
+        return routed_sizes(batch, hcfg.n_experts, hcfg.top_k, seed=1)
 
     gmm_more = {"prefill_down": gmm_times(routed["prefill"], f, d),
                 "decode": gmm_times(routed["decode"], d, f),
@@ -1400,14 +1553,22 @@ def main() -> int:
     # version of one projection alone holds 6.4 GB)
     fa_zoo = {z.name: {"prefill": flash_times(z, PROMPT, PROMPT, 0, None, 0),
                        "decode": flash_times(z, 1, MAX_SEQ, written - 1, half_written, 0)}
-              for z in (ycfg, gcfg, scfg)}
-    rms_grok = {"prefill": rms_times(BATCH * PROMPT, gcfg.d_model),
-                "decode": rms_times(BATCH, gcfg.d_model)}
+              for z in (ycfg, gcfg, scfg, pcfg, kcfg)}
+    rms_grok, rms_phi3, rms_kimi = ({"prefill": rms_times(BATCH * PROMPT, z.d_model),
+                                     "decode": rms_times(BATCH, z.d_model)}
+                                    for z in (gcfg, pcfg, kcfg))
     gd, gf = gcfg.d_model, gcfg.expert_d_ff
     gmm_grok = {f"{step}_{proj}": gmm_times(routed_grok[step], *dims, "grok served routing",
                                             beside=())
                 for step in ("prefill", "decode")
                 for proj, dims in (("up", (gd, gf)), ("down", (gf, gd)))}
+    # kimi's expert FFN at its served routing: 384 experts' weights, 11.3 GB
+    # a projection; the plain version launches some 1,500 kernels a call at
+    # prefill, so 3 of its calls are timed
+    gmm_kimi = {f"{step}_{proj}": gmm_times(routed_kimi[step], *dims, "kimi served routing",
+                                            beside=(), plain_iters=3)
+                for step in ("prefill", "decode")
+                for proj, dims in (("up", (kd, kf)), ("down", (kf, kd)))}
     log(f"[profile] phase 4's profiler sessions: {SESSIONS}")
     phase_done("4 times")
 
@@ -1440,7 +1601,10 @@ def main() -> int:
     for label, rcfg in ((ARCH, get_config(ARCH).reduced()),
                         (f"{HYBRID} {hybrid_train_pattern}", dataclasses.replace(
                             hcfg.reduced(), pattern=hybrid_train_pattern, n_layers=2)),
-                        (STARCODER, scfg.reduced())):
+                        (STARCODER, scfg.reduced()),
+                        *((f"{zname} at hd {dims['head_dim']}",
+                           dataclasses.replace(get_config(zname).reduced(), **dims))
+                          for zname, dims in REAL_HEAD_DIM.items())):
         cpu, card = reduced_steps(rcfg, "cpu"), reduced_steps(rcfg, dev)
         worst = 0.0
         for i, (a, b) in enumerate(zip(cpu, card)):
@@ -1573,8 +1737,13 @@ def main() -> int:
     # not trained here: yi-9b runs gemma2-2b's modules (and at 12 bytes a
     # weight needs 106 GB); one grok-1 layer with the embeddings is 6.53B
     # weights, 78 GB with AdamW's moments
+    # phi3-mini-3.8b: starcoder2-3b's 65.45 GB peak (PERF.md §4) scaled by
+    # their weights is about 78.6 GB, too close to the card's 80; one kimi
+    # layer with AdamW's moments is 233 GB
     log(f"[train] not trained: {YI} ({12 * count_params(ycfg) / 1e9:.0f} GB with AdamW), "
         f"{GROK} (one layer {12 * count_params(dataclasses.replace(gcfg, n_layers=1)) / 1e9:.0f}"
+        f" GB with AdamW), {PHI3} ({12 * count_params(pcfg) / 1e9:.0f} GB of weights, grads and "
+        f"AdamW moments before activations), {KIMI} (one layer {12 * count_params(kcfg) / 1e9:.0f}"
         " GB with AdamW)")
     trained = {}
     for tcfg, note, lr in train_cfgs:
@@ -1587,13 +1756,14 @@ def main() -> int:
     for name, src, replaces, main_t, dec_t, more in [
             ("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
              "src/repro/kernels/rmsnorm/rmsnorm.py:22", rms_prefill, rms_decode,
-             {"jamba": rms_jamba, "grok": rms_grok}),
+             {"jamba": rms_jamba, "grok": rms_grok, "phi3": rms_phi3, "kimi": rms_kimi}),
             ("flash_attention", "src/repro_torch/kernels/csrc/flash_prefill.cu",
              "src/repro/kernels/flash_attention/flash_attention.py:75", fa_prefill, fa_decode,
              {"jamba": fa_jamba, "zoo": fa_zoo}),
             ("gmm", "src/repro_torch/kernels/csrc/gmm_prefill.cu",
              "src/repro/kernels/gmm/gmm.py:28", gmm_prefill, gmm_more["decode"],
-             {**{k: v for k, v in gmm_more.items() if k != "decode"}, "grok": gmm_grok}),
+             {**{k: v for k, v in gmm_more.items() if k != "decode"}, "grok": gmm_grok,
+              "kimi": gmm_kimi}),
             ("selective_scan", "src/repro_torch/kernels/csrc/scan_prefill.cu",
              "src/repro/kernels/selective_scan/selective_scan.py:51", scan_prefill,
              scan_decode, {"edge": scan_edge, "jax_draws": scan_jax_draws})]:
@@ -1633,6 +1803,7 @@ def main() -> int:
                                                              for k, p in paths.items()}
             kernels[-1]["resources"] = flash_res
             kernels[-1]["bf16_max_abs_err_by_ref_magnitude"] = flash_bf16_by_mag
+            kernels[-1]["bf16_where_ref_reaches_4"] = flash_large_out
         if name == "gmm":
             kernels[-1]["sources"] = ["src/repro_torch/kernels/csrc/gmm_prefill.cu",
                                       "src/repro_torch/kernels/csrc/gmm_decode.cu",

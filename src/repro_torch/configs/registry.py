@@ -29,4 +29,5 @@ def _load_all():
     # import every config module for its register() side effect; a module
     # registers once, however often this runs
     from repro_torch.configs import (gemma2_2b, grok_1_314b, jamba_v0_1_52b,  # noqa: F401
-                                     starcoder2_3b, yi_9b)
+                                     kimi_k2_1t_a32b, phi3_mini_3_8b, starcoder2_3b,
+                                     yi_9b)

@@ -239,6 +239,8 @@ cudaError_t launch_dtype(int hd, const void* q, const void* k, const void* v,
     case 16: return launch<T, 16>(q, k, v, kv_pos, out, B, Sq, Skv, Hq, Hkv, st, q_offset, causal, window, softcap, s);
     case 32: return launch<T, 32>(q, k, v, kv_pos, out, B, Sq, Skv, Hq, Hkv, st, q_offset, causal, window, softcap, s);
     case 64: return launch<T, 64>(q, k, v, kv_pos, out, B, Sq, Skv, Hq, Hkv, st, q_offset, causal, window, softcap, s);
+    case 96: return launch<T, 96>(q, k, v, kv_pos, out, B, Sq, Skv, Hq, Hkv, st, q_offset, causal, window, softcap, s);
+    case 112: return launch<T, 112>(q, k, v, kv_pos, out, B, Sq, Skv, Hq, Hkv, st, q_offset, causal, window, softcap, s);
     case 128: return launch<T, 128>(q, k, v, kv_pos, out, B, Sq, Skv, Hq, Hkv, st, q_offset, causal, window, softcap, s);
     case 256: return launch<T, 256>(q, k, v, kv_pos, out, B, Sq, Skv, Hq, Hkv, st, q_offset, causal, window, softcap, s);
     default: return cudaErrorInvalidValue;
@@ -275,6 +277,8 @@ extern "C" int flash_attention_attrs(int hd, int* out) {
     case 16: return REPRO_ATTRS(16);
     case 32: return REPRO_ATTRS(32);
     case 64: return REPRO_ATTRS(64);
+    case 96: return REPRO_ATTRS(96);
+    case 112: return REPRO_ATTRS(112);
     case 128: return REPRO_ATTRS(128);
     case 256: return REPRO_ATTRS(256);
     default: return cudaErrorInvalidValue;

@@ -30,6 +30,9 @@
 // rows, mma.sync would pad them to 16 and do 4-8x the arithmetic for the
 // same bytes, and FMA issue is not the limit.
 //
+// Head dims: 16, 32, 64, 96, 112, 128 and 256 (multiples of 8: 16-byte
+// copies and dot products in steps of 8).
+//
 // Layouts: q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd), any strides with the
 // last dim contiguous and rows 16-byte aligned; kv_pos (Skv,) int32 or null
 // (iota); partials o (B, Sq*Hq, n_split, hd), m and l (B, Sq*Hq, n_split),
@@ -84,6 +87,7 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int NCP = HD / 2;              // column pairs of the output
   constexpr int RSTEP = kThreads / NCP;    // threads sharing a column pair
   constexpr int NR = kRows / RSTEP;        // output rows per thread at most
+  static_assert(RSTEP >= 1 && kRows % RSTEP == 0, "head dim: rows split evenly over threads");
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
   float* sc = reinterpret_cast<float*>(smem + L::q_bytes);
@@ -135,7 +139,10 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float acc[NR][2];
 #pragma unroll
   for (int i = 0; i < NR; ++i) acc[i][0] = acc[i][1] = 0.f;
+  // at hd 96 and 112, 48 and 56 column pairs do not divide 128 threads: the
+  // 32 and 16 threads past RSTEP x NCP take no part in the PV product
   const int cp = tid % NCP, rg = tid / NCP;
+  const bool pv_thread = rg < RSTEP;
 
   int cur = next_tile(split * tiles_per_split), st = 0;
   if (cur < t_end) load(cur, 0);
@@ -203,7 +210,7 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < NR; ++i) {
       const int r = rg + RSTEP * i;
-      if (r >= R) break;
+      if (!pv_thread || r >= R) break;
       const float* pr = sc + r * L::SS;
       // even and odd keys in separate sums: half-length FMA chains
       float a[2][2] = {{acc[i][0] * c_s[r], acc[i][1] * c_s[r]}, {0.f, 0.f}};
@@ -228,7 +235,7 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < NR; ++i) {
     const int r = rg + RSTEP * i;
-    if (r < R) {
+    if (pv_thread && r < R) {
       const long long row = row0 + (r / G) * Hq + hkv * G + r % G;
       *reinterpret_cast<float2*>(o_part + (row * n_split + split) * HD + 2 * cp) =
           make_float2(acc[i][0], acc[i][1]);
@@ -341,6 +348,8 @@ extern "C" int flash_split_kv_launch(
     case 16: return REPRO_SPLIT(16);
     case 32: return REPRO_SPLIT(32);
     case 64: return REPRO_SPLIT(64);
+    case 96: return REPRO_SPLIT(96);
+    case 112: return REPRO_SPLIT(112);
     case 128: return REPRO_SPLIT(128);
     case 256: return REPRO_SPLIT(256);
     default: return cudaErrorInvalidValue;
@@ -359,6 +368,8 @@ extern "C" int flash_split_kv_attrs(int hd, int* out) {
     case 16: return REPRO_ATTRS(16);
     case 32: return REPRO_ATTRS(32);
     case 64: return REPRO_ATTRS(64);
+    case 96: return REPRO_ATTRS(96);
+    case 112: return REPRO_ATTRS(112);
     case 128: return REPRO_ATTRS(128);
     case 256: return REPRO_ATTRS(256);
     default: return cudaErrorInvalidValue;

@@ -10,15 +10,22 @@
 // kv head each read its K/V, mostly from L2 (a prefill layer's K/V is a few
 // MB against 50 MB of L2).
 //
-// What bounds it on the H100: at the serving shapes (S 512, hd 128-256) a
-// layer is 4-9 GFLOP on 8-16 MB, hundreds of operations per byte, so the
+// What bounds it on the H100: at the serving shapes (S 512, hd 96-256) a
+// layer is 4-15 GFLOP on 8-16 MB, hundreds of operations per byte, so the
 // tensor cores. The products are warp-level mma.sync.m16n8k16 (bf16 in, f32
 // accumulators): S = Q K^T with Q and K fragments from ldmatrix (K stored
 // row-major is the col-major B operand), then O += P V with V through
 // ldmatrix.trans. The softmax stays in registers: S's accumulators are
 // scaled, softcapped (tanh) and masked in place, each row's max and sum are
-// reduced over the quad of lanes that holds it, and P is rounded to bf16 in
-// the accumulator layout, which is the A-operand layout of the PV product.
+// reduced over the quad of lanes that holds it, and P goes to the PV product
+// from the accumulator layout, which is the A-operand layout of mma.sync, as
+// two bf16 parts: hi = bf16(p) and lo = bf16(p - hi), each multiplied by the
+// same V fragments. The reference multiplies an f32 p by V. p rounded to
+// bf16 alone is off by up to 2^-9 of itself, and a few keys with large |v|
+// carry that into the output beside its own rounding: half a bf16 ulp, which
+// at |out| in [4, 8) is 1.5625e-2 and leaves 4.4e-3 of the 2e-2 limit.
+// hi + lo carries p to about 2^-17 of itself, for twice the PV products: 8-9 %
+// more time at the served prefill shapes on an H100 (PERF.md §6).
 // K/V tiles stream through a two-stage cp.async ring, so the next tile's
 // bytes are in flight during this tile's products. A tile is 64 keys, 32 at
 // hd 256: there 64 would need 169 KB of shared memory, one block (4 warps)
@@ -34,6 +41,10 @@
 // before it is loaded. Within a tile, a warp whose 16 rows see none of it
 // skips the products, and one whose rows see all of it skips the mask.
 // wgmma, TMA and warp specialisation are later work.
+//
+// Head dims: 16, 32, 64, 96, 112, 128 and 256. Each is a multiple of 16 (the
+// k-step of S = Q K^T, HD / 16 of them) with HD / 8 even (PV takes V's 8-wide
+// column tiles in pairs: 6 and 7 pairs at 96 and 112).
 //
 // Layouts: q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd), any strides with the
 // last dim contiguous and rows 16-byte aligned; out (B, Sq, Hq, hd)
@@ -73,6 +84,7 @@ flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int RS = L::RS, kBK = L::BK;
   constexpr int NT = kBK / 8;     // 8-key column tiles of S per warp
   constexpr int DT = HD / 8;      // 8-wide column tiles of O per warp
+  static_assert(HD % 16 == 0 && DT % 2 == 0, "head dim: k-steps of 16, column tiles in pairs");
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
   unsigned char* stages = smem + L::q_bytes;
@@ -222,13 +234,16 @@ flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         o[d][3] *= corr[1];
       }
 
-      // O += P V: P's accumulators, rounded to bf16, are the A fragments
+      // O += P V: P's accumulators, as bf16 parts hi and lo, are the A
+      // fragments; each V fragment is loaded once for both parts
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
-        const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        uint32_t a[4], al[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          a[i] = pack_bf16_split(s[2 * kk + (i >> 1)][2 * (i & 1)],
+                                 s[2 * kk + (i >> 1)][2 * (i & 1) + 1], al[i]);
+        }
 #pragma unroll
         for (int dp = 0; dp < DT / 2; ++dp) {
           uint32_t bv[4];
@@ -236,6 +251,8 @@ flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                 dp * 16 + (lane >> 4) * 8);
           mma_bf16(o[2 * dp], a, bv[0], bv[1]);
           mma_bf16(o[2 * dp + 1], a, bv[2], bv[3]);
+          mma_bf16(o[2 * dp], al, bv[0], bv[1]);
+          mma_bf16(o[2 * dp + 1], al, bv[2], bv[3]);
         }
       }
     }
@@ -306,6 +323,8 @@ extern "C" int flash_prefill_launch(
     case 16: return REPRO_PREFILL(16);
     case 32: return REPRO_PREFILL(32);
     case 64: return REPRO_PREFILL(64);
+    case 96: return REPRO_PREFILL(96);
+    case 112: return REPRO_PREFILL(112);
     case 128: return REPRO_PREFILL(128);
     case 256: return REPRO_PREFILL(256);
     default: return cudaErrorInvalidValue;
@@ -322,6 +341,8 @@ extern "C" int flash_prefill_attrs(int hd, int* out) {
     case 16: return REPRO_ATTRS(16);
     case 32: return REPRO_ATTRS(32);
     case 64: return REPRO_ATTRS(64);
+    case 96: return REPRO_ATTRS(96);
+    case 112: return REPRO_ATTRS(112);
     case 128: return REPRO_ATTRS(128);
     case 256: return REPRO_ATTRS(256);
     default: return cudaErrorInvalidValue;

@@ -1,7 +1,8 @@
 // Warp-level tensor-core helpers shared by the bf16 kernels that run on
 // mma.sync (flash_prefill.cu, gmm_prefill.cu): ldmatrix loads of four 8 x 8
 // bf16 tiles from shared memory, plain or transposed, the m16n8k16 product
-// with f32 accumulators, and the packing of two f32 values into a bf16 pair.
+// with f32 accumulators, and the packing of two f32 values into a bf16 pair
+// (or into a bf16 pair and the bf16 pair of what its rounding left out).
 #pragma once
 #include "common.cuh"
 
@@ -25,5 +26,14 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 }
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+// Two f32 values as a bf16 pair, returned, and what that rounding left out,
+// as a second bf16 pair in `rest`: (x - bf16(x)) is exact in f32, and its
+// bf16 carries x to about 2^-17 of itself.
+__device__ __forceinline__ uint32_t pack_bf16_split(float lo, float hi, uint32_t& rest) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  const float2 back = __bfloat1622float2(h);
+  rest = pack_bf16(lo - back.x, hi - back.y);
   return *reinterpret_cast<const uint32_t*>(&h);
 }

@@ -26,7 +26,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+# the head dims each kernel is built for (its switch in csrc/): 96 is
+# phi3-mini-3.8b's, 112 kimi-k2's
+HEAD_DIMS = (16, 32, 64, 96, 112, 128, 256)
 MAX_GROUP = 16          # query rows (Sq x G) of one kv head in one 16-row tile
 SPLIT_TILE = 64         # keys per tile of the split-KV kernel
 # blocks the split-KV grid aims for: two per SM of the H100's 132

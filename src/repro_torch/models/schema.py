@@ -187,9 +187,11 @@ class ModelParams(nn.Module):
         return getattr(self, key)
 
 
-# a leaf of more elements is drawn a leading slice at a time: grok-1's
-# stacked expert weights (6 x 8 x 6144 x 32768 at the 6 layers one card
-# serves) would need a 38.7 GB f32 draw beside their 19.3 GB in bf16
+# a leaf of more elements is drawn a slice at a time, along its first axis
+# longer than one: grok-1's stacked expert weights (6 x 8 x 6144 x 32768 at
+# the 6 layers one card serves) would need a 38.7 GB f32 draw beside their
+# 19.3 GB in bf16; kimi-k2's at one layer (1 x 384 x 7168 x 2048) 22.5 GB,
+# so they are drawn an expert at a time
 _DRAW_WHOLE = 1 << 32
 
 
@@ -207,11 +209,14 @@ def _init_leaf(d: ParamDef, generator: torch.Generator, device, dtype):
     scale = d.scale or 1.0 / math.sqrt(max(d.shape[0] if len(d.shape) == 1
                                            else d.shape[-2], 1))
     if math.prod(d.shape) > _DRAW_WHOLE:
-        # one leading slice at a time, so the f32 draw never holds the leaf
+        # one slice at a time along the first axis longer than one, so the
+        # f32 draw never holds the leaf
         out = torch.empty(d.shape, dtype=dtype, device=device)
-        for i in range(d.shape[0]):
-            out[i] = torch.randn(d.shape[1:], generator=generator,
-                                 device=device).mul_(scale)
+        axis = next((i for i, n in enumerate(d.shape) if n > 1), 0)
+        rows = out.view(-1, *d.shape[axis + 1:])
+        for i in range(rows.shape[0]):
+            rows[i] = torch.randn(d.shape[axis + 1:], generator=generator,
+                                  device=device).mul_(scale)
         return out
     x = torch.randn(d.shape, generator=generator, device=device)
     return (x.mul_(scale)).to(dtype)

@@ -24,9 +24,8 @@ pytestmark = pytest.mark.cuda
 # kernel vs plain on the card: f32 sum order; bf16 output rounding
 RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# bf16 flash where |ref| < 1: two bf16 ulps of [0.5, 1), one for the rounding
-# of P before the PV product and one for the output's (2e-2 admits one ulp
-# of outputs in [2, 4))
+# bf16 flash where |ref| < 1: two bf16 ulps of [0.5, 1), the kernel's output
+# rounding and the plain version's (2e-2 admits one ulp of outputs in [2, 4))
 FLASH_BF16_BULK = (8e-3, 1.0)
 # gmm: f32 sum order over D; bf16: the output is rounded once on both sides,
 # so they may differ by one bf16 ulp of the value (2**-7 relative)
@@ -46,11 +45,11 @@ def _t(rng, shape, dtype, dev):
     return torch.from_numpy(rng.standard_normal(shape)).to(dev, dtype)
 
 
-def _assert_flash_close(out, ref, dtype):
+def _assert_flash_close(out, ref, dtype, bulk=FLASH_BF16_BULK):
     o, r = out.float().cpu().numpy(), ref.float().cpu().numpy()
     np.testing.assert_allclose(o, r, atol=FLASH_TOL[dtype])
     if dtype == torch.bfloat16:
-        limit, below = FLASH_BF16_BULK
+        limit, below = bulk
         bulk = np.abs(r) < below
         np.testing.assert_allclose(o[bulk], r[bulk], atol=limit)
 
@@ -148,6 +147,11 @@ def test_rmsnorm_warp_kernel_makes_no_host_sync(cuda):
     (2, 8, 4, 100, 100, 256, True, 40, 50.0, 0, False),
     (2, 8, 4, 1, 64, 256, True, 0, 50.0, 40, True),
     (2, 8, 4, 1, 64, 128, True, 16, 50.0, 300, True),
+    # phi3's and kimi's head dims, 96 and 112: prefill, ragged, decode on a ring
+    (2, 4, 4, 100, 100, 96, True, 40, 50.0, 0, False),
+    (1, 8, 1, 33, 65, 112, True, 0, 0.0, 32, False),
+    (2, 8, 8, 1, 64, 96, True, 0, 0.0, 300, True),
+    (2, 16, 2, 1, 64, 112, True, 16, 30.0, 40, True),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda, case, dtype):
@@ -200,6 +204,14 @@ BF16_CASES = [
         (2, Hq, Hkv, 128, 128, 128, 0, cap, 0, None, "tensor_core"),
         (4, Hq, Hkv, 1, 1024, 128, 0, cap, 519, (519, 520), "split_kv"),
         (4, Hq, Hkv, 1, 1024, 128, 0, cap, 1500, (1500, None), "split_kv"))],
+    # phi3's and kimi's head dims on both bf16 kernels, then their groups as
+    # served: phi3 32 over 32 (MHA) at hd 96, kimi 64 over 8 at hd 112
+    *[(2, 4, 2, 96, 96, hd, 0, 50.0, 0, None, "tensor_core") for hd in (96, 112)],
+    *[(2, 8, 4, 1, 300, hd, 0, 50.0, 250, (250, 251), "split_kv") for hd in (96, 112)],
+    *[case for Hq, Hkv, hd in ((32, 32, 96), (64, 8, 112)) for case in (
+        (2, Hq, Hkv, 128, 128, hd, 0, 0.0, 0, None, "tensor_core"),
+        (4, Hq, Hkv, 1, 1024, hd, 0, 0.0, 519, (519, 520), "split_kv"),
+        (4, Hq, Hkv, 1, 1024, hd, 0, 0.0, 1500, (1500, None), "split_kv"))],
 ]
 
 
@@ -236,6 +248,41 @@ def test_flash_bf16_call_moves_exactly_one_counter(cuda, Sq, Hq, Hkv, kind):
     assert after[0] == before[0] + 1
     assert (after[1] - before[1], after[2] - before[2]) == \
         ((1, 0) if kind == "split_kv" else (0, 1))
+
+
+# served prefill shapes (batch 4, prompt 512): gemma2-2b's local layer (hd
+# 256, window 4096, softcap 50), phi3-mini-3.8b's (hd 96, 32 over 32) and
+# kimi-k2's (hd 112, 64 over 8): B, Hq, Hkv, hd, window, softcap
+LARGE_OUT_CASES = [(4, 8, 4, 256, 4096, 50.0), (4, 32, 32, 96, 0, 0.0), (4, 64, 8, 112, 0, 0.0)]
+# against the f32 plain version the bulk's error is the kernel's own output
+# rounding, half an ulp of [0.5, 1) (1.95e-3) when P reaches the PV product
+# whole; with P rounded to bf16 once it read 6.8e-3 to 7.1e-3 on an H100
+LARGE_OUT_BULK = (4e-3, 1.0)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,hd,window,cap", LARGE_OUT_CASES)
+def test_flash_prefill_holds_where_out_reaches_4(cuda, B, Hq, Hkv, hd, window, cap):
+    """v ~ N(0, 2^2), clipped to |v| <= 7.9, puts hundreds of outputs in [4,
+    8) (rows that see few keys; none reaches 8). The tensor-core kernel's
+    bf16 output is held to the plain version run on f32 copies of the same
+    bf16 inputs, the reference's arithmetic (an f32 p times an f32 v): its
+    own rounding costs up to half an ulp there, 1.5625e-2, within the 2e-2
+    limit, and the bulk (|ref| < 1) is held to 4e-3 (LARGE_OUT_BULK)."""
+    S = 512
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    q = torch.randn((B, S, Hq, hd), generator=gen, device=cuda).to(torch.bfloat16)
+    k = torch.randn((B, S, Hkv, hd), generator=gen, device=cuda).to(torch.bfloat16)
+    v = (torch.randn((B, S, Hkv, hd), generator=gen, device=cuda) * 2.0).clamp_(-7.9, 7.9)
+    v = v.to(torch.bfloat16)
+    kw = dict(causal=True, window=window, softcap=cap)
+    before = flash_attention.launches_tensor_core
+    out = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_tensor_core == before + 1
+    ref = chunked_attention(q.float(), k.float(), v.float(), **kw)
+    mag = ref.abs()
+    assert ((mag >= 4) & (mag < 8)).sum().item() >= 100 and mag.max().item() < 8
+    _assert_flash_close(out, ref, torch.bfloat16, bulk=LARGE_OUT_BULK)
 
 
 def test_flash_decode_makes_no_host_sync(cuda):
@@ -393,6 +440,42 @@ def test_gmm_at_grok_widths_matches_plain(cuda, step, proj):
     w = (torch.randn((len(sizes), D, F), generator=gen, device=cuda) * D ** -0.5).to(torch.bfloat16)
     gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
     kind = {"prefill": "tiled", "decode": "decode"}[step]
+    assert kernel_for(x, w) == kind
+    before = _gmm_counts()
+    out = gmm(x, w, gs)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_gmm_counts(), before)) == \
+        {"tiled": (1, 1, 0, 0), "decode": (1, 0, 1, 0)}[kind]
+    ref = gmm_ref(x, w, gs)
+    atol, rtol = GMM_TOL[torch.bfloat16]
+    excess = ((out.float() - ref.float()).abs() - rtol * ref.float().abs()).max().item()
+    assert excess <= atol, excess
+
+
+@pytest.mark.parametrize("kind,proj", [("tiled", "up"), ("tiled", "down"),
+                                       ("decode", "up"), ("decode", "down")])
+def test_gmm_at_kimi_experts_matches_plain(cuda, kind, proj):
+    """kimi-k2's expert FFN: 384 experts of 7168 -> 2048 (5.6e9 weights, 11.3
+    GB) and back, most groups empty: 2048 rows over 48 experts on the tiled
+    kernel, a decode step's 32 rows (batch 4, top-8) over 32 experts on the
+    decode kernel. Every block walks all 384 group sizes. Inputs are drawn on
+    the card."""
+    E = 384
+    D, F = (7168, 2048) if proj == "up" else (2048, 7168)
+    rng = np.random.default_rng(30)
+    sizes = np.zeros(E, np.int64)
+    if kind == "tiled":
+        sizes[rng.choice(E, 48, replace=False)] = rng.multinomial(2048, np.full(48, 1 / 48))
+    else:
+        for _ in range(4):
+            sizes[rng.choice(E, 8, replace=False)] += 1
+    sizes = sizes.tolist()
+    gen = torch.Generator(device=cuda).manual_seed(30)
+    x = torch.randn((sum(sizes), D), generator=gen, device=cuda).to(torch.bfloat16)
+    w = torch.empty((E, D, F), dtype=torch.bfloat16, device=cuda)
+    for e in range(E):
+        w[e] = torch.randn((D, F), generator=gen, device=cuda) * D ** -0.5
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
     assert kernel_for(x, w) == kind
     before = _gmm_counts()
     out = gmm(x, w, gs)
@@ -734,12 +817,13 @@ def test_remat_launches_the_kernels_again_and_keeps_the_grads(cuda, remat):
         np.testing.assert_allclose(g.cpu().numpy(), b.cpu().numpy(), rtol=1e-5, atol=1e-7)
 
 
-@pytest.mark.parametrize("arch", ["yi-9b", "grok-1-314b", "starcoder2-3b"])
+@pytest.mark.parametrize("arch", ["yi-9b", "grok-1-314b", "starcoder2-3b", "phi3-mini-3.8b",
+                                  "kimi-k2-1t-a32b"])
 @pytest.mark.parametrize("n_layers", [1, 2])
 def test_reduced_zoo_served_on_card_matches_cpu(cuda, arch, n_layers):
-    """The reduced yi-9b, grok-1 and starcoder2 (one layer, and a 2-layer
-    stack) serve the same greedy tokens on the card (the kernels; LayerNorm
-    and GELU plain) and on the CPU (the plain path)."""
+    """The reduced yi-9b, grok-1, starcoder2, phi3 and kimi (one layer, and a
+    2-layer stack) serve the same greedy tokens on the card (the kernels;
+    LayerNorm and GELU plain) and on the CPU (the plain path)."""
     import dataclasses
     from repro_torch.configs.registry import get_config
     from repro_torch.models.schema import init_params
@@ -747,6 +831,30 @@ def test_reduced_zoo_served_on_card_matches_cpu(cuda, arch, n_layers):
     cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=n_layers)
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     rng = np.random.default_rng(26)
+    prompts = [rng.integers(0, cfg.vocab_size, size=12) for _ in range(3)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(cfg, params.to(dev), batch_size=3, max_seq=64, device=dev)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(i, p, max_new_tokens=6))
+        outs[dev] = [r.output for r in eng.run_batch()]
+    assert outs["cuda"] == outs["cpu"]
+
+
+@pytest.mark.parametrize("arch,dims", [
+    ("phi3-mini-3.8b", dict(head_dim=96, d_model=384, n_kv_heads=4)),
+    ("kimi-k2-1t-a32b", dict(head_dim=112, d_model=448))])
+def test_reduced_zoo_at_real_head_dim_served_on_card_matches_cpu(cuda, arch, dims):
+    """phi3 and kimi reduced at their own head dims, 96 and 112 (f32: the FMA
+    flash kernel at those head dims), serve the same greedy tokens on the
+    card and on the CPU."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.schema import init_params
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = dataclasses.replace(get_config(arch).reduced(), **dims)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(31)
     prompts = [rng.integers(0, cfg.vocab_size, size=12) for _ in range(3)]
     outs = {}
     for dev in ("cpu", "cuda"):

@@ -1,15 +1,18 @@
-"""yi-9b, grok-1-314b and starcoder2-3b in the port against the JAX package,
-on the CPU, on the same weights: the JAX ``init_params`` pytree is carried
-across with ``params_from_numpy``, and inputs are drawn with numpy from a
-seed.
+"""yi-9b, grok-1-314b, starcoder2-3b, phi3-mini-3.8b and kimi-k2-1t-a32b in
+the port against the JAX package, on the CPU, on the same weights: the JAX
+``init_params`` pytree is carried across with ``params_from_numpy``, and
+inputs are drawn with numpy from a seed.
 
 Each arch runs at its ``reduced()`` config (one layer of its one-block
 pattern) and at a 2-layer stack of it (``n_repeat`` 2, so weights and caches
 are stacked). The reduced configs keep each family's mechanism: grok's MoE
 in every layer and its softcaps of 30, starcoder2's LayerNorm, plain GELU
-MLP and ``rope_theta`` of 999,999.44. They keep 4 query heads over 2 kv
-heads, so the served group sizes (yi 8, grok 6, starcoder2 12) are held by
-the attention tests at the bottom of this file.
+MLP and ``rope_theta`` of 999,999.44, kimi's MoE in every layer. They keep 4
+query heads over 2 kv heads at head dim 64, so the served group sizes (yi
+8, grok 6, starcoder2 12, phi3 1, kimi 8) are held by the attention tests at
+the bottom of this file, and phi3 and kimi run a third layout at their real
+head dims, 96 and 112 (``REAL_HEAD_DIM``); kimi's 384 experts with top-8
+routing are held on one MoE layer.
 """
 import dataclasses
 
@@ -55,11 +58,19 @@ from repro_torch.train.trainer import Trainer  # noqa: E402
 from repro_torch.train.steps import (make_prefill_step, make_serve_step,  # noqa: E402
                                      make_train_step)
 
-ARCHS = ("yi-9b", "grok-1-314b", "starcoder2-3b")
+ARCHS = ("yi-9b", "grok-1-314b", "starcoder2-3b", "phi3-mini-3.8b", "kimi-k2-1t-a32b")
 # the reference's count_params at full size
 FULL_PARAMS = {"yi-9b": 8_829_407_232, "grok-1-314b": 316_489_340_928,
-               "starcoder2-3b": 3_180_705_792}
+               "starcoder2-3b": 3_180_705_792, "phi3-mini-3.8b": 3_821_079_552,
+               "kimi-k2-1t-a32b": 1_041_166_988_288}
 LAYOUTS = ("reduced", "stacked")
+# a third layout of the reduced config at the arch's own head dim, which
+# ``reduced()`` (d_model 256 over 4 heads) sets to 64: phi3's 96 with its 4
+# query heads over 4 kv heads (MHA, as phi3's 32 over 32), kimi's 112
+REAL_HEAD_DIM = {"phi3-mini-3.8b": dict(head_dim=96, d_model=384, n_kv_heads=4),
+                 "kimi-k2-1t-a32b": dict(head_dim=112, d_model=448)}
+MODEL_CASES = ([(arch, layout) for arch in ARCHS for layout in LAYOUTS]
+               + [(arch, "real_head_dim") for arch in REAL_HEAD_DIM])
 B, PROMPT, MAX_SEQ, DECODE_STEPS = 2, 12, 32, 6
 # f32 on the CPU, as tests/test_torch_model.py: the two frameworks differ
 # only in matmul and transcendental rounding, which grows through the layers
@@ -72,12 +83,18 @@ HIDDEN_ATOL = 1e-4
 # loss and grad norm measured within 1.9e-6 everywhere: 6e-6. Weights: AdamW
 # moves a weight by about lr m / sqrt(v) whatever its gradient's size, so a
 # gradient that cancels to a small part of its terms carries their rounding
-# into a step of up to ~lr. Measured: the reduced models under 3.9e-5; the
-# stacks 1.30e-4 (yi w_gate), 3.7e-5 (grok we_up), 1.32e-4 (starcoder2 wq)
+# into a step of up to ~lr. Measured: the reduced models under 3.9e-5 (kimi
+# 4.9e-5, we_up); the stacks 1.30e-4 (yi w_gate), 3.7e-5 (grok we_up),
+# 1.32e-4 (starcoder2 wq), 1.30e-4 (phi3 w_gate, at 2.3x as yi's), 4.7e-5
+# (kimi wo); at the real head dims 7.1e-5 (phi3 w_gate), 8.3e-5 (kimi wq)
 STEP_METRIC_ATOL = 6e-6
 STEP_PARAM_ATOL = {("yi-9b", "reduced"): 1.5e-4, ("yi-9b", "stacked"): 3e-4,
                    ("grok-1-314b", "reduced"): 1.5e-4, ("grok-1-314b", "stacked"): 1.5e-4,
-                   ("starcoder2-3b", "reduced"): 1.5e-4, ("starcoder2-3b", "stacked"): 3e-4}
+                   ("starcoder2-3b", "reduced"): 1.5e-4, ("starcoder2-3b", "stacked"): 3e-4,
+                   ("phi3-mini-3.8b", "reduced"): 1.5e-4, ("phi3-mini-3.8b", "stacked"): 3e-4,
+                   ("phi3-mini-3.8b", "real_head_dim"): 2.5e-4,
+                   ("kimi-k2-1t-a32b", "reduced"): 1.5e-4, ("kimi-k2-1t-a32b", "stacked"): 1.5e-4,
+                   ("kimi-k2-1t-a32b", "real_head_dim"): 3e-4}
 
 
 def _cfgs(arch, layout):
@@ -85,6 +102,9 @@ def _cfgs(arch, layout):
     if layout == "stacked":
         jcfg = dataclasses.replace(jcfg, n_layers=2 * len(jcfg.pattern))
         cfg = dataclasses.replace(cfg, n_layers=2 * len(cfg.pattern))
+    elif layout == "real_head_dim":
+        jcfg = dataclasses.replace(jcfg, **REAL_HEAD_DIM[arch])
+        cfg = dataclasses.replace(cfg, **REAL_HEAD_DIM[arch])
     return jcfg, cfg
 
 
@@ -132,6 +152,18 @@ def test_config_copy_matches_reference(arch):
     assert count_params(cfg) == jax_schema.count_params(jcfg) == FULL_PARAMS[arch]
 
 
+def test_kimi_cut_served_on_one_card():
+    """The depth chip_smoke.py serves: one of kimi-k2's 61 layers (one period
+    of its pattern) is 19.38B weights, 38.8 GB in bf16; two would be 72.8 GB,
+    more than grok's 7 layers (72.1 GB), which leave too little of an 80 GB
+    card to serve in."""
+    cfg, jcfg = get_config("kimi-k2-1t-a32b"), jax_get_config("kimi-k2-1t-a32b")
+    assert cfg.pattern == (("attn", "moe"),)
+    for n, want in ((1, 19_378_623_488), (2, 36_408_429_568)):
+        cut, jcut = (dataclasses.replace(c, n_layers=n) for c in (cfg, jcfg))
+        assert count_params(cut) == jax_schema.count_params(jcut) == want
+
+
 def test_grok_cut_served_on_one_card():
     """The depth chip_smoke.py serves: 6 of grok's 64 layers fit one 80 GB
     card in bf16 (62.3 GB), 7 do not leave room to serve (72.1 GB)."""
@@ -175,6 +207,23 @@ def test_large_leaf_drawn_a_slice_at_a_time():
     assert sliced.dtype == torch.bfloat16 and sliced.shape == whole.shape
     assert torch.equal(sliced, want.to(torch.bfloat16))
     assert abs(whole.std().item() - 40 ** -0.5) < 0.02
+
+
+def test_large_leaf_of_one_layer_drawn_a_slice_at_a_time():
+    """With one layer the leading (layer) axis has one slice: the draw goes
+    along the next axis, the experts, as kimi-k2's (1, 384, 7168, 2048)."""
+    from repro_torch.models import schema
+    d = schema.ParamDef((1, 3, 40, 50))
+    old = schema._DRAW_WHOLE
+    schema._DRAW_WHOLE = 2500
+    try:
+        sliced = schema._init_leaf(d, torch.Generator().manual_seed(2), "cpu", torch.bfloat16)
+    finally:
+        schema._DRAW_WHOLE = old
+    g = torch.Generator().manual_seed(2)
+    want = torch.stack([torch.randn((40, 50), generator=g) * 40 ** -0.5 for _ in range(3)])
+    assert sliced.shape == (1, 3, 40, 50)
+    assert torch.equal(sliced[0], want.to(torch.bfloat16))
 
 
 # ---------------------------------------------------------------------------
@@ -251,8 +300,7 @@ def test_gelu_mlp_block_matches_reference(dtype):
 # ---------------------------------------------------------------------------
 # the whole model: serving, the train forward, three AdamW steps
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("layout", LAYOUTS)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,layout", MODEL_CASES)
 def test_prefill_and_decode_match_reference(arch, layout):
     jcfg, jparams, cfg, params = _models(arch, layout)
     tokens = np.random.default_rng(2).integers(0, cfg.vocab_size, size=(B, PROMPT))
@@ -276,8 +324,7 @@ def test_prefill_and_decode_match_reference(arch, layout):
     _check_cache(cache, jcache)
 
 
-@pytest.mark.parametrize("layout", LAYOUTS)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,layout", MODEL_CASES)
 def test_train_forward_matches_reference(arch, layout):
     """Cacheless full-sequence forward; 12 keys cross the reduced config's
     8-key attention chunk. grok's aux loss (its MoE layers') is held too."""
@@ -293,8 +340,7 @@ def test_train_forward_matches_reference(arch, layout):
     assert (aux.item() > 0) == (cfg.n_experts > 0)
 
 
-@pytest.mark.parametrize("layout", LAYOUTS)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,layout", MODEL_CASES)
 def test_three_adamw_steps_match_reference(arch, layout):
     jcfg, jparams, cfg, params = _models(arch, layout)
     params = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
@@ -317,8 +363,7 @@ def test_three_adamw_steps_match_reference(arch, layout):
                                    atol=STEP_PARAM_ATOL[arch, layout], err_msg=n)
 
 
-@pytest.mark.parametrize("layout", LAYOUTS)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,layout", MODEL_CASES)
 def test_greedy_tokens_match_reference_engine(arch, layout):
     jcfg, jparams, cfg, params = _models(arch, layout)
     rng = np.random.default_rng(0)
@@ -376,10 +421,14 @@ def _ring(L, written):
     return kpos
 
 
-# Hq over Hkv as served, at head dim 32 (the kernels take the head dim as a
-# template case; the grouping is what is new): yi 32/4, grok 48/8 with its
-# softcap, starcoder2 24/2. Groups of 6 and 12 are not powers of two.
-GROUPS = [("yi-9b", 32, 4, 0.0), ("grok-1-314b", 48, 8, 30.0), ("starcoder2-3b", 24, 2, 0.0)]
+# Hq over Hkv as served: yi 32/4, grok 48/8 with its softcap, starcoder2
+# 24/2, at head dim 32 (the kernels take the head dim as a template case; the
+# grouping is what is new); phi3 32/32 (MHA) and kimi 64/8 at their own head
+# dims, 96 and 112, which are new cases of the kernels. Groups of 6 and 12
+# are not powers of two.
+GROUPS = [("yi-9b", 32, 4, 0.0), ("grok-1-314b", 48, 8, 30.0), ("starcoder2-3b", 24, 2, 0.0),
+          ("phi3-mini-3.8b", 32, 32, 0.0), ("kimi-k2-1t-a32b", 64, 8, 0.0)]
+GROUP_HEAD_DIM = {"phi3-mini-3.8b": 96, "kimi-k2-1t-a32b": 112}
 
 
 @pytest.mark.parametrize("arch,Hq,Hkv,cap", GROUPS)
@@ -387,7 +436,9 @@ def test_plain_attention_at_served_groups_matches_pallas_flash(arch, Hq, Hkv, ca
     """Prefill: the plain path against the Pallas kernel in interpret mode."""
     cfg = get_config(arch)
     assert (cfg.n_heads, cfg.n_kv_heads, cfg.attn_softcap) == (Hq, Hkv, cap)
-    q, k, v = _qkv(1, Hq, Hkv, 40, 40, 32, seed=Hq)
+    hd = GROUP_HEAD_DIM.get(arch, 32)
+    assert hd in (32, cfg.head_dim)
+    q, k, v = _qkv(1, Hq, Hkv, 40, 40, hd, seed=Hq)
     kw = dict(causal=True, window=0, softcap=cap, q_offset=0)
     pallas = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                   bq=32, bk=32, interpret=True, **kw))
@@ -405,7 +456,7 @@ def test_split_kv_at_served_groups_matches_jax_on_a_ring(arch, Hq, Hkv, cap):
     kernel's plain twin, at the split count the card uses for batch 4 and
     1024 slots, against the reference's chunked attention."""
     L, written = 256, 140
-    q, k, v = _qkv(2, Hq, Hkv, 1, L, 32, seed=Hkv)
+    q, k, v = _qkv(2, Hq, Hkv, 1, L, GROUP_HEAD_DIM.get(arch, 32), seed=Hkv)
     kpos = _ring(L, written)
     kw = dict(causal=True, window=0, softcap=cap, q_offset=written - 1)
     ref = np.asarray(jax_chunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
@@ -417,3 +468,40 @@ def test_split_kv_at_served_groups_matches_jax_on_a_ring(arch, Hq, Hkv, cap):
     for n in sorted({1, 2, min(n_split, 4)}):
         twin = split_kv_attention(t(q), t(k), t(v), n_split=n, kv_positions=t(kpos), **kw)
         np.testing.assert_allclose(twin.numpy(), ref, atol=2e-5, err_msg=f"{n} splits")
+
+
+# ---------------------------------------------------------------------------
+# kimi-k2's routing: 384 experts, top-8
+# ---------------------------------------------------------------------------
+def test_moe_at_kimi_experts_matches_reference():
+    """One MoE layer at kimi's 384 experts and top-8 over narrow widths and
+    10 tokens: 80 assignments, so most experts get no row and the grouped
+    matmul's groups are mostly empty. Weights and inputs are made as the
+    reference's own MoE tests make them (``tests/test_moe.py``: each leaf of
+    the layer's schema from ``_init_leaf`` with a folded key)."""
+    from repro.models.moe import _router as jax_router
+    from repro.models.moe import moe_local as jax_moe_local
+    from repro_torch.models.moe import _router, moe_local
+    full = get_config("kimi-k2-1t-a32b")
+    kw = dict(n_experts=full.n_experts, top_k=full.top_k)
+    jcfg = dataclasses.replace(jax_get_config("kimi-k2-1t-a32b").reduced(), **kw)
+    cfg = dataclasses.replace(full.reduced(), **kw)
+    assert (cfg.n_experts, cfg.top_k) == (384, 8)
+    sch = jax_schema.model_schema(jcfg)["dec"]["b0_moe"]
+    jp = {name: jax_schema._init_leaf(dataclasses.replace(d, shape=d.shape[1:]),
+                                      jax.random.fold_in(jax.random.PRNGKey(0), i), jnp.float32)
+          for i, (name, d) in enumerate(sch.items())}
+    p = {name: torch.from_numpy(np.array(v)) for name, v in jp.items()}
+    x = np.array(jax.random.normal(jax.random.PRNGKey(1), (2, 5, cfg.d_model)))
+    hf = x.reshape(-1, cfg.d_model)
+    jtop_p, jtop_i, jaux = jax_router(jcfg, jp, jnp.asarray(hf))
+    top_p, top_i, aux = _router(cfg, p, torch.from_numpy(hf))
+    np.testing.assert_array_equal(top_i.numpy(), np.asarray(jtop_i))
+    np.testing.assert_allclose(top_p.numpy(), np.asarray(jtop_p), atol=1e-6)
+    used = len(np.unique(top_i.numpy()))
+    assert used <= 80 < cfg.n_experts - used     # most of the 384 groups are empty
+    jy, jaux = jax_moe_local(jcfg, jp, jnp.asarray(x))
+    with torch.inference_mode():
+        y, aux = moe_local(cfg, p, torch.from_numpy(x))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=1e-5)
+    np.testing.assert_allclose(aux.item(), float(jaux), rtol=1e-6)
