@@ -143,7 +143,29 @@ Phases, each of which passes or ends the script with a non-zero exit:
      training forward runs the FMA flash kernel there). Prints step ms (CUDA
      events, median of steps 3-10), tokens/s, peak memory, and a profiled
      eleventh step split into the four kernels' forwards, the
-     plain-recompute backward of each op, cuBLAS and the optimizer.
+     plain-recompute backward of each op, cuBLAS and the optimizer;
+  6. search: HyperTrick's LM search through ``repro_torch.launch.tune.main``
+     (the thread backend: node threads that each train a trial phase by
+     phase through ``make_lm_objective`` and report after each phase).
+     6a: the CLI's defaults (yi-9b's reduced config in f32, batch 8 x 64
+     tokens, 12 workers on 4 node threads, 5 phases of 25 steps, r 0.25,
+     seed 0): no trial crashed, every trial 1 to 5 reports (5 when it
+     completed), every metric finite, the best above -ln(512), alpha in
+     (0, 1], and the launch counters at the steps taken times 3 RMSNorm
+     (block kernel) and 1 flash (FMA kernel) a step. Prints wall time,
+     occupancy, alpha, trial-steps/s, tokens/s and peak memory. 6b: the same
+     search on one node thread inside one CUDA-only profiler session (the
+     device's busy share): the same configurations by trial id, and every
+     (trial, phase) both runs trained within ``SEARCH_NODES_ATOL``. 6c: one
+     node, HyperTrick(w0 4, 3 phases, r 0.25, seed 0) at 4 steps a phase on
+     the card and on the CPU, every trial's weights drawn on the CPU: the
+     same trials, statuses and reports, metrics within TRAIN_ATOL +
+     TRAIN_RTOL * |cpu|; a differing decision prints each report's metric
+     and cut. 6d: searches of 4 workers on 2 node threads, 2 phases of 4
+     steps, at jamba (RMSNorm, flash, the prefill scan) and grok-1 (RMSNorm,
+     flash, the small gmm), their launch counts held as in 6a. Phase 2 holds
+     the block RMSNorm and the FMA flash kernel at the trial shapes, and
+     phase 4 times them there beside ``F.rms_norm`` and SDPA.
 Seconds per phase are printed as each ends. The last two lines are the
 kernels' JSON line and the result line.
 """
@@ -209,6 +231,23 @@ HYBRID_TRAIN_PATTERN = slice(3, 5)
 # grad norm within TRAIN_ATOL + TRAIN_RTOL * |cpu| (the f32 kernels sum in
 # another order than the plain versions; a loss is a mean over 128 tokens)
 REDUCED_TRAIN_STEPS, TRAIN_ATOL, TRAIN_RTOL = 3, 1e-5, 1e-5
+# phase 6: the search CLI's defaults (``repro_torch.launch.tune``: yi-9b, 12
+# workers on 4 node threads, 5 phases of 25 steps, HyperTrick at r 0.25, seed
+# 0); every trial trains the arch's reduced config (f32) at the LM
+# objective's batch 8 x 64 tokens, the reference's trial shape
+SEARCH_W0, SEARCH_NODES, SEARCH_PHASES, SEARCH_STEPS, SEARCH_R = 12, 4, 5, 25, 0.25
+SEARCH_BATCH, SEARCH_SEQ = 8, 64
+# 6b: each (trial, phase) metric of the 4-thread search against the 1-thread
+# one; a trial's numbers depend on its hyperparameters alone
+SEARCH_NODES_ATOL = 0.0
+# 6c: one node, HyperTrick(lm_space, w0 4, 3 phases, r 0.25, seed 0), 4 steps
+# a phase, on the card and on the CPU from one CPU draw of the weights; each
+# phase's metric within TRAIN_ATOL + TRAIN_RTOL * |cpu|
+SEARCH_DEV_W0, SEARCH_DEV_PHASES, SEARCH_DEV_STEPS = 4, 3, 4
+# 6d: small searches of the archs whose reduced configs run the scan (jamba)
+# and the grouped matmul (grok-1), 4 workers on 2 node threads
+SEARCH_KERNEL_ARGV = ["--workers", "4", "--nodes", "2", "--phases", "2",
+                      "--steps-per-phase", "4"]
 
 
 def log(*a):
@@ -231,29 +270,34 @@ def cuda_ms(fn, iters=20, warmup=3):
 
 def device_kernels(prof, required=True, skip_lead_in=False):
     """The profiler's device-side events (kernels, copies, sets) summed by
-    key, as ``key_averages`` sums them: ``.key``, ``.count`` and
-    ``.self_device_time_total`` (µs). With ``skip_lead_in``, a session's lead-in
-    (``lead_in``) is left out by its place in the trace: it ran on a stream
-    of its own, and only the events on the stream of the session's last
-    event are kept."""
+    name, as ``key_averages`` sums them: ``.key``, ``.count`` and
+    ``.self_device_time_total`` (µs). Read from the profiler's raw kineto
+    events: a session over a whole search holds over a million kernels,
+    and building the profiler's Python record of each takes minutes. A
+    range's span on the device (``record_function``'s) is no kernel and is
+    left out. With ``skip_lead_in``, a session's lead-in (``lead_in``) is
+    left out by its place in the trace: it ran on a stream of its own, and
+    only the events on the stream of the session's last event are kept."""
     from torch.autograd import DeviceType
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    evs = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()]
     if skip_lead_in and evs:
-        stream = max(evs, key=lambda e: e.time_range.end).device_resource_id
-        timed = [e for e in evs if e.device_resource_id == stream]
+        stream = max(evs, key=lambda e: e.end_ns()).device_resource_id()
+        timed = [e for e in evs if e.device_resource_id() == stream]
         # nothing but the lead-in's fills runs on another stream
         assert len(evs) - len(timed) <= LEAD_IN, (len(evs) - len(timed), LEAD_IN)
         evs = timed
     sums = {}
     for e in evs:
-        n, us = sums.get(e.key, (0, 0.0))
-        sums[e.key] = (n + 1, us + e.self_device_time_total)
+        n, us = sums.get(e.name(), (0, 0.0))
+        sums[e.name()] = (n + 1, us + e.duration_ns() / 1e3)
     kern = [Kernel(k, n, us) for k, (n, us) in sums.items()]
     assert kern or not required, "the profiler saw no device time"
     return kern
 
 
 Kernel = collections.namedtuple("Kernel", "key count self_device_time_total")
+
 
 # A profiler session on an H100 drops the first one or two kernel events
 # it would record, now and then or every time: an L2 flush's memset, a
@@ -522,6 +566,7 @@ def main() -> int:
         for op in kernel_ops.values():
             op.launches = 0
         flash_attention.launches_split_kv = flash_attention.launches_tensor_core = 0
+        flash_attention.launches_fma = 0
         gmm.launches_tiled = gmm.launches_decode = gmm.launches_small = 0
         rmsnorm.launches_warp = rmsnorm.launches_block = 0
         selective_scan.launches_prefill = selective_scan.launches_sequential = 0
@@ -674,7 +719,8 @@ def main() -> int:
 
     def flash_counts():
         return {"split_kv": flash_attention.launches_split_kv,
-                "tensor_core": flash_attention.launches_tensor_core}
+                "tensor_core": flash_attention.launches_tensor_core,
+                "fma": flash_attention.launches_fma}
 
     def flash_case(label, B, Hq, Hkv, Sq, Skv, hd, causal, window, cap, dt,
                    q_offset, kv_pos=None, want=None):
@@ -726,7 +772,7 @@ def main() -> int:
         assert kind == "tensor_core", (zname, kind)
         out = flash_attention(q, k, v, **kw)
         moved = {n: c - before[n] for n, c in flash_counts().items()}
-        assert moved == {"split_kv": 0, "tensor_core": 1}, (zname, moved)
+        assert moved == {"split_kv": 0, "tensor_core": 1, "fma": 0}, (zname, moved)
         ref = chunked_attention(q.float(), k.float(), v.float(), **kw)
         mag = ref.abs()
         band = (mag >= 4) & (mag < 8)
@@ -1077,6 +1123,16 @@ def main() -> int:
         served_on_card_and_cpu(f"{zname} reduced at hd {dims['head_dim']}",
                                dataclasses.replace(get_config(zname).reduced(), **dims))
 
+    # the search's trial shapes: yi-9b reduced in f32 at batch 8 x 64 tokens
+    # (the block RMSNorm, the FMA flash kernel)
+    trial_cfg = get_config(YI).reduced()
+    rms_case(f"the search's trial rows ({SEARCH_BATCH}, {SEARCH_SEQ}, {trial_cfg.d_model}) f32",
+             t(SEARCH_BATCH, SEARCH_SEQ, trial_cfg.d_model), t(trial_cfg.d_model) + 1.0,
+             want="block")
+    flash_case(f"the search's trial B{SEARCH_BATCH} S{SEARCH_SEQ}", SEARCH_BATCH,
+               trial_cfg.n_heads, trial_cfg.n_kv_heads, SEARCH_SEQ, SEARCH_SEQ,
+               trial_cfg.head_dim, True, 0, 0.0, torch.float32, 0, want="fma")
+
     phase_done("2 kernels vs plain")
 
     # -- 3. serve ------------------------------------------------------------
@@ -1139,7 +1195,8 @@ def main() -> int:
         # bf16 attention: the tensor-core kernel at prefill, split-KV at decode
         n_attn = expect["flash_attention"]
         assert by_kernel == {"split_kv": n_attn * steps["decode"],
-                             "tensor_core": n_attn * steps["prefill"]}, (by_kernel, steps)
+                             "tensor_core": n_attn * steps["prefill"], "fma": 0}, (
+            by_kernel, steps)
         log(f"[serve] flash per forward: {n_attn} tensor-core calls per prefill, "
             f"{n_attn} split-KV calls per decode step")
         # bf16 grouped matmul: the tiled kernel at prefill, the decode one at
@@ -1374,16 +1431,17 @@ def main() -> int:
 
     # -- 4. times at the serving shapes --------------------------------------
     flush = L2Flush()
+    dtype_name = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
-    def rms_times(rows, D):
+    def rms_times(rows, D, dtype=torch.bfloat16):
         """The serving kernel's row, with the block kernel timed on the same
-        inputs past the dispatch."""
-        x = t(rows, D, dtype=torch.bfloat16)
-        sc = (t(D) + 1.0).to(torch.bfloat16)
-        nbytes = 2 * x.numel() * 2 + sc.numel() * 2
-        b_ms, b_by, _ = bound(nbytes, 4 * x.numel(), "bfloat16")
+        inputs past the dispatch where the warp kernel serves."""
+        x = t(rows, D, dtype=dtype)
+        sc = (t(D) + 1.0).to(dtype)
+        nbytes = 2 * x.numel() * x.element_size() + sc.numel() * sc.element_size()
+        b_ms, b_by, _ = bound(nbytes, 4 * x.numel(), str(dtype).split(".")[-1])
         kind = rms_kernel_for(x, sc)
-        res = {"shape": f"({rows}, {D}) bf16", "kernel": kind,
+        res = {"shape": f"({rows}, {D}) {dtype_name[dtype]}", "kernel": kind,
                "ms": device_ms(lambda: rmsnorm(x, sc), flush),
                "event_ms": cuda_ms(lambda: rmsnorm(x, sc)),
                "plain_ms": device_ms(lambda: rmsnorm_ref(x, sc), flush),
@@ -1396,10 +1454,10 @@ def main() -> int:
                 lambda: rms_launch("block", x, sc, o, rows, D, 1e-6), flush)
         return res
 
-    def flash_times(acfg, Sq, Skv, q_offset, kv_pos, window):
-        B, Hq, Hkv, hd = BATCH, acfg.n_heads, acfg.n_kv_heads, acfg.head_dim
-        q = t(B, Sq, Hq, hd, dtype=torch.bfloat16)
-        k, v = t(B, Skv, Hkv, hd, dtype=torch.bfloat16), t(B, Skv, Hkv, hd, dtype=torch.bfloat16)
+    def flash_times(acfg, Sq, Skv, q_offset, kv_pos, window, dtype=torch.bfloat16, B=BATCH):
+        Hq, Hkv, hd = acfg.n_heads, acfg.n_kv_heads, acfg.head_dim
+        q = t(B, Sq, Hq, hd, dtype=dtype)
+        k, v = t(B, Skv, Hkv, hd, dtype=dtype), t(B, Skv, Hkv, hd, dtype=dtype)
         kp = None if kv_pos is None else torch.as_tensor(kv_pos, dtype=torch.int32, device=dev)
         kpos = np.arange(Skv) if kv_pos is None else np.asarray(kv_pos)
         qpos = q_offset + np.arange(Sq)
@@ -1410,14 +1468,16 @@ def main() -> int:
         # K/V of a slot no query attends to (unwritten, or masked for all) is
         # never read: the kernel skips such tiles before loading them
         read = int(valid.any(axis=0).sum())
-        nbytes = 2 * (2 * q.numel() + 2 * B * Hkv * hd * read) + (4 * Skv if kp is not None else 0)
-        b_ms, b_by, _ = bound(nbytes, flops, "bfloat16")
+        nbytes = q.element_size() * (2 * q.numel() + 2 * B * Hkv * hd * read) + (
+            4 * Skv if kp is not None else 0)
+        b_ms, b_by, _ = bound(nbytes, flops, str(dtype).split(".")[-1])
         cap = acfg.attn_softcap
         kw = dict(causal=True, window=window, softcap=cap, q_offset=q_offset)
         # a split-KV call is its split kernel and its combine kernel
         by_kernel = device_ms_by_kernel(lambda: flash_attention(q, k, v, kv_pos=kp, **kw),
                                         flush)
-        res = {"shape": f"B{B} Sq{Sq} Skv{Skv} Hq{Hq} Hkv{Hkv} hd{hd} bf16 w{window} cap{cap}",
+        res = {"shape": f"B{B} Sq{Sq} Skv{Skv} Hq{Hq} Hkv{Hkv} hd{hd} {dtype_name[dtype]} "
+                        f"w{window} cap{cap}",
                "kernel": kernel_for(q.dtype, Sq, Hq, Hkv),
                "ms": sum(by_kernel.values()), "by_kernel_ms": by_kernel,
                "event_ms": cuda_ms(lambda: flash_attention(q, k, v, kv_pos=kp, **kw)),
@@ -1569,6 +1629,16 @@ def main() -> int:
                                             beside=(), plain_iters=3)
                 for step in ("prefill", "decode")
                 for proj, dims in (("up", (kd, kf)), ("down", (kf, kd)))}
+    # the search's trial shapes (yi-9b reduced in f32, batch 8 x 64 tokens):
+    # a training step's forward launches the FMA flash kernel once and the
+    # block RMSNorm three times
+    fa_search = flash_times(trial_cfg, SEARCH_SEQ, SEARCH_SEQ, 0, None, 0, torch.float32,
+                            SEARCH_BATCH)
+    rms_search = rms_times(SEARCH_BATCH * SEARCH_SEQ, trial_cfg.d_model, torch.float32)
+    assert (fa_search["kernel"], rms_search["kernel"]) == ("fma", "block"), (
+        fa_search["kernel"], rms_search["kernel"])
+    log(f"[times] the search's trial shapes: flash {json.dumps(fa_search)}; rmsnorm "
+        f"{json.dumps(rms_search)}")
     log(f"[profile] phase 4's profiler sessions: {SESSIONS}")
     phase_done("4 times")
 
@@ -1706,7 +1776,8 @@ def main() -> int:
         assert sum(losses[-3:]) / 3 < losses[0], f"{tcfg.name}: the loss did not fall"
         for name, n in expect.items():
             assert launches[name] == n * TRAIN_STEPS, (name, launches[name], n * TRAIN_STEPS)
-        assert by[0] == {"split_kv": 0, "tensor_core": expect["flash_attention"] * TRAIN_STEPS}
+        assert by[0] == {"split_kv": 0, "tensor_core": expect["flash_attention"] * TRAIN_STEPS,
+                         "fma": 0}
         assert by[1] == {"tiled": expect["gmm"] * TRAIN_STEPS, "decode": 0, "small": 0}
         assert by[2] == {"warp": expect["rmsnorm"] * TRAIN_STEPS, "block": 0}
         assert by[3] == {"prefill": expect["selective_scan"] * TRAIN_STEPS, "sequential": 0}
@@ -1751,15 +1822,219 @@ def main() -> int:
         paths[f"train {tcfg.name}-{tcfg.n_layers}L"] = path
     phase_done("5 train")
 
+    # -- 6. search ------------------------------------------------------------
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.completion import expected_alpha
+    from repro_torch.core.executor import ThreadCluster
+    from repro_torch.core.hypertrick import HyperTrick, dcm_threshold
+    from repro_torch.core.search_space import lm_space
+    from repro_torch.launch import tune
+    from repro_torch.train.trainer import make_lm_objective
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def all_counts():
+        """The launch counters, and how many calls each kernel served."""
+        return ({name: op.launches for name, op in kernel_ops.items()},
+                flash_counts(),
+                gmm_counts(), rms_counts(), scan_counts())
+
+    def trial_table(res):
+        """{trial id: (hparams, status, [metric a phase])} of a search."""
+        return {tr.trial_id: (tr.hparams, tr.status.value, [m for m, _ in tr.reports])
+                for tr in res.service.db.trials.values()}
+
+    def search(label, argv, arch, w0, phases, steps_per_phase, profiled=False, bar=False):
+        """``tune.main(argv)`` on the card. No trial may crash; each trial
+        reports 1 to ``phases`` times, all of them when it completed, every
+        metric finite; with ``bar`` the best beats a uniform guess
+        (-ln vocab). The launch counters must read the steps the trials took
+        times ``per_forward`` of the arch's reduced config, each on the f32
+        kernels (block RMSNorm, FMA flash, the prefill scan, the small gmm).
+        With ``profiled`` the search runs in one CUDA-only profiler session,
+        whose summed kernel time over the search's wall time is the device's
+        busy share."""
+        rcfg = get_config(arch).reduced()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if profiled:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                lead_in()
+                res = tune.main(argv)
+                torch.cuda.synchronize()
+                stopped = time.perf_counter()
+            stop_s = time.perf_counter() - stopped
+        else:
+            res = tune.main(argv)
+            torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches, fa_by, gmm_by, rms_by, scan_by = all_counts()
+        summary, table = res.summary(), trial_table(res)
+        assert summary["n_trials"] == w0 and len(table) == w0, (label, summary)
+        assert "crashed" not in summary["by_status"], (label, summary["by_status"])
+        for tid, (hp, status, ms) in table.items():
+            assert status in ("completed", "killed"), (label, tid, status)
+            assert 1 <= len(ms) <= phases and (status != "completed" or len(ms) == phases), (
+                label, tid, status, ms)
+            assert all(math.isfinite(m) for m in ms), (label, tid, ms)
+        assert 0 < summary["alpha"] <= 1, (label, summary["alpha"])
+        if bar:
+            assert summary["best_metric"] > -math.log(rcfg.vocab_size), (label, summary)
+        steps = steps_per_phase * sum(len(ms) for _, _, ms in table.values())
+        expect = per_forward(rcfg)
+        log(f"[search] {label}: {steps} trial-steps, launches {launches}, flash by kernel "
+            f"{fa_by}, gmm by kernel {gmm_by}, rmsnorm by kernel {rms_by}, selective_scan by "
+            f"kernel {scan_by}; per step {expect}")
+        for name, n in expect.items():
+            assert launches[name] == n * steps, (label, name, launches[name], n * steps)
+        assert fa_by == {"split_kv": 0, "tensor_core": 0,
+                         "fma": expect["flash_attention"] * steps}, (label, fa_by)
+        assert rms_by == {"warp": 0, "block": expect["rmsnorm"] * steps}, (label, rms_by)
+        assert gmm_by == {"tiled": 0, "decode": 0, "small": expect["gmm"] * steps}, (label, gmm_by)
+        assert scan_by == {"prefill": expect["selective_scan"] * steps, "sequential": 0}, (
+            label, scan_by)
+        wall = res.wall_time
+        out = {"search": label, "arch": rcfg.name, "argv": argv, "trials": w0,
+               "nodes": res.n_nodes, "phases": phases, "steps_per_phase": steps_per_phase,
+               "batch": SEARCH_BATCH, "seq": SEARCH_SEQ, "wall_s": wall, "run_s": run_s,
+               "occupancy": res.occupancy, "alpha": res.service.db.completion_rate(phases),
+               "expected_alpha": expected_alpha(SEARCH_R, phases),
+               "by_status": summary["by_status"], "best_metric": summary["best_metric"],
+               "trial_steps": steps, "trial_steps_per_s": steps / wall,
+               "tokens_per_s": steps * SEARCH_BATCH * SEARCH_SEQ / wall,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches_per_step": expect}
+        if profiled:
+            t0 = time.perf_counter()
+            kern = device_kernels(prof, skip_lead_in=True)
+            busy_ms = sum(a.self_device_time_total for a in kern) / 1e3
+            out.update(device_busy_ms=busy_ms, profiled_wall_s=wall,
+                       profiler_stop_s=stop_s, profiler_read_s=time.perf_counter() - t0,
+                       device_busy_share=busy_ms / 1e3 / wall,
+                       device_kernels=sum(a.count for a in kern),
+                       port_kernel_ms=sum(a.self_device_time_total for a in kern
+                                          if is_port_kernel(a.key)) / 1e3)
+            for a in sorted(kern, key=lambda a: -a.self_device_time_total)[:8]:
+                log(f"[profile]   {a.self_device_time_total / 1e3:9.3f} ms {a.count:7d}x "
+                    f"{a.key[:90]}")
+        log(f"[search] {smi}: " + json.dumps(out))
+        return (launches, expect, steps, fa_by, gmm_by, rms_by, scan_by), out, res
+
+    searches = {}
+    # 6a: the CLI's defaults, 4 node threads, without the profiler
+    path, searches["6a"], res_4 = search(
+        f"6a {YI}, {SEARCH_NODES} nodes", [], YI, SEARCH_W0, SEARCH_PHASES, SEARCH_STEPS,
+        bar=True)
+    paths[f"search {YI} {SEARCH_NODES} nodes"] = path
+    phase_done("6a search, 4 node threads")
+
+    # 6b: the same search on one node thread, in one profiler session: the
+    # same configurations by trial id (one numpy stream), and every (trial,
+    # phase) both trained within SEARCH_NODES_ATOL
+    path, searches["6b"], res_1 = search(
+        f"6b {YI}, 1 node", ["--nodes", "1"], YI, SEARCH_W0, SEARCH_PHASES, SEARCH_STEPS,
+        profiled=True, bar=True)
+    paths[f"search {YI} 1 node"] = path
+    t4, t1 = trial_table(res_4), trial_table(res_1)
+    assert [t4[i][0] for i in sorted(t4)] == [t1[i][0] for i in sorted(t1)], "configs differ"
+    pairs = [(i, ph, t4[i][2][ph], t1[i][2][ph]) for i in sorted(t4)
+             for ph in range(min(len(t4[i][2]), len(t1[i][2])))]
+    worst = max(abs(a - b) for _, _, a, b in pairs)
+    unequal = sum(a != b for _, _, a, b in pairs)
+    searches["6b"].update(compared=len(pairs), unequal=unequal, max_abs_diff=worst,
+                          atol=SEARCH_NODES_ATOL)
+    log(f"[search] 6b against 6a: {len(pairs)} (trial, phase) metrics both trained, "
+        f"{unequal} not bit-equal, max |4 nodes - 1 node| {worst:.3e} (limit "
+        f"{SEARCH_NODES_ATOL:g}); statuses 4 nodes {[t4[i][1] for i in sorted(t4)]}, "
+        f"1 node {[t1[i][1] for i in sorted(t1)]}")
+    for i, ph, a, b in pairs:
+        assert abs(a - b) <= SEARCH_NODES_ATOL, ("6b", i, ph, a, b)
+    phase_done("6b search, 1 node thread, profiled")
+
+    # 6c: card against CPU, one node: the weights of every trial drawn on the
+    # CPU from seed 0 and copied to its device
+    def devices_search(d):
+        zero_counts()
+        policy = HyperTrick(lm_space(), SEARCH_DEV_W0, SEARCH_DEV_PHASES, SEARCH_R, seed=0)
+        objective = make_lm_objective(YI, steps_per_phase=SEARCH_DEV_STEPS, seed=0, device=d,
+                                      init_device="cpu")
+        return ThreadCluster(1, objective).run(policy)
+
+    def report_cuts(res):
+        """(trial, phase, metric, cut) of each report in order: the sqrt(r)
+        quantile of the phase's metrics so far, which HyperTrick held the
+        metric to past its collection mode (None within it)."""
+        seen, out = {}, []
+        for rec in res.records:
+            ms = seen.setdefault(rec.phase, [])
+            ms.append(rec.metric)
+            cut = (None if len(ms) - 1 < dcm_threshold(SEARCH_DEV_W0, SEARCH_R, rec.phase)
+                   else float(np.quantile(ms, math.sqrt(SEARCH_R))))
+            out.append((rec.trial_id, rec.phase, rec.metric, cut))
+        return out
+
+    res_card = devices_search(dev)
+    launches, fa_by, gmm_by, rms_by, scan_by = all_counts()
+    tc_card = trial_table(res_card)
+    dev_steps = SEARCH_DEV_STEPS * sum(len(ms) for _, _, ms in tc_card.values())
+    expect = per_forward(trial_cfg)
+    for name, n in expect.items():
+        assert launches[name] == n * dev_steps, ("6c", name, launches[name], n * dev_steps)
+    paths[f"search {YI} card vs CPU"] = (launches, expect, dev_steps, fa_by, gmm_by, rms_by,
+                                         scan_by)
+    res_cpu = devices_search("cpu")
+    tc_cpu = trial_table(res_cpu)
+    same = ({i: (hp, st, len(ms)) for i, (hp, st, ms) in tc_card.items()}
+            == {i: (hp, st, len(ms)) for i, (hp, st, ms) in tc_cpu.items()})
+    if not same:
+        for (i, ph, mc, cc), (_, _, mu, cu) in zip(report_cuts(res_card), report_cuts(res_cpu)):
+            log(f"[search] 6c trial {i} phase {ph}: card {mc!r} cut {cc!r}, cpu {mu!r} cut "
+                f"{cu!r}; distance to the cut card "
+                f"{None if cc is None else abs(mc - cc)!r}, cpu "
+                f"{None if cu is None else abs(mu - cu)!r}")
+    assert same, ("6c: card and CPU decided differently",
+                  {i: v[1:] for i, v in tc_card.items()}, {i: v[1:] for i, v in tc_cpu.items()})
+    dev_worst = 0.0
+    for i in tc_card:
+        for ph, (a, b) in enumerate(zip(tc_card[i][2], tc_cpu[i][2])):
+            dev_worst = max(dev_worst, abs(a - b))
+            assert abs(a - b) - TRAIN_RTOL * abs(b) <= TRAIN_ATOL, ("6c", i, ph, a, b)
+    searches["6c"] = {"trials": SEARCH_DEV_W0, "phases": SEARCH_DEV_PHASES,
+                      "steps_per_phase": SEARCH_DEV_STEPS, "card_steps": dev_steps,
+                      "statuses": {i: v[1] for i, v in tc_card.items()},
+                      "card_metrics": {i: v[2] for i, v in tc_card.items()},
+                      "cpu_metrics": {i: v[2] for i, v in tc_cpu.items()},
+                      "max_abs_diff": dev_worst, "atol": TRAIN_ATOL, "rtol": TRAIN_RTOL,
+                      "card_wall_s": res_card.wall_time, "cpu_wall_s": res_cpu.wall_time}
+    log(f"[search] 6c card against CPU: same trials, statuses and reports "
+        f"{searches['6c']['statuses']}; max |card - cpu| {dev_worst:.3e} (limit "
+        f"{TRAIN_ATOL:g} + {TRAIN_RTOL:g} * |cpu|) ok")
+    phase_done("6c search, card against CPU")
+
+    # 6d: the scan (jamba) and the grouped matmul (grok-1) under concurrent trials
+    for arch, kernel in ((HYBRID, "selective_scan"), (GROK, "gmm")):
+        assert per_forward(get_config(arch).reduced())[kernel] > 0, (arch, kernel)
+        path, searches[f"6d {arch}"], _ = search(
+            f"6d {arch}, 2 nodes", ["--arch", arch, *SEARCH_KERNEL_ARGV], arch, 4, 2, 4)
+        paths[f"search {arch} 2 nodes"] = path
+    phase_done("6d search, all four kernels")
+    log("[search] summary " + json.dumps(searches))
+
 
     kernels = []
     for name, src, replaces, main_t, dec_t, more in [
             ("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
              "src/repro/kernels/rmsnorm/rmsnorm.py:22", rms_prefill, rms_decode,
-             {"jamba": rms_jamba, "grok": rms_grok, "phi3": rms_phi3, "kimi": rms_kimi}),
+             {"jamba": rms_jamba, "grok": rms_grok, "phi3": rms_phi3, "kimi": rms_kimi,
+              "search": rms_search}),
             ("flash_attention", "src/repro_torch/kernels/csrc/flash_prefill.cu",
              "src/repro/kernels/flash_attention/flash_attention.py:75", fa_prefill, fa_decode,
-             {"jamba": fa_jamba, "zoo": fa_zoo}),
+             {"jamba": fa_jamba, "zoo": fa_zoo, "search": fa_search}),
             ("gmm", "src/repro_torch/kernels/csrc/gmm_prefill.cu",
              "src/repro/kernels/gmm/gmm.py:28", gmm_prefill, gmm_more["decode"],
              {**{k: v for k, v in gmm_more.items() if k != "decode"}, "grok": gmm_grok,
@@ -1797,7 +2072,7 @@ def main() -> int:
             kernels[-1]["sources"] = ["src/repro_torch/kernels/csrc/flash_prefill.cu",
                                       "src/repro_torch/kernels/csrc/flash_decode.cu",
                                       "src/repro_torch/kernels/csrc/flash_attention.cu"]
-            for served in ("tensor_core", "split_kv"):
+            for served in ("tensor_core", "split_kv", "fma"):
                 kernels[-1][f"launches_{served}"] = sum(p[3][served] for p in paths.values())
                 kernels[-1][f"launches_{served}_by_path"] = {k: p[3][served]
                                                              for k, p in paths.items()}

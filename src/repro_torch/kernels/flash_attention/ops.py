@@ -19,8 +19,10 @@ inside a backward. A CPU tensor's autograd differentiates
 Counters, plain ints on this function, moved by the kernel that
 ``flash_attention_cuda`` reports it launched: ``launches`` counts calls that
 launched a kernel (a split-KV call launches the split kernel and its combine
-and counts once); ``launches_split_kv`` and ``launches_tensor_core`` count the
-bf16 calls each of those two kernels served, so a run shows which one did.
+and counts once); ``launches_split_kv``, ``launches_tensor_core`` and
+``launches_fma`` count the calls each of the three kernels served, so a run
+shows which one did. Each count goes through ``kernels.counters.count_launch``,
+exact when several threads launch.
 What bounds each kernel and what its design does about it: see
 ``csrc/flash_decode.cu``, ``csrc/flash_prefill.cu``, ``csrc/flash_attention.cu``.
 """
@@ -31,6 +33,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.autograd import kernel_op
+from repro_torch.kernels.counters import count_launch
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import chunked_attention
 
@@ -39,12 +42,7 @@ def _kernel(q, k, v, kv_pos, causal, window, softcap, q_offset, chunk):
     out, launched = flash_attention_cuda(q, k, v, causal=causal, window=window,
                                          softcap=softcap, q_offset=q_offset,
                                          kv_pos=kv_pos)
-    if launched is not None:
-        flash_attention.launches += 1
-    if launched == "split_kv":
-        flash_attention.launches_split_kv += 1
-    elif launched == "tensor_core":
-        flash_attention.launches_tensor_core += 1
+    count_launch(flash_attention, launched)
     return out
 
 
@@ -72,3 +70,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 flash_attention.launches_split_kv = 0
 flash_attention.launches_tensor_core = 0
+flash_attention.launches_fma = 0

@@ -22,26 +22,22 @@ backward. A CPU tensor's autograd differentiates ``gmm_ref`` as it stands.
 Counters, plain ints on this function, moved by the kernel that
 ``gmm_cuda`` reports it launched: ``launches`` counts calls that launched a
 kernel; ``launches_tiled``, ``launches_decode`` and ``launches_small`` count
-the calls each of the three kernels served. What bounds each kernel: see
-``csrc/gmm_prefill.cu``, ``csrc/gmm_decode.cu`` and ``csrc/gmm.cu``.
+the calls each of the three kernels served (through
+``kernels.counters.count_launch``, exact when several threads launch). What
+bounds each kernel: see ``csrc/gmm_prefill.cu``, ``csrc/gmm_decode.cu`` and
+``csrc/gmm.cu``.
 """
 from __future__ import annotations
 
 from repro_torch.kernels.autograd import kernel_op
+from repro_torch.kernels.counters import count_launch
 from repro_torch.kernels.gmm.gmm import gmm_cuda
 from repro_torch.kernels.gmm.ref import gmm_ref
 
 
 def _kernel(x, w, group_sizes):
     out, launched = gmm_cuda(x, w, group_sizes)
-    if launched is not None:
-        gmm.launches += 1
-    if launched == "tiled":
-        gmm.launches_tiled += 1
-    elif launched == "decode":
-        gmm.launches_decode += 1
-    elif launched == "small":
-        gmm.launches_small += 1
+    count_launch(gmm, launched)
     return out
 
 

@@ -18,26 +18,23 @@ differentiates ``rmsnorm_ref`` as it stands.
 Counters, plain ints on this function, moved by the kernel that
 ``rmsnorm_cuda`` reports it launched: ``launches`` counts calls that
 launched a kernel; ``launches_warp`` and ``launches_block`` the calls each
-kernel served. What bounds the kernels: device memory bandwidth (see
-``csrc/rmsnorm.cu``).
+kernel served (through ``kernels.counters.count_launch``, exact when
+several threads launch). What bounds the kernels: device memory bandwidth
+(see ``csrc/rmsnorm.cu``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.autograd import kernel_op
+from repro_torch.kernels.counters import count_launch
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_cuda
 
 
 def _kernel(x: torch.Tensor, scale: torch.Tensor, eps: float):
     out, launched = rmsnorm_cuda(x, scale, eps)
-    if launched is not None:
-        rmsnorm.launches += 1
-    if launched == "warp":
-        rmsnorm.launches_warp += 1
-    elif launched == "block":
-        rmsnorm.launches_block += 1
+    count_launch(rmsnorm, launched)
     return out
 
 

@@ -20,24 +20,21 @@ autograd differentiates ``selective_scan_ref`` as it stands.
 Counters, plain ints on this function, moved by the kernel that
 ``selective_scan_cuda`` reports it launched: ``launches`` counts calls that
 launched a kernel; ``launches_prefill`` and ``launches_sequential`` the
-calls each kernel served. What bounds the kernels: see
+calls each kernel served (through ``kernels.counters.count_launch``, exact
+when several threads launch). What bounds the kernels: see
 ``csrc/scan_prefill.cu`` and ``csrc/selective_scan.cu``.
 """
 from __future__ import annotations
 
 from repro_torch.kernels.autograd import kernel_op
+from repro_torch.kernels.counters import count_launch
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 from repro_torch.kernels.selective_scan.selective_scan import selective_scan_cuda
 
 
 def _kernel(u, dt, a, b, c, d_skip, h0):
     y, hT, launched = selective_scan_cuda(u, dt, a, b, c, d_skip, h0)
-    if launched is not None:
-        selective_scan.launches += 1
-    if launched == "prefill":
-        selective_scan.launches_prefill += 1
-    elif launched == "sequential":
-        selective_scan.launches_sequential += 1
+    count_launch(selective_scan, launched)
     return y, hT
 
 

@@ -22,11 +22,8 @@ import dataclasses
 import json
 import time
 
-import torch
-
 from repro_torch.configs.base import TrainConfig
 from repro_torch.configs.registry import get_config
-from repro_torch.models.schema import init_params
 from repro_torch.train.trainer import Trainer
 
 
@@ -52,16 +49,9 @@ def main(argv=None):
     if args.dtype:
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
     tc = TrainConfig(optimizer="adamw", learning_rate=args.lr)
-    weights = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     devices = args.devices.split(",")
-    trainers = []
-    for d in devices:
-        tr = Trainer(cfg, tc, args.batch, args.seq, seed=0, device=d)
-        with torch.no_grad():
-            for mine, src in zip(tr.params.parameters(), weights.parameters()):
-                mine.copy_(src)
-        trainers.append(tr)
-    del weights
+    trainers = [Trainer(cfg, tc, args.batch, args.seq, seed=0, device=d, init_device="cpu")
+                for d in devices]
     seconds = []
     for tr in trainers:
         t0 = time.perf_counter()

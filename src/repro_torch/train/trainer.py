@@ -17,12 +17,16 @@ from repro_torch.train.steps import make_train_step
 
 class Trainer:
     def __init__(self, cfg: ModelConfig, tc: TrainConfig, batch: int, seq: int,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", init_device=None):
+        """``init_device``: where the weights are drawn (default ``device``),
+        then copied to ``device``; each device's generator draws its own
+        weights, so two runs that must start alike draw on one of them."""
         self.cfg = cfg
         self.tc = tc
         self.device = resolve_device(device)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.params = init_params(cfg, gen, device=self.device)
+        init_dev = self.device if init_device is None else resolve_device(init_device)
+        gen = torch.Generator(device=init_dev).manual_seed(seed)
+        self.params = init_params(cfg, gen, device=init_dev).to(self.device)
         self.opt_state = init_opt_state(tc, self.params)
         self.data = DataPipeline(cfg, batch, seq, seed=seed, device=self.device)
         self._step = make_train_step(cfg, tc)
@@ -47,10 +51,11 @@ class Trainer:
 
 
 def make_lm_objective(arch: str, steps_per_phase: int = 30, batch: int = 8,
-                      seq: int = 64, seed: int = 0, device="cuda"):
+                      seq: int = 64, seed: int = 0, device="cuda", init_device=None):
     """A tuning objective over a reduced-config LM: metric = -loss (higher is
     better, the search service's convention). ``loss_chunk`` among the
-    hyperparameters makes a trial's cost depend on its config."""
+    hyperparameters makes a trial's cost depend on its config. Each trial's
+    ``Trainer`` draws its weights on ``init_device`` (default ``device``)."""
     from repro_torch.configs.registry import get_config
 
     def objective(hparams: dict, phase: int, state):
@@ -62,7 +67,8 @@ def make_lm_objective(arch: str, steps_per_phase: int = 30, batch: int = 8,
                 grad_clip=float(hparams.get("grad_clip", 1.0)),
                 warmup_steps=int(hparams.get("warmup_steps", 0)),
                 loss_chunk=int(hparams.get("loss_chunk", 1024)))
-            state = Trainer(cfg, tc, batch, seq, seed=seed, device=device)
+            state = Trainer(cfg, tc, batch, seq, seed=seed, device=device,
+                            init_device=init_device)
         mean_loss = state.run(steps_per_phase)
         return -mean_loss, state
 

@@ -13,7 +13,8 @@ torch.set_num_threads(1)
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.data.synthetic import DataPipeline  # noqa: E402
-from repro_torch.launch import serve, step_times, train, train_devices  # noqa: E402
+from repro_torch.core import service as search_service  # noqa: E402
+from repro_torch.launch import serve, step_times, train, train_devices, tune  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.models.model import init_cache  # noqa: E402
 from repro_torch.models.schema import init_params  # noqa: E402
@@ -80,6 +81,9 @@ def test_train_entry_points_raise_without_gpu(no_gpu):
         DataPipeline(cfg, 2, 8)
     with pytest.raises(RuntimeError, match="cuda"):
         make_lm_objective("gemma2-2b", steps_per_phase=1)({}, 0, None)
+    # weights drawn on the card for a CPU trainer need the card too
+    with pytest.raises(RuntimeError, match="cuda"):
+        Trainer(cfg, TrainConfig(), batch=2, seq=8, device="cpu", init_device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         train.main(["--arch", "gemma2-2b", "--reduced", "--steps", "1"])
 
@@ -94,6 +98,19 @@ def test_train_devices_needs_a_card_unless_told_otherwise(no_gpu):
     # its default devices are the card and the CPU
     with pytest.raises(RuntimeError, match="cuda"):
         train_devices.main(["--arch", "gemma2-2b", "--reduced", "--steps", "1"])
+
+
+def test_tune_needs_a_card_before_any_trial(no_gpu, monkeypatch):
+    """The search raises for the missing card itself: a trial's error would
+    only mark that trial crashed, and the search would end with exit 0."""
+    acquired = []
+    real = search_service.OptimizationService.acquire_trial
+    monkeypatch.setattr(search_service.OptimizationService, "acquire_trial",
+                        lambda self, *a, **k: acquired.append(a) or real(self, *a, **k))
+    with pytest.raises(RuntimeError, match="cuda"):
+        tune.main(["--objective", "lm", "--workers", "2", "--nodes", "1", "--phases", "1",
+                   "--steps-per-phase", "1"])
+    assert acquired == []
 
 
 def test_engine_refuses_params_on_another_device():
