@@ -166,6 +166,25 @@ Phases, each of which passes or ends the script with a non-zero exit:
      flash, the small gmm), their launch counts held as in 6a. Phase 2 holds
      the block RMSNorm and the FMA flash kernel at the trial shapes, and
      phase 4 times them there beside ``F.rms_norm`` and SDPA.
+     Every search here passes ``--objective lm``;
+  7. the GA3C search, the paper's own (``repro_torch.launch.tune
+     --objective rl``, the CLI's default). No kernel of the port runs on it:
+     every launch counter must read 0 after each part. 7a: the reference's
+     default search (GA3C on pong, 16 envs a trial, 12 workers on 4 node
+     threads, 5 phases, r 0.25, seed 0) cut to 8 episodes a phase: no trial
+     crashed, every trial 1 to 5 reports (5 when it completed), every metric
+     finite and in pong's score range [-3, 3], alpha in (0, 1]. Prints wall
+     time, trial-phases, updates, env frames/s, updates/s, occupancy, alpha
+     beside ``expected_alpha`` and peak memory. 7b: a search of 4 workers
+     and 2 phases of 12 episodes on one node thread in one CUDA-only
+     profiler session (busy share, kernels an update and an env step) and
+     on 4 threads without it: every (trial, phase) both trained within
+     ``RL_NODES_ATOL``. 7c: ``GA3CTrainer`` on boxing on the card and on the
+     CPU from one CPU draw of the weights and of every rollout draw, 3
+     updates: the same actions, rewards and dones, loss and grad norm within
+     TRAIN_ATOL + TRAIN_RTOL * |cpu|. 7d: each game one phase of 16 episodes
+     with a finite score; boxing at lr 1e-3, gamma 0.9, t_max 8 over 4
+     phases of 24 episodes must end above its first phase.
 Seconds per phase are printed as each ends. The last two lines are the
 kernels' JSON line and the result line.
 """
@@ -246,8 +265,33 @@ SEARCH_NODES_ATOL = 0.0
 SEARCH_DEV_W0, SEARCH_DEV_PHASES, SEARCH_DEV_STEPS = 4, 3, 4
 # 6d: small searches of the archs whose reduced configs run the scan (jamba)
 # and the grouped matmul (grok-1), 4 workers on 2 node threads
-SEARCH_KERNEL_ARGV = ["--workers", "4", "--nodes", "2", "--phases", "2",
+SEARCH_KERNEL_ARGV = ["--objective", "lm", "--workers", "4", "--nodes", "2", "--phases", "2",
                       "--steps-per-phase", "4"]
+# phase 7: the reference's default search (``repro_torch.launch.tune`` with
+# no argument but ``--objective rl``): GA3C on pong, 16 envs a trial, 12
+# workers on 4 node threads, 5 phases, HyperTrick at r 0.25, seed 0; pong's
+# episode score lies in [-3, 3]. Cut: 8 episodes a phase, not 60. Uncut, the
+# search alone took 350 s on an H100 (PERF.md §4), which would take the
+# smoke past 700 s; the net, the envs and the game are not cut
+RL_GAME, RL_W0, RL_NODES, RL_PHASES, RL_EPISODES, RL_ENVS, RL_R = "pong", 12, 4, 5, 8, 16, 0.25
+RL_ARGV = ["--objective", "rl", "--episodes-per-phase", str(RL_EPISODES)]
+RL_SCORE = 3.0
+# 7b: a smaller search, 4 workers over 2 phases of 12 episodes, on one node
+# thread in one profiler session and on 4 without it: each (trial, phase)
+# metric both trained within RL_NODES_ATOL (no sum on the GA3C path depends
+# on the order of its threads: rl/network.py)
+RL_SMALL_ARGV = ["--objective", "rl", "--workers", "4", "--phases", "2",
+                 "--episodes-per-phase", "12"]
+RL_NODES_ATOL = 0.0
+# 7c: GA3CTrainer on boxing on the card and on the CPU, one CPU draw of the
+# weights and of every rollout draw, RL_DEV_UPDATES updates: the same actions,
+# rewards and dones; loss and grad norm within TRAIN_ATOL + TRAIN_RTOL * |cpu|
+RL_DEV_GAME, RL_DEV_UPDATES = "boxing", 3
+# 7d: each game one phase of RL_SHORT_EPISODES episodes; then the port of
+# tests/test_envs_rl.py::test_ga3c_trainer_boxing_learns on the card
+RL_SHORT_EPISODES = 16
+RL_LEARN_HP = dict(learning_rate=1e-3, gamma=0.9, t_max=8)
+RL_LEARN_PHASES, RL_LEARN_EPISODES, RL_LEARN_MAX_UPDATES = 4, 24, 400
 
 
 def log(*a):
@@ -518,6 +562,174 @@ def routed_sizes(tokens, E, k, seed):
     pick = np.random.default_rng(seed)
     return np.bincount(np.concatenate([pick.choice(E, k, replace=False)
                                        for _ in range(tokens)]), minlength=E).tolist()
+
+
+def trial_table(res):
+    """{trial id: (hparams, status, [metric a phase])} of a search."""
+    return {tr.trial_id: (tr.hparams, tr.status.value, [m for m, _ in tr.reports])
+            for tr in res.service.db.trials.values()}
+
+
+def rl_phase(dev, smi, zero_counts, all_counts, phase_done):
+    """Phase 7: HyperTrick's search over GA3C, the reference's default,
+    through ``repro_torch.launch.tune.main`` on the card (7a, 7b), GA3C card
+    against CPU (7c), every game and a learning curve on the card (7d).
+    Nothing on the GA3C path goes through the port's four kernels: every
+    counter must read 0 after each part. Returns the launch records of the
+    two searches (for the kernels' line) and the phase's numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.completion import expected_alpha
+    from repro_torch.launch import tune
+    from repro_torch.rl.ga3c import GA3CHyperParams, GA3CTrainer
+
+    def no_launches(label):
+        counts = all_counts()
+        for c in counts:
+            assert not any(c.values()), (label, "a kernel launched on the GA3C path", counts)
+        return counts
+
+    def search(label, argv, w0, phases, episodes, profiled=False):
+        """``tune.main(argv)`` on the card: no trial crashed, each trial
+        reported 1 to ``phases`` times (all of them when it completed), every
+        metric finite and a score of pong, alpha in (0, 1], no kernel of the
+        port launched."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if profiled:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                lead_in()
+                res = tune.main(argv)
+                torch.cuda.synchronize()
+        else:
+            res = tune.main(argv)
+            torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = no_launches(label)
+        summary, tab = res.summary(), trial_table(res)
+        assert summary["n_trials"] == w0 and len(tab) == w0, (label, summary)
+        assert "crashed" not in summary["by_status"], (label, summary["by_status"])
+        for tid, (hp, status, ms) in tab.items():
+            assert status in ("completed", "killed"), (label, tid, status)
+            assert 1 <= len(ms) <= phases and (status != "completed" or len(ms) == phases), (
+                label, tid, status, ms)
+            assert all(math.isfinite(m) and abs(m) <= RL_SCORE for m in ms), (label, tid, ms)
+        alpha = res.service.db.completion_rate(phases)
+        assert 0 < alpha <= 1, (label, alpha)
+        wall = res.wall_time
+        out = {"search": label, "argv": argv, "game": RL_GAME, "trials": w0,
+               "nodes": res.n_nodes, "phases": phases, "episodes_per_phase": episodes,
+               "n_envs": RL_ENVS, "wall_s": wall,
+               "run_s": run_s, "trial_phases": len(res.records), "updates": res.updates,
+               "env_frames": res.env_steps, "env_frames_per_s": res.env_steps / wall,
+               "updates_per_s": res.updates / wall, "occupancy": res.occupancy,
+               "alpha": alpha, "expected_alpha": expected_alpha(RL_R, phases),
+               "by_status": summary["by_status"], "best_metric": summary["best_metric"],
+               "best_hparams": summary["best_hparams"],
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if profiled:
+            t0 = time.perf_counter()
+            kern = device_kernels(prof, skip_lead_in=True)
+            busy_ms = sum(a.self_device_time_total for a in kern) / 1e3
+            n_kern = sum(a.count for a in kern)
+            out.update(device_busy_ms=busy_ms, device_busy_share=busy_ms / 1e3 / wall,
+                       device_kernels=n_kern, kernels_per_update=n_kern / res.updates,
+                       kernels_per_env_step=n_kern / (res.env_steps / RL_ENVS),
+                       profiler_read_s=time.perf_counter() - t0)
+            for a in sorted(kern, key=lambda a: -a.self_device_time_total)[:8]:
+                log(f"[profile]   {a.self_device_time_total / 1e3:9.3f} ms {a.count:7d}x "
+                    f"{a.key[:90]}")
+        log(f"[rl] {smi}: " + json.dumps(out))
+        return counts, out, res
+
+    paths, rl = {}, {}
+    # 7a: the reference's default search
+    counts, rl["7a"], _ = search(f"7a {RL_GAME}, {RL_NODES} nodes", RL_ARGV, RL_W0, RL_PHASES,
+                                 RL_EPISODES)
+    paths[f"search rl {RL_GAME} {RL_NODES} nodes"] = counts
+    phase_done("7a GA3C search, 4 node threads")
+
+    # 7b: a smaller search on one node thread in one profiler session, and
+    # on 4 without it: the same configurations by trial id, and every (trial,
+    # phase) both trained within RL_NODES_ATOL
+    counts, rl["7b"], res_1 = search(f"7b {RL_GAME}, 1 node", [*RL_SMALL_ARGV, "--nodes", "1"],
+                                     4, 2, 12, profiled=True)
+    paths[f"search rl {RL_GAME} 1 node"] = counts
+    _, rl["7b 4 nodes"], res_4 = search(f"7b {RL_GAME}, 4 nodes",
+                                        [*RL_SMALL_ARGV, "--nodes", "4"], 4, 2, 12)
+    t1, t4 = trial_table(res_1), trial_table(res_4)
+    assert [t1[i][0] for i in sorted(t1)] == [t4[i][0] for i in sorted(t4)], "configs differ"
+    pairs = [(i, ph, t4[i][2][ph], t1[i][2][ph]) for i in sorted(t4)
+             for ph in range(min(len(t4[i][2]), len(t1[i][2])))]
+    worst = max(abs(a - b) for _, _, a, b in pairs)
+    unequal = sum(a != b for _, _, a, b in pairs)
+    rl["7b"].update(compared=len(pairs), unequal=unequal, max_abs_diff=worst,
+                    atol=RL_NODES_ATOL)
+    log(f"[rl] 7b 1 node against 4: {len(pairs)} (trial, phase) metrics both trained, "
+        f"{unequal} not bit-equal, max |4 nodes - 1 node| {worst:.3e} (limit "
+        f"{RL_NODES_ATOL:g})")
+    for i, ph, a, b in pairs:
+        assert abs(a - b) <= RL_NODES_ATOL, ("7b", i, ph, a, b)
+    phase_done("7b GA3C search, 1 node thread profiled, and 4")
+
+    # 7c: card against CPU, one CPU draw of the weights and of every draw
+    zero_counts()
+    hp = GA3CHyperParams(**RL_LEARN_HP)
+    card = GA3CTrainer(RL_DEV_GAME, hp, n_envs=RL_ENVS, seed=0, device=dev, init_device="cpu")
+    cpu = GA3CTrainer(RL_DEV_GAME, hp, n_envs=RL_ENVS, seed=0, device="cpu", init_device="cpu")
+    worst = {"loss": 0.0, "grad_norm": 0.0}
+    for u in range(RL_DEV_UPDATES):
+        (tc, mc), (tu, mu) = card.step(), cpu.step()
+        for f in ("actions", "rewards", "dones"):
+            assert torch.equal(getattr(tc, f).cpu(), getattr(tu, f)), ("7c", u, f)
+        for k in worst:
+            a, b = float(mc[k]), float(mu[k])
+            worst[k] = max(worst[k], abs(a - b))
+            assert abs(a - b) - TRAIN_RTOL * abs(b) <= TRAIN_ATOL, ("7c", u, k, a, b)
+    w_diff = max(float((p.detach().cpu() - q.detach()).abs().max())
+                 for p, q in zip(card.net.parameters(), cpu.net.parameters()))
+    no_launches("7c")
+    rl["7c"] = {"game": RL_DEV_GAME, "updates": RL_DEV_UPDATES, "n_envs": RL_ENVS,
+                "max_abs_diff": worst, "weights_max_abs_diff": w_diff,
+                "atol": TRAIN_ATOL, "rtol": TRAIN_RTOL}
+    log(f"[rl] 7c card against CPU, {RL_DEV_GAME}, {RL_DEV_UPDATES} updates of "
+        f"{hp.t_max} x {RL_ENVS}: the same actions, rewards and dones; max |card - cpu| loss "
+        f"{worst['loss']:.3e}, grad norm {worst['grad_norm']:.3e} (limit {TRAIN_ATOL:g} + "
+        f"{TRAIN_RTOL:g} * |cpu|); weights after {w_diff:.3e}")
+    phase_done("7c GA3C card against CPU")
+
+    # 7d: every game, one short phase; then boxing learns
+    zero_counts()
+    rl["7d"] = {}
+    for game in ("pong", "boxing", "centipede", "pacman"):
+        t0 = time.perf_counter()
+        tr = GA3CTrainer(game, GA3CHyperParams(), n_envs=RL_ENVS, seed=0, device=dev)
+        score = tr.run_episodes(RL_SHORT_EPISODES, max_updates=400)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        assert math.isfinite(score) and tr.episodes >= RL_SHORT_EPISODES, (game, score, tr.episodes)
+        rl["7d"][game] = {"score": score, "episodes": tr.episodes, "updates": tr.updates,
+                          "env_frames": tr.env_steps, "wall_s": wall,
+                          "env_frames_per_s": tr.env_steps / wall}
+        log(f"[rl] 7d {game}: {json.dumps(rl['7d'][game])}")
+    t0 = time.perf_counter()
+    tr = GA3CTrainer("boxing", GA3CHyperParams(**RL_LEARN_HP), n_envs=RL_ENVS, seed=0, device=dev)
+    scores = [tr.run_episodes(RL_LEARN_EPISODES, max_updates=RL_LEARN_MAX_UPDATES)
+              for _ in range(RL_LEARN_PHASES)]
+    torch.cuda.synchronize()
+    rl["7d"]["boxing learns"] = {"scores": scores, "updates": tr.updates,
+                                 "wall_s": time.perf_counter() - t0}
+    log(f"[rl] 7d boxing learns: {RL_LEARN_PHASES} phases of {RL_LEARN_EPISODES} episodes, "
+        f"scores {scores}")
+    assert scores[-1] > scores[0], ("7d: boxing did not learn", scores)
+    no_launches("7d")
+    phase_done("7d GA3C, every game and a learning curve")
+    log("[rl] summary " + json.dumps(rl))
+    return paths, rl
 
 
 def main() -> int:
@@ -1840,11 +2052,6 @@ def main() -> int:
                 flash_counts(),
                 gmm_counts(), rms_counts(), scan_counts())
 
-    def trial_table(res):
-        """{trial id: (hparams, status, [metric a phase])} of a search."""
-        return {tr.trial_id: (tr.hparams, tr.status.value, [m for m, _ in tr.reports])
-                for tr in res.service.db.trials.values()}
-
     def search(label, argv, arch, w0, phases, steps_per_phase, profiled=False, bar=False):
         """``tune.main(argv)`` on the card. No trial may crash; each trial
         reports 1 to ``phases`` times, all of them when it completed, every
@@ -1928,8 +2135,8 @@ def main() -> int:
     searches = {}
     # 6a: the CLI's defaults, 4 node threads, without the profiler
     path, searches["6a"], res_4 = search(
-        f"6a {YI}, {SEARCH_NODES} nodes", [], YI, SEARCH_W0, SEARCH_PHASES, SEARCH_STEPS,
-        bar=True)
+        f"6a {YI}, {SEARCH_NODES} nodes", ["--objective", "lm"], YI, SEARCH_W0, SEARCH_PHASES,
+        SEARCH_STEPS, bar=True)
     paths[f"search {YI} {SEARCH_NODES} nodes"] = path
     phase_done("6a search, 4 node threads")
 
@@ -1937,8 +2144,8 @@ def main() -> int:
     # same configurations by trial id (one numpy stream), and every (trial,
     # phase) both trained within SEARCH_NODES_ATOL
     path, searches["6b"], res_1 = search(
-        f"6b {YI}, 1 node", ["--nodes", "1"], YI, SEARCH_W0, SEARCH_PHASES, SEARCH_STEPS,
-        profiled=True, bar=True)
+        f"6b {YI}, 1 node", ["--objective", "lm", "--nodes", "1"], YI, SEARCH_W0, SEARCH_PHASES,
+        SEARCH_STEPS, profiled=True, bar=True)
     paths[f"search {YI} 1 node"] = path
     t4, t1 = trial_table(res_4), trial_table(res_1)
     assert [t4[i][0] for i in sorted(t4)] == [t1[i][0] for i in sorted(t1)], "configs differ"
@@ -2024,6 +2231,11 @@ def main() -> int:
         paths[f"search {arch} 2 nodes"] = path
     phase_done("6d search, all four kernels")
     log("[search] summary " + json.dumps(searches))
+
+    # -- 7. the GA3C search ------------------------------------------------------
+    rl_paths, _ = rl_phase(dev, smi, zero_counts, all_counts, phase_done)
+    for k, (launches, *by_kernel) in rl_paths.items():
+        paths[k] = (launches, {name: 0 for name in launches}, 0, *by_kernel)
 
 
     kernels = []

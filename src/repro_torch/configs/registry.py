@@ -28,6 +28,6 @@ def list_archs() -> list[str]:
 def _load_all():
     # import every config module for its register() side effect; a module
     # registers once, however often this runs
-    from repro_torch.configs import (gemma2_2b, grok_1_314b, jamba_v0_1_52b,  # noqa: F401
-                                     kimi_k2_1t_a32b, phi3_mini_3_8b, starcoder2_3b,
-                                     yi_9b)
+    from repro_torch.configs import (a3c_atari, gemma2_2b, grok_1_314b,  # noqa: F401
+                                     jamba_v0_1_52b, kimi_k2_1t_a32b, phi3_mini_3_8b,
+                                     starcoder2_3b, yi_9b)

@@ -1,6 +1,6 @@
 """The in-process thread backend of a search (port of
 ``repro/core/executor.py``: ``ExecRecord``, ``ExecResult`` and
-``ThreadCluster``, copied whole).
+``ThreadCluster``, copied whole; ``ExecResult.updates`` is the port's).
 
 * ThreadCluster — asynchronous policies (HyperTrick, random search): each
   node-thread pulls a configuration, runs phases of the REAL objective, and
@@ -45,8 +45,10 @@ class ExecResult:
     records: List[ExecRecord]
     wall_time: float
     n_nodes: int
-    # backends that can count device work report it (population engine)
+    # backends that can count device work report it (population engine;
+    # the port's GA3C search: env transitions and updates of every trial)
     env_steps: Optional[int] = None
+    updates: Optional[int] = None
     # backend-specific summary fields (e.g. the population engine's rung
     # log and device count), merged into summary()
     extra: Optional[Dict] = None

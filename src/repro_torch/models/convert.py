@@ -40,3 +40,25 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> ModelParam
         return out
 
     return ModelParams(convert(model_schema(cfg), tree, ""))
+
+
+def a3c_params_from_numpy(tree: dict, cfg, device="cuda"):
+    """The reference's GA3C net (``repro.rl.network.init_net`` as numpy
+    arrays) as an ``rl.network.A3CNet`` of ``cfg``: the convolutions are
+    OIHW in both; the linear weights ``fcw`` / ``pw`` / ``vw`` are (in, out)
+    there and (out, in) here, so they are transposed. Both flatten NCHW."""
+    from repro_torch.rl.network import LINEAR, A3CNet, param_shapes
+
+    dev = resolve_device(device)
+    shapes = param_shapes(cfg)
+    if set(tree) != set(shapes):
+        raise ValueError(f"keys {sorted(tree)} != {sorted(shapes)}")
+    net = A3CNet(cfg, device=dev)
+    with torch.no_grad():
+        for name, shape in shapes.items():
+            a = np.asarray(tree[name], np.float32)
+            a = a.T if name in LINEAR else a
+            if a.shape != shape:
+                raise ValueError(f"{name}: shape {a.shape} != {shape}")
+            getattr(net, name).copy_(_to_tensor(a, dev))
+    return net

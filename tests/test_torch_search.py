@@ -281,8 +281,8 @@ def _reference_summary_keys(monkeypatch, capsys):
 def test_tune_cli_runs_on_the_cpu(monkeypatch, capsys, tmp_path):
     keys = _reference_summary_keys(monkeypatch, capsys)
     out = tmp_path / "summary.json"
-    res = tune.main(["--device", "cpu", "--workers", "3", "--nodes", "2", "--phases", "2",
-                     "--steps-per-phase", "2", "--out", str(out)])
+    res = tune.main(["--device", "cpu", "--objective", "lm", "--workers", "3", "--nodes", "2",
+                     "--phases", "2", "--steps-per-phase", "2", "--out", str(out)])
     printed = json.loads(capsys.readouterr().out)
     assert set(printed) == keys
     assert printed["n_trials"] == 3 and "crashed" not in printed["by_status"]
@@ -296,8 +296,6 @@ def test_tune_cli_runs_on_the_cpu(monkeypatch, capsys, tmp_path):
     (["--backend", "vectorized"], "7a-1"),
     (["--backend", "process"], "7c"),
     (["--backend", "server"], "7c"),
-    (["--objective", "rl"], "7b"),
-    (["--objective", "synthetic"], "7b"),
     (["--scheduler", "pbt"], "7a-2"),
     (["--scheduler", "hyperband"], "7a-2"),
     (["--bracket"], "7a-1"),
