@@ -184,7 +184,25 @@ Phases, each of which passes or ends the script with a non-zero exit:
      updates: the same actions, rewards and dones, loss and grad norm within
      TRAIN_ATOL + TRAIN_RTOL * |cpu|. 7d: each game one phase of 16 episodes
      with a finite score; boxing at lr 1e-3, gamma 0.9, t_max 8 over 4
-     phases of 24 episodes must end above its first phase.
+     phases of 24 episodes must end above its first phase;
+  8. the population engine (``repro_torch.launch.tune --backend
+     vectorized``): every live trial trains at once from one host thread,
+     the trials that share a t_max in one bucket stepped together. Every
+     launch counter must read 0 after each part. 8a: 7a's search on it (12
+     trials, 12 distinct t_max: 12 buckets of one slot), held to 7a's
+     checks; prints its buckets, wall time, env frames/s, updates/s,
+     occupancy, alpha beside ``expected_alpha`` and peak memory beside 7a's.
+     8b: every (trial, phase) metric both 8a and 7a trained, by trial id: a
+     trial whose t_max no other trial drew (a one-slot bucket throughout,
+     the thread trainer's own update) within ``RL_NODES_ATOL``; the others
+     counted and printed, not held. 8c: a random search over the learning
+     rate at t_max 8, 12 workers in one bucket of 12 slots, 2 phases of 12
+     episodes, in one CUDA-only profiler session, and the same search at
+     one slot: busy share, kernels a step of the bucket (below
+     ``POP_KERNEL_RATIO`` x one slot's), env frames/s, updates/s; then a
+     bucket of 4 trials against the same 4 trials trained alone, 3 updates
+     on the same draws: the same actions, rewards and dones, weights within
+     TRAIN_ATOL + TRAIN_RTOL * |alone|.
 Seconds per phase are printed as each ends. The last two lines are the
 kernels' JSON line and the result line.
 """
@@ -292,6 +310,21 @@ RL_DEV_GAME, RL_DEV_UPDATES = "boxing", 3
 RL_SHORT_EPISODES = 16
 RL_LEARN_HP = dict(learning_rate=1e-3, gamma=0.9, t_max=8)
 RL_LEARN_PHASES, RL_LEARN_EPISODES, RL_LEARN_MAX_UPDATES = 4, 24, 400
+# phase 8: the population engine (``--backend vectorized``). 8a: 7a's search
+# (the reference's default, cut to RL_EPISODES a phase) with every trial on
+# the engine, from one host thread; its trials draw 12 distinct t_max, so
+# 12 buckets of one slot. 8c: one bucket of POP_SLOTS slots, a random search
+# over lr ~ LogUniform(1e-4, 1e-3) at gamma 0.99 and t_max POP_T_MAX, 2
+# phases of 12 episodes, profiled, beside the same search at one slot; at
+# POP_SLOTS slots its kernels a step of the bucket must stay below
+# POP_KERNEL_RATIO x one slot's (a loop over slots would give about 12 x).
+# Then POP_PARITY_SLOTS trials in one bucket against the same trials trained
+# alone, POP_PARITY_UPDATES updates: the same actions, rewards and dones;
+# weights within TRAIN_ATOL + TRAIN_RTOL * |alone|
+POP_ARGV = ["--backend", "vectorized", *RL_ARGV]
+POP_SLOTS, POP_PHASES, POP_EPISODES, POP_T_MAX = 12, 2, 12, 8
+POP_KERNEL_RATIO = 3.0
+POP_PARITY_SLOTS, POP_PARITY_UPDATES = 4, 3
 
 
 def log(*a):
@@ -570,86 +603,109 @@ def trial_table(res):
             for tr in res.service.db.trials.values()}
 
 
+def no_launches(label, all_counts):
+    """The launch counters, each of which must read 0: nothing on the GA3C
+    path goes through the port's four kernels."""
+    counts = all_counts()
+    for c in counts:
+        assert not any(c.values()), (label, "a kernel launched on the GA3C path", counts)
+    return counts
+
+
+def rl_search(label, argv, run, w0, phases, episodes, smi, zero_counts, all_counts,
+              profiled=False):
+    """``run()``, a GA3C search on the card (``argv`` names it): no trial
+    crashed, each trial reported 1 to ``phases`` times (all of them when it
+    completed), every metric finite and a score of pong, alpha in (0, 1],
+    no kernel of the port launched. With ``profiled`` it runs in one
+    CUDA-only profiler session: the device's busy share, and the kernels a
+    search step (``engine.step_s``'s count of the population engine's loop,
+    each a step of every bucket; on the thread backend no such count)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.completion import expected_alpha
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if profiled:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            lead_in()
+            res = run()
+            torch.cuda.synchronize()
+    else:
+        res = run()
+        torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = no_launches(label, all_counts)
+    summary, tab = res.summary(), trial_table(res)
+    assert summary["n_trials"] == w0 and len(tab) == w0, (label, summary)
+    assert "crashed" not in summary["by_status"], (label, summary["by_status"])
+    for tid, (hp, status, ms) in tab.items():
+        assert status in ("completed", "killed"), (label, tid, status)
+        assert 1 <= len(ms) <= phases and (status != "completed" or len(ms) == phases), (
+            label, tid, status, ms)
+        assert all(math.isfinite(m) and abs(m) <= RL_SCORE for m in ms), (label, tid, ms)
+    alpha = res.service.db.completion_rate(phases)
+    assert 0 < alpha <= 1, (label, alpha)
+    wall = res.wall_time
+    iterations = res.service.metrics.histogram("engine.step_s").count
+    out = {"search": label, "argv": argv, "game": RL_GAME, "trials": w0,
+           "nodes": res.n_nodes, "phases": phases, "episodes_per_phase": episodes,
+           "n_envs": RL_ENVS, "wall_s": wall,
+           "run_s": run_s, "trial_phases": len(res.records), "updates": res.updates,
+           "env_frames": res.env_steps, "env_frames_per_s": res.env_steps / wall,
+           "updates_per_s": res.updates / wall, "occupancy": res.occupancy,
+           "alpha": alpha, "expected_alpha": expected_alpha(RL_R, phases),
+           "by_status": summary["by_status"], "best_metric": summary["best_metric"],
+           "best_hparams": summary["best_hparams"],
+           "buckets": len({hp.get("t_max") for hp, _, _ in tab.values()}),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if iterations:
+        out["engine_iterations"] = iterations
+    if profiled:
+        t0 = time.perf_counter()
+        kern = device_kernels(prof, skip_lead_in=True)
+        busy_ms = sum(a.self_device_time_total for a in kern) / 1e3
+        n_kern = sum(a.count for a in kern)
+        out.update(device_busy_ms=busy_ms, device_busy_share=busy_ms / 1e3 / wall,
+                   device_kernels=n_kern, kernels_per_update=n_kern / res.updates,
+                   kernels_per_env_step=n_kern / (res.env_steps / RL_ENVS),
+                   profiler_read_s=time.perf_counter() - t0)
+        if iterations:
+            t_maxes = {hp["t_max"] for hp, _, _ in tab.values()}
+            assert len(t_maxes) == 1, (label, "one bucket's steps to count", t_maxes)
+            out["kernels_per_bucket_env_step"] = n_kern / (iterations * t_maxes.pop())
+        for a in sorted(kern, key=lambda a: -a.self_device_time_total)[:8]:
+            log(f"[profile]   {a.self_device_time_total / 1e3:9.3f} ms {a.count:7d}x "
+                f"{a.key[:90]}")
+    log(f"[rl] {smi}: " + json.dumps(out))
+    return counts, out, res
+
+
 def rl_phase(dev, smi, zero_counts, all_counts, phase_done):
     """Phase 7: HyperTrick's search over GA3C, the reference's default,
     through ``repro_torch.launch.tune.main`` on the card (7a, 7b), GA3C card
     against CPU (7c), every game and a learning curve on the card (7d).
     Nothing on the GA3C path goes through the port's four kernels: every
     counter must read 0 after each part. Returns the launch records of the
-    two searches (for the kernels' line) and the phase's numbers."""
+    two searches (for the kernels' line), the phase's numbers and 7a's
+    result."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.completion import expected_alpha
     from repro_torch.launch import tune
     from repro_torch.rl.ga3c import GA3CHyperParams, GA3CTrainer
 
-    def no_launches(label):
-        counts = all_counts()
-        for c in counts:
-            assert not any(c.values()), (label, "a kernel launched on the GA3C path", counts)
-        return counts
-
     def search(label, argv, w0, phases, episodes, profiled=False):
-        """``tune.main(argv)`` on the card: no trial crashed, each trial
-        reported 1 to ``phases`` times (all of them when it completed), every
-        metric finite and a score of pong, alpha in (0, 1], no kernel of the
-        port launched."""
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        zero_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if profiled:
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                lead_in()
-                res = tune.main(argv)
-                torch.cuda.synchronize()
-        else:
-            res = tune.main(argv)
-            torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        counts = no_launches(label)
-        summary, tab = res.summary(), trial_table(res)
-        assert summary["n_trials"] == w0 and len(tab) == w0, (label, summary)
-        assert "crashed" not in summary["by_status"], (label, summary["by_status"])
-        for tid, (hp, status, ms) in tab.items():
-            assert status in ("completed", "killed"), (label, tid, status)
-            assert 1 <= len(ms) <= phases and (status != "completed" or len(ms) == phases), (
-                label, tid, status, ms)
-            assert all(math.isfinite(m) and abs(m) <= RL_SCORE for m in ms), (label, tid, ms)
-        alpha = res.service.db.completion_rate(phases)
-        assert 0 < alpha <= 1, (label, alpha)
-        wall = res.wall_time
-        out = {"search": label, "argv": argv, "game": RL_GAME, "trials": w0,
-               "nodes": res.n_nodes, "phases": phases, "episodes_per_phase": episodes,
-               "n_envs": RL_ENVS, "wall_s": wall,
-               "run_s": run_s, "trial_phases": len(res.records), "updates": res.updates,
-               "env_frames": res.env_steps, "env_frames_per_s": res.env_steps / wall,
-               "updates_per_s": res.updates / wall, "occupancy": res.occupancy,
-               "alpha": alpha, "expected_alpha": expected_alpha(RL_R, phases),
-               "by_status": summary["by_status"], "best_metric": summary["best_metric"],
-               "best_hparams": summary["best_hparams"],
-               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-        if profiled:
-            t0 = time.perf_counter()
-            kern = device_kernels(prof, skip_lead_in=True)
-            busy_ms = sum(a.self_device_time_total for a in kern) / 1e3
-            n_kern = sum(a.count for a in kern)
-            out.update(device_busy_ms=busy_ms, device_busy_share=busy_ms / 1e3 / wall,
-                       device_kernels=n_kern, kernels_per_update=n_kern / res.updates,
-                       kernels_per_env_step=n_kern / (res.env_steps / RL_ENVS),
-                       profiler_read_s=time.perf_counter() - t0)
-            for a in sorted(kern, key=lambda a: -a.self_device_time_total)[:8]:
-                log(f"[profile]   {a.self_device_time_total / 1e3:9.3f} ms {a.count:7d}x "
-                    f"{a.key[:90]}")
-        log(f"[rl] {smi}: " + json.dumps(out))
-        return counts, out, res
+        return rl_search(label, argv, lambda: tune.main(argv), w0, phases, episodes, smi,
+                         zero_counts, all_counts, profiled)
 
     paths, rl = {}, {}
     # 7a: the reference's default search
-    counts, rl["7a"], _ = search(f"7a {RL_GAME}, {RL_NODES} nodes", RL_ARGV, RL_W0, RL_PHASES,
-                                 RL_EPISODES)
+    counts, rl["7a"], res_7a = search(f"7a {RL_GAME}, {RL_NODES} nodes", RL_ARGV, RL_W0,
+                                      RL_PHASES, RL_EPISODES)
     paths[f"search rl {RL_GAME} {RL_NODES} nodes"] = counts
     phase_done("7a GA3C search, 4 node threads")
 
@@ -692,7 +748,7 @@ def rl_phase(dev, smi, zero_counts, all_counts, phase_done):
             assert abs(a - b) - TRAIN_RTOL * abs(b) <= TRAIN_ATOL, ("7c", u, k, a, b)
     w_diff = max(float((p.detach().cpu() - q.detach()).abs().max())
                  for p, q in zip(card.net.parameters(), cpu.net.parameters()))
-    no_launches("7c")
+    no_launches("7c", all_counts)
     rl["7c"] = {"game": RL_DEV_GAME, "updates": RL_DEV_UPDATES, "n_envs": RL_ENVS,
                 "max_abs_diff": worst, "weights_max_abs_diff": w_diff,
                 "atol": TRAIN_ATOL, "rtol": TRAIN_RTOL}
@@ -726,10 +782,145 @@ def rl_phase(dev, smi, zero_counts, all_counts, phase_done):
     log(f"[rl] 7d boxing learns: {RL_LEARN_PHASES} phases of {RL_LEARN_EPISODES} episodes, "
         f"scores {scores}")
     assert scores[-1] > scores[0], ("7d: boxing did not learn", scores)
-    no_launches("7d")
+    no_launches("7d", all_counts)
     phase_done("7d GA3C, every game and a learning curve")
     log("[rl] summary " + json.dumps(rl))
-    return paths, rl
+    return paths, rl, res_7a
+
+
+def population_phase(dev, smi, zero_counts, all_counts, phase_done, rl, res_7a):
+    """Phase 8: the population engine on the card. 8a: 7a's search on the
+    vectorized backend; 8b: its (trial, phase) metrics against 7a's; 8c: a
+    batched bucket profiled against one slot, and a bucket against the same
+    trials trained alone. Every launch counter reads 0 after each part.
+    Returns the launch records of the searches and the phase's numbers."""
+    from unittest import mock
+
+    import torch
+    from repro_torch.core.executor import PopulationCluster
+    from repro_torch.core.hypertrick import RandomSearchPolicy
+    from repro_torch.core.search_space import Categorical, LogUniform, SearchSpace
+    from repro_torch.launch import tune
+    from repro_torch.population.engine import PopulationEngine, TrialLease
+    from repro_torch.population.objectives import ga3c as ga3c_objective
+    from repro_torch.rl.ga3c import GA3CHyperParams, GA3CTrainer, trial_seed
+
+    paths, pop = {}, {}
+    # 8a: the reference's default search on the population engine
+    counts, pop["8a"], res_8a = rl_search(
+        f"8a {RL_GAME}, vectorized", POP_ARGV, lambda: tune.main(POP_ARGV), RL_W0, RL_PHASES,
+        RL_EPISODES, smi, zero_counts, all_counts)
+    paths[f"search rl {RL_GAME} vectorized"] = counts
+    a, b = pop["8a"], rl["7a"]
+    log(f"[population] 8a against 7a ({RL_W0} trials, {RL_PHASES} phases of {RL_EPISODES} "
+        f"episodes): {a['buckets']} buckets on 1 host thread against {RL_NODES} node threads; "
+        f"wall {a['wall_s']:.2f} s ({b['wall_s']:.2f}), env frames/s "
+        f"{a['env_frames_per_s']:.0f} ({b['env_frames_per_s']:.0f}), updates/s "
+        f"{a['updates_per_s']:.2f} ({b['updates_per_s']:.2f}), occupancy {a['occupancy']:.3f} "
+        f"({b['occupancy']:.3f}), alpha {a['alpha']:.3f} ({b['alpha']:.3f}; expected "
+        f"{a['expected_alpha']:.3f}), peak GB {a['peak_mem_gb']:.3f} ({b['peak_mem_gb']:.3f})")
+    phase_done("8a population search, the reference's default")
+
+    # 8b: by trial id against 7a. A trial whose t_max no other trial drew had
+    # a bucket of one slot throughout (a bucket never shrinks): the thread
+    # trainer's own update, so bit-equal; the others ran batched
+    t7, t8 = trial_table(res_7a), trial_table(res_8a)
+    assert [t7[i][0] for i in sorted(t7)] == [t8[i][0] for i in sorted(t8)], "configs differ"
+    shared = collections.Counter(hp["t_max"] for hp, _, _ in t8.values())
+    held, other = [], []
+    for i in sorted(t8):
+        alone = shared[t8[i][0]["t_max"]] == 1
+        for ph in range(min(len(t7[i][2]), len(t8[i][2]))):
+            (held if alone else other).append((i, ph, t8[i][2][ph], t7[i][2][ph]))
+    worst = max((abs(x - y) for _, _, x, y in held), default=0.0)
+    pop["8b"] = {"compared": len(held), "unequal": sum(x != y for _, _, x, y in held),
+                 "max_abs_diff": worst, "atol": RL_NODES_ATOL,
+                 "batched_trials": sum(1 for _, (hp, _, _) in t8.items()
+                                       if shared[hp["t_max"]] > 1),
+                 "batched_compared": len(other),
+                 "batched_unequal": sum(x != y for _, _, x, y in other),
+                 "batched_max_abs_diff": max((abs(x - y) for _, _, x, y in other),
+                                             default=0.0)}
+    log(f"[population] 8b against 7a: {len(held)} (trial, phase) metrics of one-slot buckets "
+        f"both trained, {pop['8b']['unequal']} not bit-equal, max |8a - 7a| {worst:.3e} "
+        f"(limit {RL_NODES_ATOL:g}); trials in batched buckets {pop['8b']['batched_trials']}: "
+        f"{len(other)} compared, {pop['8b']['batched_unequal']} unequal, max "
+        f"{pop['8b']['batched_max_abs_diff']:.3e} (not held)")
+    for i, ph, x, y in held:
+        assert abs(x - y) <= RL_NODES_ATOL, ("8b", i, ph, x, y)
+    phase_done("8b population against the thread backend")
+
+    # 8c: one batched bucket, profiled, beside the same search at one slot
+    space = SearchSpace({"learning_rate": LogUniform(1e-4, 1e-3),
+                         "gamma": Categorical((0.99,)), "t_max": Categorical((POP_T_MAX,))})
+
+    def bucket_search(slots):
+        label = f"8c {slots} slot{'s' if slots > 1 else ''}, one bucket"
+        argv = [f"RandomSearchPolicy over lr, t_max {POP_T_MAX}", f"{slots} workers",
+                f"{POP_PHASES} phases of {POP_EPISODES} episodes"]
+        return rl_search(label, argv, lambda: PopulationCluster(
+            slots, game=RL_GAME, episodes_per_phase=POP_EPISODES, n_envs=RL_ENVS, seed=0,
+            device=dev).run(RandomSearchPolicy(space, slots, POP_PHASES, seed=0)),
+            slots, POP_PHASES, POP_EPISODES, smi, zero_counts, all_counts, profiled=True)
+
+    counts, pop["8c"], _ = bucket_search(POP_SLOTS)
+    paths[f"search rl {RL_GAME} one bucket of {POP_SLOTS}"] = counts
+    _, pop["8c one slot"], _ = bucket_search(1)
+    k12 = pop["8c"]["kernels_per_bucket_env_step"]
+    k1 = pop["8c one slot"]["kernels_per_bucket_env_step"]
+    pop["8c"]["kernel_ratio_to_one_slot"] = k12 / k1
+    log(f"[population] 8c: kernels a step of the bucket {k12:.1f} at {POP_SLOTS} slots, "
+        f"{k1:.1f} at one ({k12 / k1:.2f} x, limit {POP_KERNEL_RATIO:g} x); busy share "
+        f"{pop['8c']['device_busy_share']:.4f} ({pop['8c one slot']['device_busy_share']:.4f});"
+        f" env frames/s {pop['8c']['env_frames_per_s']:.0f} "
+        f"({pop['8c one slot']['env_frames_per_s']:.0f}); updates/s "
+        f"{pop['8c']['updates_per_s']:.2f} ({pop['8c one slot']['updates_per_s']:.2f})")
+    assert k12 < POP_KERNEL_RATIO * k1, ("8c: launches grow with the slots", k12, k1)
+
+    # a bucket of POP_PARITY_SLOTS against the same trials trained alone
+    zero_counts()
+    hps = [dict(learning_rate=lr, gamma=g, t_max=POP_T_MAX, beta=be) for lr, g, be in
+           ((1e-3, 0.99, 0.01), (3e-4, 0.95, 0.02), (2e-3, 0.9, 0.0), (5e-4, 0.99, 0.05))]
+    assert len(hps) == POP_PARITY_SLOTS
+    engine = PopulationEngine(RL_GAME, max_slots=POP_PARITY_SLOTS, n_envs=RL_ENVS,
+                              episodes_per_phase=10 ** 9, max_updates=10 ** 9, seed=0,
+                              device=dev)
+    engine._admit_grouped([TrialLease(i, hp) for i, hp in enumerate(hps)], now=0.0)
+    bucket = engine.buckets[POP_T_MAX]
+    assert bucket.capacity == POP_PARITY_SLOTS, bucket.capacity
+    alone = [GA3CTrainer(RL_GAME, GA3CHyperParams(**hp), n_envs=RL_ENVS,
+                         seed=trial_seed(0, hp), device=dev) for hp in hps]
+    trajs, batched_update = [], ga3c_objective.ga3c_update_slots
+
+    def recorded(*args, **kw):
+        out = batched_update(*args, **kw)
+        trajs.append(out[0])
+        return out
+
+    with mock.patch.object(ga3c_objective, "ga3c_update_slots", recorded):
+        for u in range(POP_PARITY_UPDATES):
+            bucket.step()
+            for i, tr in enumerate(alone):
+                t_alone, _ = tr.step()
+                for f in ("actions", "rewards", "dones"):
+                    assert torch.equal(getattr(trajs[-1], f)[i], getattr(t_alone, f)), (
+                        "8c", u, i, f)
+    params, w_diff = bucket.learner[0], 0.0
+    for i, tr in enumerate(alone):
+        for name, p in tr.net.named_parameters():
+            d = (params[name][i] - p.detach()).abs()
+            w_diff = max(w_diff, float(d.max()))
+            assert bool((d <= TRAIN_ATOL + TRAIN_RTOL * p.detach().abs()).all()), ("8c", i, name)
+    no_launches("8c", all_counts)
+    pop["8c parity"] = {"slots": POP_PARITY_SLOTS, "updates": POP_PARITY_UPDATES,
+                        "weights_max_abs_diff": w_diff, "atol": TRAIN_ATOL, "rtol": TRAIN_RTOL}
+    log(f"[population] 8c a bucket of {POP_PARITY_SLOTS} against the same trials alone, "
+        f"{POP_PARITY_UPDATES} updates: the same actions, rewards and dones; weights max "
+        f"|bucket - alone| {w_diff:.3e} (limit {TRAIN_ATOL:g} + {TRAIN_RTOL:g} * |alone|)")
+    phase_done(f"8c one bucket of {POP_SLOTS} slots, profiled, and a bucket against lone "
+               "trainers")
+    log("[population] summary " + json.dumps(pop))
+    return paths, pop
 
 
 def main() -> int:
@@ -2233,8 +2424,10 @@ def main() -> int:
     log("[search] summary " + json.dumps(searches))
 
     # -- 7. the GA3C search ------------------------------------------------------
-    rl_paths, _ = rl_phase(dev, smi, zero_counts, all_counts, phase_done)
-    for k, (launches, *by_kernel) in rl_paths.items():
+    rl_paths, rl, res_7a = rl_phase(dev, smi, zero_counts, all_counts, phase_done)
+    # -- 8. the population engine -------------------------------------------------
+    pop_paths, _ = population_phase(dev, smi, zero_counts, all_counts, phase_done, rl, res_7a)
+    for k, (launches, *by_kernel) in {**rl_paths, **pop_paths}.items():
         paths[k] = (launches, {name: 0 for name in launches}, 0, *by_kernel)
 
 

@@ -1,17 +1,20 @@
-"""The in-process thread backend of a search (port of
+"""The in-process backends of a search (port of
 ``repro/core/executor.py``: ``ExecRecord``, ``ExecResult`` and
-``ThreadCluster``, copied whole; ``ExecResult.updates`` is the port's).
+``ThreadCluster``, copied whole, and ``PopulationCluster``;
+``ExecResult.updates`` is the port's).
 
 * ThreadCluster — asynchronous policies (HyperTrick, random search): each
   node-thread pulls a configuration, runs phases of the REAL objective, and
   polls the optimization service after every phase. No barriers anywhere.
   A trial whose objective raises is marked crashed and its node goes on
   (paper §3.2's fault isolation): the exception is printed, not re-raised.
+* PopulationCluster — the population engine (``population/engine.py``):
+  every live trial trains at once on one device, from one host thread,
+  against the same service and policy.
 
-Not ported yet: ``SyncCluster`` (synchronized Successive Halving),
-``ProcessCluster`` (OS-process workers over TCP, the journal) and
-``PopulationCluster`` (the on-device population engine); ROADMAP queue 1
-item 7 lists them.
+Not ported yet: ``SyncCluster`` (synchronized Successive Halving) and
+``ProcessCluster`` (OS-process workers over TCP, the journal); ROADMAP
+queue 1 item 7 lists them.
 
 Objectives have the signature  objective(hparams, phase, state) ->
 (metric, state)  where state carries the live trainer across phases.
@@ -27,6 +30,7 @@ from typing import Callable, Dict, List, Optional
 
 from repro_torch.core.service import (AsyncPolicy, Decision,
                                       OptimizationService)
+from repro_torch.device import resolve_device
 
 
 @dataclass
@@ -110,3 +114,81 @@ class ThreadCluster:
         return ExecResult(svc, records, time.monotonic() - t0, self.n_nodes,
                           extra={"clones": len(clone_log)}
                           if clone_log else None)
+
+
+class PopulationCluster:
+    """The population backend: every live trial trains at once on one
+    device (``repro_torch.population.engine``), driving the same
+    ``OptimizationService`` and policy as every other backend. A "node" is
+    a device slot: eviction masks the slot and the next configuration is
+    hot-swapped in, so the paper's "stopped worker's node immediately
+    acquires a fresh configuration" happens at slot granularity with zero
+    process churn.
+
+    The workload is GA3C on ``game`` with ``n_envs`` envs a trial (the LM
+    objective is ROADMAP queue 1 item 7a-1, second part). ``slots`` defaults to the policy's initial
+    worker count W0 so the entire population is in flight from the first
+    step. ``bracket_eta`` turns on successive-halving rungs: rung phases
+    become generation barriers at which the bottom 1/eta of each cohort is
+    demoted by mask and the freed slots are hot-swapped. ``device`` is
+    checked here, before any trial starts; ``devices > 1`` (slots sharded
+    over several cards) is refused.
+    """
+
+    def __init__(self, slots: Optional[int] = None, *, game: str = "pong",
+                 episodes_per_phase: int = 60, n_envs: int = 16,
+                 max_updates: int = 2000, seed: int = 0, devices: int = 1,
+                 bracket_eta: Optional[int] = None, device="cuda"):
+        if devices > 1:
+            raise NotImplementedError(
+                f"devices={devices}: slots sharded over several cards are not owed "
+                "on one card (ROADMAP queue 1, not owed on one card)")
+        self.slots = slots
+        self.game = game
+        self.episodes_per_phase = episodes_per_phase
+        self.n_envs = n_envs
+        self.max_updates = max_updates
+        self.seed = seed
+        self.devices = devices
+        self.bracket_eta = bracket_eta
+        self.device = resolve_device(device)
+
+    def run(self, policy: AsyncPolicy) -> ExecResult:
+        from repro_torch.population.engine import LocalDriver, PopulationEngine
+        slots = self.slots or getattr(policy, "w0", None) \
+            or getattr(policy, "n_trials", None) or 8
+        # the rung barrier lives in the service (core.service.RungBarrier):
+        # the engine is a thin park/poll client of it
+        svc = OptimizationService(policy, bracket_eta=self.bracket_eta)
+        if svc.barrier is not None:
+            # single host: the whole entry cohort enrolls in one admission
+            # pass before anything can park
+            budget = (getattr(policy, "n_trials", None)
+                      or getattr(policy, "w0", None))
+            svc.configure_bracket(expect_entrants=(
+                min(slots, budget) if budget else slots))
+        engine = PopulationEngine(
+            self.game,
+            max_slots=slots, n_envs=self.n_envs,
+            episodes_per_phase=self.episodes_per_phase,
+            max_updates=self.max_updates, seed=self.seed,
+            bracket_eta=self.bracket_eta, device=self.device,
+            # one registry per search: engine.* lands next to service.*
+            metrics=svc.metrics)
+        t0 = time.monotonic()
+        rows = engine.run(LocalDriver(svc))
+        wall = time.monotonic() - t0
+        records = [ExecRecord(tid, slot, phase, ts, te, metric)
+                   for tid, slot, phase, ts, te, metric in rows]
+        extra: Dict = {"devices": self.devices}
+        if svc.barrier is not None and svc.barrier.rung_log:
+            from repro_torch.core.completion import demotion_alpha, demotion_bracket
+            extra["rungs"] = svc.barrier.rung_log
+            br = demotion_bracket(slots, self.bracket_eta,
+                                  list(svc.barrier.rungs), policy.n_phases)
+            extra["bracket"] = {"n": br.n, "r": br.r}
+            extra["bracket_alpha"] = round(demotion_alpha(br), 4)
+        if engine.speculated:
+            extra["speculative_refills"] = engine.speculated
+        return ExecResult(svc, records, wall, slots, env_steps=engine.total_env_steps,
+                          updates=engine.total_updates, extra=extra)

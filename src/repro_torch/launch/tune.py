@@ -1,29 +1,46 @@
 """HyperTrick's search on the card (port of ``repro/launch/tune.py``'s
-thread backend).
+thread and vectorized backends).
 
   # the paper's search, the default: tune GA3C on a mini-Atari game
   PYTHONPATH=src python -m repro_torch.launch.tune --objective rl --game pong \\
       --workers 12 --nodes 4 --phases 5 --eviction-rate 0.25
 
+  # the same search on the population engine: every live trial trains at
+  # once, from one host thread
+  PYTHONPATH=src python -m repro_torch.launch.tune --backend vectorized
+
+  # successive-halving rungs on the population engine
+  PYTHONPATH=src python -m repro_torch.launch.tune --backend vectorized \\
+      --bracket --eta 3
+
   # tune LM training of a zoo architecture's reduced config
   PYTHONPATH=src python -m repro_torch.launch.tune --objective lm \\
       --arch yi-9b --workers 12 --nodes 4 --phases 5
 
-``--nodes`` threads each pull a configuration from the optimization
-service, train it phase by phase and report after each phase; HyperTrick
-stops the trials that fall behind. A GA3C trial (``--objective rl``, the
-reference's default) trains 16 envs of ``--game`` for
-``--episodes-per-phase`` episodes a phase and reports their mean score; an
-LM trial (``lm``) trains ``--steps-per-phase`` steps of the architecture's
-reduced config (batch 8 x 64 tokens) and reports -loss; ``synthetic`` is
-the planted-optimum toy objective. Every trial trains on ``--device``
-(default ``cuda``), and a missing card raises before any trial starts;
-``--device cpu`` runs the plain PyTorch path. Prints the reference's
-summary as JSON.
+``--backend thread`` (the default): ``--nodes`` threads each pull a
+configuration from the optimization service, train it phase by phase and
+report after each phase; HyperTrick stops the trials that fall behind.
+``--backend vectorized``: the population engine trains ``--slots``
+(default ``--workers``) trials at once, the trials that share a ``t_max``
+in one bucket stepped together, and hot-swaps a fresh configuration into
+each slot the service stops; ``--bracket`` adds the service's rung
+barrier (demote the bottom 1/``--eta`` at each rung) over a random
+search. A GA3C trial (``--objective rl``, the reference's default) trains
+``--n-envs`` envs of ``--game`` for ``--episodes-per-phase`` episodes a
+phase and reports their mean score; an LM trial (``lm``, thread backend)
+trains ``--steps-per-phase`` steps of the architecture's reduced config
+(batch 8 x 64 tokens) and reports -loss; ``synthetic`` is the
+planted-optimum toy objective (thread backend). Every trial trains on
+``--device`` (default ``cuda``), and a missing card raises before any
+trial starts; ``--device cpu`` runs the plain PyTorch path. Prints the
+reference's summary as JSON.
 
-Ported: ``--backend thread``, ``--objective`` rl, lm or synthetic,
-``--policy`` and ``--scheduler`` hypertrick or random. The other options
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+Ported: ``--backend thread`` and ``vectorized``, ``--objective`` rl, lm
+(thread) or synthetic (thread), ``--policy`` and ``--scheduler``
+hypertrick or random, ``--bracket`` and ``--eta`` (vectorized). The other
+options raise ``NotImplementedError`` naming the ROADMAP item that ports
+them; ``--devices`` above 1 is not owed on one card. Combinations the
+reference refuses exit through ``argparse``'s error, as there.
 """
 from __future__ import annotations
 
@@ -31,7 +48,7 @@ import argparse
 import json
 
 from repro_torch.core.completion import expected_alpha, min_alpha
-from repro_torch.core.executor import ThreadCluster
+from repro_torch.core.executor import PopulationCluster, ThreadCluster
 from repro_torch.core.hypertrick import HyperTrick, RandomSearchPolicy
 from repro_torch.core.search_space import LogUniform, SearchSpace, lm_space, paper_rl_space
 from repro_torch.device import resolve_device
@@ -41,13 +58,11 @@ from repro_torch.train.trainer import make_lm_objective
 
 # what is not ported yet, and the ROADMAP queue 1 item that ports it
 NOT_PORTED = {
-    "backend vectorized": "7a-1 (the population engine)",
     "backend process": "7c (the control plane)",
     "backend server": "7c (the control plane)",
     "scheduler pbt": "7a-2 (the PBT and Hyperband schedulers)",
     "scheduler hyperband": "7a-2 (the PBT and Hyperband schedulers)",
-    "bracket": "7a-1 (the population engine's rungs; 7c across processes)",
-    "devices": "7a-1 (the population engine)",
+    "backend vectorized --objective lm": "7a-1 (its second part: the LM population objective)",
     "journal": "7c (the control plane)",
     "resume": "7c (the control plane)",
 }
@@ -81,47 +96,87 @@ def main(argv=None):
                     help="hypertrick / random: the same as --policy")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--backend", choices=["thread", "process", "server", "vectorized"],
-                    default="thread")
+                    default="thread",
+                    help="thread: in-process node threads; vectorized: the population "
+                         "engine — all live trials train at once on the device")
+    ap.add_argument("--slots", type=int, default=None,
+                    help="vectorized: trials on the device at once (default: --workers)")
     ap.add_argument("--devices", type=int, default=1)
-    ap.add_argument("--bracket", action="store_true")
+    ap.add_argument("--bracket", action="store_true",
+                    help="vectorized: successive-halving rungs through the service's "
+                         "generation barrier; the policy becomes a random search")
+    ap.add_argument("--eta", type=int, default=3,
+                    help="rung demotion factor for --bracket (default 3)")
+    ap.add_argument("--n-envs", type=int, default=16,
+                    help="envs a trial (vectorized backend)")
     ap.add_argument("--journal", default=None)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.backend != "thread":
+    if args.backend in ("process", "server"):
         _refuse(f"backend {args.backend}")
     scheduler = args.scheduler or args.policy
     if scheduler in ("pbt", "hyperband"):
         _refuse(f"scheduler {scheduler}")
-    for flag in ("bracket", "journal", "resume"):
+    if args.devices > 1:
+        raise NotImplementedError(
+            f"--devices {args.devices}: slots sharded over several cards are not owed on one "
+            "card (ROADMAP queue 1, not owed on one card)")
+    # the reference's refusals (src/repro/launch/tune.py)
+    if args.backend == "thread" and args.bracket:
+        ap.error("--bracket needs the service-side rung barrier; use "
+                 "--backend vectorized")
+    if args.bracket and args.eta < 2:
+        ap.error("--eta must be >= 2 (demote bottom 1/eta per rung)")
+    if args.backend == "vectorized":
+        if args.objective not in ("rl", "lm"):
+            ap.error("--backend vectorized runs the population engine; use --objective rl")
+        if args.resume or args.journal:
+            ap.error("--journal/--resume need a socket backend")
+        if args.objective == "lm":
+            _refuse("backend vectorized --objective lm")
+    for flag in ("journal", "resume"):
         if getattr(args, flag):
             _refuse(flag)
-    if args.devices > 1:
-        _refuse("devices")
     resolve_device(args.device)     # no card: raise before any trial runs
 
     if args.objective == "rl":
         space = paper_rl_space()
-        objective = make_rl_objective(args.game, args.episodes_per_phase, seed=args.seed,
-                                      device=args.device)
     elif args.objective == "lm":
         space = lm_space()
-        objective = make_lm_objective(args.arch, args.steps_per_phase, seed=args.seed,
-                                      device=args.device)
     else:
         space = synthetic_space()
-        objective = make_synthetic_objective(sleep=args.synthetic_sleep, seed=args.seed)
-    if scheduler == "hypertrick":
+    if args.bracket:
+        # rung demotion needs a pure sampler upstream: every eviction is
+        # the barrier's ranking
+        policy = RandomSearchPolicy(space, args.workers, args.phases, seed=args.seed)
+    elif scheduler == "hypertrick":
         policy = HyperTrick(space, args.workers, args.phases,
                             args.eviction_rate, seed=args.seed)
     else:
         policy = RandomSearchPolicy(space, args.workers, args.phases, seed=args.seed)
-    result = ThreadCluster(args.nodes, objective).run(policy)
-    if args.objective == "rl":
-        result.env_steps = sum(tr.env_steps for tr in objective.trainers)
-        result.updates = sum(tr.updates for tr in objective.trainers)
+
+    if args.backend == "vectorized":
+        result = PopulationCluster(
+            args.slots or args.workers, game=args.game,
+            episodes_per_phase=args.episodes_per_phase, n_envs=args.n_envs,
+            seed=args.seed, bracket_eta=args.eta if args.bracket else None,
+            device=args.device).run(policy)
+    else:
+        if args.objective == "rl":
+            objective = make_rl_objective(args.game, args.episodes_per_phase, seed=args.seed,
+                                          device=args.device)
+        elif args.objective == "lm":
+            objective = make_lm_objective(args.arch, args.steps_per_phase, seed=args.seed,
+                                          device=args.device)
+        else:
+            objective = make_synthetic_objective(sleep=args.synthetic_sleep, seed=args.seed)
+        result = ThreadCluster(args.nodes, objective).run(policy)
+        if args.objective == "rl":
+            result.env_steps = sum(tr.env_steps for tr in objective.trainers)
+            result.updates = sum(tr.updates for tr in objective.trainers)
     summary = result.summary()
     summary["expected_alpha"] = expected_alpha(args.eviction_rate, args.phases)
     summary["min_alpha"] = min_alpha(args.eviction_rate, args.phases)

@@ -115,3 +115,34 @@ def apply_updates(tc: TrainConfig, params, grads: dict, state: OptState, lr=None
             step_ = step_ + lr * tc.weight_decay * pf
         p.copy_(pf - step_)
     return params, OptState(t, state.acc1, state.acc2), gnorm
+
+
+@torch.no_grad()
+def apply_updates_slots(tc: TrainConfig, params: dict, grads: dict, state: OptState, lr):
+    """``apply_updates`` for RMSProp, the optimizer of GA3C, over S trials
+    at once: every weight, gradient and accumulator carries a leading slot
+    axis, ``state.step`` is ``(S,)`` and ``lr`` an ``(S,)`` tensor. Each
+    slot's gradients are clipped by that slot's own global norm (a norm
+    over the whole stack would tie each trial's step to the others').
+    Returns (params, new_state, grad_norm ``(S,)``); ``params`` and the
+    accumulators are updated in place."""
+    if tc.optimizer != "rmsprop":
+        raise ValueError(f"slot-batched updates run rmsprop, not {tc.optimizer!r}")
+    s = lr.shape[0]
+
+    def per_slot(v, like):
+        return v.view((s,) + (1,) * (like.dim() - 1))
+
+    gn = torch.sqrt(torch.stack([torch.sum(torch.square(g.float()).reshape(s, -1), 1)
+                                 for g in grads.values()]).sum(0))
+    if tc.grad_clip:
+        scale = torch.clamp(tc.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
+    else:
+        scale = torch.ones_like(gn)
+    lr = learning_rate(tc, state.step, base=lr)
+    d = tc.rmsprop_decay
+    for n, p in params.items():
+        g = grads[n].float() * per_slot(scale, p)
+        a = state.acc1[n].mul_(d).add_((1 - d) * g * g)
+        p.copy_(p.float() - per_slot(lr, p) * g / torch.sqrt(a + tc.rmsprop_eps))
+    return params, state._replace(step=state.step + 1), gn

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.rl.envs.base import Env, auto_reset, draws_to, index_draws
+from repro_torch.rl.network import apply_net_slots
 
 
 class Trajectory(NamedTuple):
@@ -62,6 +63,16 @@ def rollout_draws(env: Env, gen: torch.Generator, t_max: int, n_envs: int,
                         draws_to(env.reset_draws(gen, shape), dev))
 
 
+def stack_slot_draws(draws) -> RolloutDraws:
+    """S trials' ``RolloutDraws`` (each field ``(T, B, ...)``) as one with a
+    slot axis after the step axis, ``(T, S, B, ...)``: a step's draws of
+    every slot are then one contiguous block of S·B envs."""
+    def stack(fields):
+        return type(fields[0])(*(torch.stack(f, 1) for f in zip(*fields)))
+    return RolloutDraws(torch.stack([d.gumbel for d in draws], 1),
+                        stack([d.step for d in draws]), stack([d.reset for d in draws]))
+
+
 def init_loop_state(env: Env, reset_draws) -> LoopState:
     """The reference's ``init_loop_state(env, n_envs, rng)``, given the
     envs' reset draws in place of the key."""
@@ -95,6 +106,42 @@ def rollout(env: Env, net, loop: LoopState, t_max: int, draws: RolloutDraws):
                       torch.stack(dones).float()), ls
 
 
+@torch.no_grad()
+def rollout_slots(env: Env, params, loop: LoopState, t_max: int, draws: RolloutDraws):
+    """``rollout`` for S trials at once, through ``apply_net_slots``. Every
+    field of ``loop`` has a leading slot axis: env states ``(S, B, ...)``,
+    ``finished_sum`` / ``finished_n`` ``(S,)``, each slot's own tally.
+    ``draws`` come from ``stack_slot_draws``. The S·B envs step as one env
+    batch. Returns a trajectory of ``(S, T, B, ...)`` fields and the new
+    loop state."""
+    s, b = loop.ep_return.shape
+    flat = lambda t: t.flatten(0, 1)  # noqa: E731
+    env_state = type(loop.env_state)(*map(flat, loop.env_state))
+    stack, ep = loop.obs_stack, loop.ep_return
+    fin_sum, fin_n = loop.finished_sum, loop.finished_n
+    obs, actions, rewards, dones = [], [], [], []
+    for t in range(t_max):
+        logits, _ = apply_net_slots(params, stack)
+        act = torch.argmax(logits + draws.gumbel[t], -1)
+        env_state, ob, reward, done = auto_reset(
+            env, env_state, flat(act), type(draws.step)(*map(flat, index_draws(draws.step, t))),
+            type(draws.reset)(*map(flat, index_draws(draws.reset, t))))
+        reward, done = reward.view(s, b), done.view(s, b)
+        obs.append(stack)
+        stack = torch.stack([stack[:, :, -1], ob.view(s, b, *ob.shape[1:])], 2)
+        ep = ep + reward
+        fin_sum = fin_sum + torch.where(done, ep, 0.0).sum(1)
+        fin_n = fin_n + done.sum(1)
+        ep = torch.where(done, 0.0, ep)
+        actions.append(act)
+        rewards.append(reward)
+        dones.append(done)
+    env_state = type(env_state)(*(f.view(s, b, *f.shape[1:]) for f in env_state))
+    return (Trajectory(torch.stack(obs, 1), torch.stack(actions, 1), torch.stack(rewards, 1),
+                       torch.stack(dones, 1).float()),
+            LoopState(env_state, stack, ep, fin_sum, fin_n))
+
+
 def n_step_returns(rewards, dones, v_bootstrap, gamma: float):
     """R~_t backwards from the bootstrap value (zeroed across terminals)."""
     R = v_bootstrap
@@ -124,3 +171,33 @@ def a3c_loss(net, traj: Trajectory, v_bootstrap, *, gamma: float, beta: float,
     loss = policy_loss + value_coef * value_loss
     return loss, {"policy_loss": policy_loss, "value_loss": value_loss,
                   "entropy": torch.mean(ent)}
+
+
+def a3c_loss_slots(params, traj: Trajectory, v_bootstrap, *, gamma, beta,
+                   value_coef: float = 0.5):
+    """``a3c_loss`` of S trials at once: ``traj`` from ``rollout_slots``
+    (``(S, T, B, ...)``), ``v_bootstrap`` ``(S, B)``, ``gamma`` and ``beta``
+    ``(S,)`` tensors, one value a slot. Each slot's loss is ``a3c_loss`` of
+    its own trajectory, a mean over its own T·B samples; the returned loss
+    is their sum, so each slot's weights get the gradient of their own loss
+    (a mean over slots would scale each by 1/S). The metrics are ``(S,)``."""
+    s, t, b = traj.actions.shape
+    logits, values = apply_net_slots(params, traj.obs.reshape(s, t * b, *traj.obs.shape[3:]))
+    logits = logits.view(s, t, b, -1)
+    values = values.view(s, t, b)
+
+    # time-major for n_step_returns; gamma (S, 1) against each step's (S, B)
+    returns = n_step_returns(traj.rewards.transpose(0, 1), traj.dones.transpose(0, 1),
+                             v_bootstrap, gamma[:, None]).transpose(0, 1)
+    adv = returns - values
+
+    logp = F.log_softmax(logits, -1)
+    ent = -torch.sum(torch.exp(logp) * logp, -1)
+    logp_a = torch.gather(logp, -1, traj.actions[..., None])[..., 0]
+
+    entropy = torch.mean(ent, (1, 2))
+    policy_loss = -torch.mean(logp_a * adv.detach(), (1, 2)) - beta * entropy
+    value_loss = torch.mean(adv ** 2, (1, 2))
+    loss = policy_loss + value_coef * value_loss
+    return loss.sum(), {"policy_loss": policy_loss, "value_loss": value_loss,
+                        "entropy": entropy}

@@ -13,16 +13,18 @@ start alike and see the same draws.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.device import resolve_device
-from repro_torch.optim.optimizers import apply_updates, init_opt_state
-from repro_torch.rl.a3c import a3c_loss, init_loop_state, rollout, rollout_draws
+from repro_torch.optim.optimizers import apply_updates, apply_updates_slots, init_opt_state
+from repro_torch.rl.a3c import (a3c_loss, a3c_loss_slots, init_loop_state, rollout,
+                                rollout_draws, rollout_slots)
 from repro_torch.rl.envs.base import draws_to
 from repro_torch.rl.envs.minigames import make_env
-from repro_torch.rl.network import A3CNet, A3CNetConfig
+from repro_torch.rl.network import A3CNet, A3CNetConfig, apply_net, apply_net_slots
 
 
 @dataclass
@@ -44,6 +46,46 @@ def ga3c_train_config(learning_rate: float) -> TrainConfig:
     """The paper's GA3C optimizer settings (shared-statistics RMSProp)."""
     return TrainConfig(learning_rate=learning_rate, optimizer="rmsprop",
                        rmsprop_decay=0.99, rmsprop_eps=0.1, grad_clip=5.0)
+
+
+def ga3c_update(env, tc: TrainConfig, params: dict, opt_state, loop, draws, *, gamma, beta,
+                lr=None):
+    """One GA3C update of one trial (``GA3CTrainer.step``'s body): a t_max
+    rollout on ``draws``, the bootstrap, the A3C gradient and RMSProp.
+    ``params`` maps names to weights that require grad; they and the
+    accumulators are updated in place. ``lr`` overrides ``tc``'s. Returns
+    (trajectory, loop state, optimizer state, metrics on the device)."""
+    net = partial(apply_net, params)
+    traj, loop = rollout(env, net, loop, draws.gumbel.shape[0], draws)
+    with torch.no_grad():
+        _, v_boot = net(loop.obs_stack)
+        v_boot = v_boot * (1.0 - traj.dones[-1])
+    loss, metrics = a3c_loss(net, traj, v_boot, gamma=gamma, beta=beta)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    _, opt_state, gn = apply_updates(tc, params, dict(zip(params, grads)), opt_state, lr=lr)
+    return traj, loop, opt_state, {"loss": loss.detach(),
+                                   **{k: v.detach() for k, v in metrics.items()},
+                                   "grad_norm": gn}
+
+
+def ga3c_update_slots(env, tc: TrainConfig, params: dict, opt_state, loop, draws, *, gamma,
+                      beta, lr):
+    """``ga3c_update`` for S trials at once, each weight, accumulator and
+    loop field with a leading slot axis and ``gamma`` / ``beta`` / ``lr``
+    ``(S,)`` tensors; ``draws`` from ``a3c.stack_slot_draws``. One set of
+    launches serves every slot (``rollout_slots``, ``a3c_loss_slots``,
+    ``apply_updates_slots``); slot s's numbers are its own trial's, within
+    the f32 rounding of another order of sums."""
+    traj, loop = rollout_slots(env, params, loop, draws.gumbel.shape[0], draws)
+    with torch.no_grad():
+        _, v_boot = apply_net_slots(params, loop.obs_stack)
+        v_boot = v_boot * (1.0 - traj.dones[:, -1])
+    loss, metrics = a3c_loss_slots(params, traj, v_boot, gamma=gamma, beta=beta)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    _, opt_state, gn = apply_updates_slots(tc, params, dict(zip(params, grads)), opt_state, lr)
+    return traj, loop, opt_state, {"loss": loss.detach(),
+                                   **{k: v.detach() for k, v in metrics.items()},
+                                   "grad_norm": gn}
 
 
 class GA3CTrainer:
@@ -81,18 +123,11 @@ class GA3CTrainer:
         hp = self.hp
         if draws is None:
             draws = rollout_draws(self.env, self.gen, hp.t_max, self.n_envs, self.device)
-        traj, self.loop = rollout(self.env, self.net, self.loop, hp.t_max, draws)
-        with torch.no_grad():
-            _, v_boot = self.net(self.loop.obs_stack)
-            v_boot = v_boot * (1.0 - traj.dones[-1])
-        loss, metrics = a3c_loss(self.net, traj, v_boot, gamma=hp.gamma, beta=hp.beta)
-        names, params = zip(*self.net.named_parameters())
-        grads = torch.autograd.grad(loss, params)
-        _, self.opt_state, gn = apply_updates(self.tc, self.net, dict(zip(names, grads)),
-                                              self.opt_state)
+        traj, self.loop, self.opt_state, metrics = ga3c_update(
+            self.env, self.tc, dict(self.net.named_parameters()), self.opt_state, self.loop,
+            draws, gamma=hp.gamma, beta=hp.beta)
         self.updates += 1
-        return traj, {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()},
-                      "grad_norm": gn}
+        return traj, metrics
 
     def run_episodes(self, n_episodes: int, max_updates: int = 10_000):
         """Train until n_episodes finish; returns the mean score of the

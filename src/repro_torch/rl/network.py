@@ -10,6 +10,10 @@ and every trial thread shares, and its weight-gradient algorithms may sum
 with atomics. The matmuls follow ``torch.backends.cuda.matmul.allow_tf32``,
 off by default and never set by the port, so the forward and backward are
 f32 and repeat bit for bit.
+
+``apply_net_slots`` runs S trials' nets at once for the population engine:
+each weight stacked on a leading slot axis, each layer one batched matmul
+(``baddbmm``, which follows the same flag) over the same window copy.
 """
 from __future__ import annotations
 
@@ -88,8 +92,48 @@ class A3CNet(nn.Module):
             self.register_parameter(name, nn.Parameter(t))
 
     def forward(self, obs):
-        x = obs.float()
-        x = F.relu(_conv(x, self.c1w, self.c1b, 2))
-        x = F.relu(_conv(x, self.c2w, self.c2b, 1))
-        x = F.relu(F.linear(x.flatten(1), self.fcw, self.fcb))
-        return F.linear(x, self.pw, self.pb), F.linear(x, self.vw, self.vb)[:, 0]
+        return apply_net(self._parameters, obs)
+
+
+def apply_net(params, obs):
+    """``A3CNet.forward`` on a mapping of ``param_shapes``' names to weights:
+    ``obs (B, frames, G, G) -> (logits (B, A), value (B,))``."""
+    x = obs.float()
+    x = F.relu(_conv(x, params["c1w"], params["c1b"], 2))
+    x = F.relu(_conv(x, params["c2w"], params["c2b"], 1))
+    x = F.relu(F.linear(x.flatten(1), params["fcw"], params["fcb"]))
+    return F.linear(x, params["pw"], params["pb"]), F.linear(x, params["vw"], params["vb"])[:, 0]
+
+
+def _conv_slots(x, w, b, stride):
+    """``_conv`` over a leading slot axis of S weight sets: x (S·N, C, H, W)
+    holds slot s's N inputs at rows s·N to (s+1)·N, w is (S, O, C, k, k), b
+    (S, O). The same copy of the windows, then one ``baddbmm`` for every
+    slot in place of ``addmm``."""
+    s, o, _, k, _ = w.shape
+    sn, c, h, _ = x.shape
+    g = _conv_out(h, k, stride)
+    win = x.unfold(2, k, stride).unfold(3, k, stride)       # (S·N, c, g, g, k, k)
+    cols = win.permute(0, 2, 3, 1, 4, 5).reshape(s, sn // s * g * g, c * k * k)
+    out = torch.baddbmm(b[:, None], cols, w.reshape(s, o, -1).transpose(1, 2))
+    return out.view(sn, g, g, o).permute(0, 3, 1, 2)
+
+
+def _linear_slots(x, w, b):
+    """x (S, N, in) by w (S, out, in) plus b (S, out): ``F.linear`` a slot."""
+    return torch.baddbmm(b[:, None], x, w.transpose(1, 2))
+
+
+def apply_net_slots(params, obs):
+    """``apply_net`` for S trials at once: every weight carries a leading
+    slot axis (``(S,) + param_shapes[name]``) and ``obs (S, N, frames, G,
+    G) -> (logits (S, N, A), value (S, N))``, slot s's inputs through slot
+    s's weights. Each layer is one batched matmul whatever S is; a slot's
+    numbers are its own (``bmm`` may sum in another order than ``addmm``)."""
+    s, n = obs.shape[:2]
+    x = obs.float().flatten(0, 1)
+    x = F.relu(_conv_slots(x, params["c1w"], params["c1b"], 2))
+    x = F.relu(_conv_slots(x, params["c2w"], params["c2b"], 1))
+    x = F.relu(_linear_slots(x.reshape(s, n, -1), params["fcw"], params["fcb"]))
+    return (_linear_slots(x, params["pw"], params["pb"]),
+            _linear_slots(x, params["vw"], params["vb"])[..., 0])

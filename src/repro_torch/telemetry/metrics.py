@@ -213,8 +213,6 @@ METRIC_SCHEMA: Dict[str, str] = {
     "engine.updates": "counter — per-slot train-step executions",
     "engine.env_steps_s": "gauge — aggregate env-steps/s since engine start",
     "engine.step_s": "histogram — wall seconds per engine loop iteration",
-    "engine.compile_s": ("histogram — first-call (trace+compile) time per "
-                         "bucket step executable"),
     "engine.phase_env_steps_s": ("histogram — per-trial env-steps/s over "
                                  "each reported phase"),
     "engine.park_stall_s": ("histogram — seconds a slot sat parked at the "

@@ -14,6 +14,8 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.data.synthetic import DataPipeline  # noqa: E402
 from repro_torch.core import service as search_service  # noqa: E402
+from repro_torch.core.executor import PopulationCluster  # noqa: E402
+from repro_torch.population.engine import PopulationEngine  # noqa: E402
 from repro_torch.launch import serve, step_times, train, train_devices, tune  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.models.model import init_cache  # noqa: E402
@@ -111,6 +113,25 @@ def test_tune_needs_a_card_before_any_trial(no_gpu, monkeypatch):
         tune.main(["--objective", "lm", "--workers", "2", "--nodes", "1", "--phases", "1",
                    "--steps-per-phase", "1"])
     assert acquired == []
+
+
+def test_vectorized_tune_needs_a_card_before_any_trial(no_gpu, monkeypatch):
+    """The population backend checks the card before it builds anything:
+    ``tune --backend vectorized`` and ``PopulationCluster`` raise unless
+    given the CPU."""
+    acquired = []
+    real = search_service.OptimizationService.acquire_trial
+    monkeypatch.setattr(search_service.OptimizationService, "acquire_trial",
+                        lambda self, *a, **k: acquired.append(a) or real(self, *a, **k))
+    with pytest.raises(RuntimeError, match="cuda"):
+        tune.main(["--backend", "vectorized", "--workers", "2", "--phases", "1",
+                   "--episodes-per-phase", "1", "--n-envs", "2"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        PopulationCluster(2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        PopulationEngine("pong", max_slots=2)
+    assert acquired == []
+    PopulationCluster(2, device="cpu")
 
 
 def test_engine_refuses_params_on_another_device():

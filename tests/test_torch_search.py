@@ -292,20 +292,49 @@ def test_tune_cli_runs_on_the_cpu(monkeypatch, capsys, tmp_path):
     assert all(math.isfinite(r.metric) for r in res.records)
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--backend", "vectorized"], "7a-1"),
-    (["--backend", "process"], "7c"),
-    (["--backend", "server"], "7c"),
-    (["--scheduler", "pbt"], "7a-2"),
-    (["--scheduler", "hyperband"], "7a-2"),
-    (["--bracket"], "7a-1"),
-    (["--devices", "2"], "7a-1"),
-    (["--journal", "j.jsonl"], "7c"),
-    (["--resume"], "7c"),
+@pytest.mark.parametrize("argv,match", [
+    (["--backend", "vectorized", "--objective", "lm"], "ROADMAP queue 1 item 7a-1 "),
+    (["--backend", "process"], "ROADMAP queue 1 item 7c "),
+    (["--backend", "server"], "ROADMAP queue 1 item 7c "),
+    (["--scheduler", "pbt"], "ROADMAP queue 1 item 7a-2 "),
+    (["--scheduler", "hyperband"], "ROADMAP queue 1 item 7a-2 "),
+    (["--backend", "vectorized", "--scheduler", "pbt"], "ROADMAP queue 1 item 7a-2 "),
+    (["--devices", "2"], "not owed on one card"),
+    (["--journal", "j.jsonl"], "ROADMAP queue 1 item 7c "),
+    (["--resume"], "ROADMAP queue 1 item 7c "),
 ])
-def test_tune_cli_refuses_what_is_not_ported(argv, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item} "):
+def test_tune_cli_refuses_what_is_not_ported(argv, match):
+    with pytest.raises(NotImplementedError, match=match):
         tune.main(["--device", "cpu", *argv])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--bracket"],
+    ["--backend", "vectorized", "--objective", "synthetic"],
+    ["--backend", "vectorized", "--journal", "j.jsonl"],
+    ["--backend", "vectorized", "--resume"],
+    ["--backend", "vectorized", "--bracket", "--eta", "1"],
+])
+def test_tune_cli_refuses_what_the_reference_refuses(argv, capsys):
+    """The reference's argparse errors: --bracket needs the vectorized
+    backend, which runs GA3C only and keeps no journal."""
+    with pytest.raises(SystemExit) as exc:
+        tune.main(["--device", "cpu", *argv])
+    assert exc.value.code == 2 and "error:" in capsys.readouterr().err
+
+
+def test_tune_cli_vectorized_runs_on_the_cpu(monkeypatch, capsys):
+    keys = _reference_summary_keys(monkeypatch, capsys) | {"devices"}
+    res = tune.main(["--backend", "vectorized", "--device", "cpu", "--workers", "3",
+                     "--phases", "2", "--episodes-per-phase", "2", "--n-envs", "2"])
+    printed = json.loads(capsys.readouterr().out)
+    assert set(printed) == keys and printed["devices"] == 1
+    assert printed["n_trials"] == 3 and "crashed" not in printed["by_status"]
+    assert res.n_nodes == 3 and res.updates > 0
+    # every update lies in a reported phase: the engine's count of env
+    # transitions is the sum of the phases' counts the service was sent
+    assert res.env_steps > 0
+    assert res.env_steps == res.service.metrics.counter("service.env_steps").value
 
 
 # ---------------------------------------------------------------------------
