@@ -166,7 +166,13 @@ Phases, each of which passes or ends the script with a non-zero exit:
      flash, the small gmm), their launch counts held as in 6a. Phase 2 holds
      the block RMSNorm and the FMA flash kernel at the trial shapes, and
      phase 4 times them there beside ``F.rms_norm`` and SDPA.
-     Every search here passes ``--objective lm``;
+     Every search here passes ``--objective lm``. Phase 2 also holds
+     RMSNorm's slot case (a scale row a slot, the block kernel) at 12 slots
+     of the population engine's rows, (12, 64, 256) and (12, 512, 256) in
+     f32 and the latter in bf16, and the FMA flash kernel over 12 slots'
+     sequences; phase 4 times the slot case at both shapes beside its
+     plain version and the shared-scale block kernel on the same rows (no
+     single PyTorch call takes a scale a slot);
   7. the GA3C search, the paper's own (``repro_torch.launch.tune
      --objective rl``, the CLI's default). No kernel of the port runs on it:
      every launch counter must read 0 after each part. 7a: the reference's
@@ -202,7 +208,34 @@ Phases, each of which passes or ends the script with a non-zero exit:
      ``POP_KERNEL_RATIO`` x one slot's), env frames/s, updates/s; then a
      bucket of 4 trials against the same 4 trials trained alone, 3 updates
      on the same draws: the same actions, rewards and dones, weights within
-     TRAIN_ATOL + TRAIN_RTOL * |alone|.
+     TRAIN_ATOL + TRAIN_RTOL * |alone|;
+  9. LM trials on the population engine and PBT's clone (``tune --backend
+     vectorized --objective lm`` / ``--scheduler pbt``). 9a: the CLI's
+     defaults (yi-9b reduced, f32, batch 2 x 32, 12 workers in 12 slots, 5
+     phases of 25 steps, HyperTrick at r 0.25, seed 0): one bucket, no
+     trial crashed, 1 to 5 reports a trial, every metric finite, the best
+     above -ln(512), alpha in (0, 1], and the launch counters at the
+     bucket's steps x (3 RMSNorm slot calls on the block kernel + 1 FMA
+     flash call), no warp RMSNorm, gmm or scan; prints wall time,
+     trial-steps/s, tokens/s, occupancy, alpha beside ``expected_alpha`` and
+     peak memory. 9b: one bucket of 12 slots at 8 x 64 (the thread
+     backend's trial shape), a random search over the learning rate, 2
+     phases of 25 steps, in one CUDA-only profiler session, beside the same
+     at one slot: busy share, kernels a step of the bucket (below
+     ``POP_KERNEL_RATIO`` x one slot's), trial-steps/s, tokens/s. 9c:
+     ``repro_torch.launch.population_checks``' 4 trials in one bucket
+     against each alone in a bucket of one, 3 updates on the same draws,
+     within its limits (``slot_faults``: each slot's summed AdamW second
+     moments, its weights outside TRAIN_ATOL + TRAIN_RTOL * |alone|, its
+     largest |bucket - alone| over its lr, its summed -loss); then one
+     bucket step on the card against the CPU from one CPU draw of the
+     weights and data, each slot's loss within TRAIN_ATOL + TRAIN_RTOL *
+     |cpu|. 9d: ``--scheduler pbt`` on the engine for GA3C (4 workers, 3
+     phases of 2 episodes, 2 envs) and LM (4 workers, 3 phases of 4 steps):
+     every trial completed and at least one clone copied on the device (a
+     run without one is repeated at the next seed, up to ``PBT_SEEDS``);
+     then one clone on the card under ``set_sync_debug_mode("error")``: the
+     child's learner bit-equal to the parent's, its carry unchanged.
 Seconds per phase are printed as each ends. The last two lines are the
 kernels' JSON line and the result line.
 """
@@ -325,6 +358,35 @@ POP_ARGV = ["--backend", "vectorized", *RL_ARGV]
 POP_SLOTS, POP_PHASES, POP_EPISODES, POP_T_MAX = 12, 2, 12, 8
 POP_KERNEL_RATIO = 3.0
 POP_PARITY_SLOTS, POP_PARITY_UPDATES = 4, 3
+# phase 9: LM trials on the population engine. 9a: the CLI's defaults
+# (``tune --backend vectorized --objective lm``: yi-9b reduced in f32, the
+# reference's trial batch 2 x 32, 12 workers in 12 slots, 5 phases of 25
+# steps, HyperTrick at r 0.25, seed 0): every trial draws a loss_chunk of
+# 256 or more, so one bucket (key min(loss_chunk, 32)); each step of the
+# bucket launches 3 RMSNorm slot calls and 1 FMA flash call
+POP_LM_ARGV = ["--backend", "vectorized", "--objective", "lm"]
+POP_LM_BATCH, POP_LM_SEQ = 2, 32
+# 9b: one bucket of POP_SLOTS slots at the thread backend's trial shape
+# (SEARCH_BATCH x SEARCH_SEQ), a random search over the learning rate, 2
+# phases of 25 steps, profiled, beside the same search at one slot
+POP_LM_PHASES, POP_LM_STEPS = 2, 25
+# 9c: ``repro_torch.launch.population_checks``' comparison at engine seed
+# 0: its trials in one bucket against each alone, its limits
+# (``slot_faults``). Twenty seeds of it on an H100 and its coupled controls
+# are in PERF.md
+# 9d: PBT through the CLI on the engine, the reference's recipe for rl and a
+# short LM run. A run may execute no clone on the device and be right: a
+# population of 4 whose reports come in rising order gets no CLONE verdict,
+# and a GA3C parent of another t_max may have finished and left its slot
+# before its child reports (``python -m repro_torch.launch.population_checks
+# pbt --objective rl --seeds 24 --device cpu``: 4 and 6 of 24 runs copied
+# no slot; lm 2 of 12 and 3 of 24). So a run without a clone on the device
+# is repeated at the next seed, up to PBT_SEEDS runs
+PBT_RL_ARGV = ["--backend", "vectorized", "--scheduler", "pbt", "--workers", "4", "--phases",
+               "3", "--episodes-per-phase", "2", "--n-envs", "2"]
+PBT_LM_ARGV = ["--backend", "vectorized", "--objective", "lm", "--scheduler", "pbt",
+               "--workers", "4", "--phases", "3", "--steps-per-phase", "4"]
+PBT_SEEDS = 10
 
 
 def log(*a):
@@ -412,7 +474,10 @@ def profiled_session(fn, iters, sessions=5, ignore=frozenset(), ours=None):
     call (a jamba-8 prefill's ``index_select`` launched its vectorized
     gather 14 times in 3 calls on an H100). Keys in ``ignore`` (the L2
     flush's own, which no time includes) are held only where a timed call
-    shares them, a count over ``iters``."""
+    shares them, a count over ``iters``, and then may fall up to LEAD_IN
+    short of a multiple of ``iters``: an H100 dropped the session's first
+    flush memset in 4 of 5 sessions of the plain gmm, whose own memsets
+    share the key (139 of 7 x 20)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for session in range(sessions):
@@ -428,7 +493,8 @@ def profiled_session(fn, iters, sessions=5, ignore=frozenset(), ours=None):
         kern = device_kernels(prof, required=False, skip_lead_in=True)
         if ours is None:
             off = {a.key[:60]: a.count for a in kern if a.count % iters
-                   and not (a.key in ignore and a.count < iters)}
+                   and not (a.key in ignore and (a.count < iters
+                                                 or a.count % iters >= iters - LEAD_IN))}
         else:
             port = {a.key: a.count for a in kern if is_port_kernel(a.key)}
             off = {}
@@ -923,6 +989,256 @@ def population_phase(dev, smi, zero_counts, all_counts, phase_done, rl, res_7a):
     return paths, pop
 
 
+def lm_expect(rcfg):
+    """Launches of one step of a bucket of the LM objective (any number of
+    slots): each RMSNorm a slot call of the block kernel, each attention
+    block one FMA flash call."""
+    fwd = per_forward(rcfg)
+    assert fwd["gmm"] == fwd["selective_scan"] == 0, fwd
+    return fwd
+
+
+def population_lm_phase(dev, smi, zero_counts, all_counts, phase_done):
+    """Phase 9: LM trials on the population engine and PBT's clone on the
+    card. 9a: the CLI's vectorized LM search at its defaults; 9b: a bucket
+    of 12 slots at the thread backend's trial shape, profiled, beside one
+    slot; 9c: a bucket against the same trials alone, and a bucket step on
+    the card against the CPU; 9d: PBT on the engine for GA3C and LM, and one
+    clone under ``set_sync_debug_mode("error")``. Returns the launch records
+    of the LM paths (for the kernels' line) and the phase's numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.completion import expected_alpha
+    from repro_torch.core.executor import PopulationCluster
+    from repro_torch.core.hypertrick import RandomSearchPolicy
+    from repro_torch.core.scheduler import ReportReply
+    from repro_torch.core.search_space import Categorical, LogUniform, SearchSpace
+    from repro_torch.launch import population_checks as pc
+    from repro_torch.launch import tune
+    from repro_torch.population.engine import PopulationEngine, TrialLease
+    from repro_torch.population.objectives.lm import LMObjective
+
+    rcfg = get_config(YI).reduced()
+    expect = lm_expect(rcfg)
+    paths, out = {}, {}
+
+    def lm_search(label, run, w0, phases, steps, batch, seq, profiled=False, bar=True):
+        """``run()`` on the card: no trial crashed, 1 to ``phases`` reports
+        a trial (all of them when it completed), every metric finite, with
+        ``bar`` the best above -ln(vocab), alpha in (0, 1], one bucket, and the launch
+        counters at the bucket's steps x ``expect``: every RMSNorm a slot
+        call of the block kernel, every flash call the FMA kernel."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if profiled:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                lead_in()
+                res = run()
+                torch.cuda.synchronize()
+        else:
+            res = run()
+            torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches, fa_by, gmm_by, rms_by, scan_by = all_counts()
+        summary, tab = res.summary(), trial_table(res)
+        assert summary["n_trials"] == w0 and len(tab) == w0, (label, summary)
+        assert "crashed" not in summary["by_status"], (label, summary["by_status"])
+        for tid, (hp, status, ms) in tab.items():
+            assert status in ("completed", "killed"), (label, tid, status)
+            assert 1 <= len(ms) <= phases and (status != "completed" or len(ms) == phases), (
+                label, tid, status, ms)
+            assert all(math.isfinite(m) for m in ms), (label, tid, ms)
+        if bar:
+            assert summary["best_metric"] > -math.log(rcfg.vocab_size), (label, summary)
+        alpha = res.service.db.completion_rate(phases)
+        assert 0 < alpha <= 1, (label, alpha)
+        buckets = {min(hp.get("loss_chunk", 1024), seq) for hp, _, _ in tab.values()}
+        assert len(buckets) == 1, (label, buckets)
+        iterations = res.service.metrics.histogram("engine.step_s").count
+        log(f"[population-lm] {label}: {iterations} steps of the bucket, {res.updates} "
+            f"trial-steps, launches {launches}, flash by kernel {fa_by}, rmsnorm by kernel "
+            f"{rms_by}; per step of the bucket {expect}")
+        for name, n in expect.items():
+            assert launches[name] == n * iterations, (label, name, launches[name], n * iterations)
+        assert fa_by == {"split_kv": 0, "tensor_core": 0,
+                         "fma": expect["flash_attention"] * iterations}, (label, fa_by)
+        n_rms = expect["rmsnorm"] * iterations
+        assert rms_by == {"warp": 0, "block": n_rms, "slots": n_rms}, (label, rms_by)
+        assert not any(gmm_by.values()) and not any(scan_by.values()), (label, gmm_by, scan_by)
+        wall = res.wall_time
+        row = {"search": label, "arch": rcfg.name, "trials": w0, "slots": res.n_nodes,
+               "buckets": len(buckets), "phases": phases, "steps_per_phase": steps,
+               "batch": batch, "seq": seq, "wall_s": wall, "run_s": run_s,
+               "bucket_steps": iterations, "trial_steps": res.updates,
+               "trial_steps_per_s": res.updates / wall,
+               "tokens_per_s": res.updates * batch * seq / wall,
+               "occupancy": res.occupancy, "alpha": alpha,
+               "expected_alpha": expected_alpha(SEARCH_R, phases),
+               "by_status": summary["by_status"], "best_metric": summary["best_metric"],
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches_per_bucket_step": expect}
+        if profiled:
+            kern = device_kernels(prof, skip_lead_in=True)
+            busy_ms = sum(a.self_device_time_total for a in kern) / 1e3
+            n_kern = sum(a.count for a in kern)
+            row.update(device_busy_ms=busy_ms, device_busy_share=busy_ms / 1e3 / wall,
+                       device_kernels=n_kern, kernels_per_bucket_step=n_kern / iterations,
+                       port_kernel_ms=sum(a.self_device_time_total for a in kern
+                                          if is_port_kernel(a.key)) / 1e3)
+            for a in sorted(kern, key=lambda a: -a.self_device_time_total)[:8]:
+                log(f"[profile]   {a.self_device_time_total / 1e3:9.3f} ms {a.count:7d}x "
+                    f"{a.key[:90]}")
+        log(f"[population-lm] {smi}: " + json.dumps(row))
+        return (launches, expect, iterations, fa_by, gmm_by, rms_by, scan_by), row, res
+
+    # 9a: the CLI's vectorized LM search at its defaults
+    path, out["9a"], _ = lm_search(
+        f"9a {YI}, vectorized", lambda: tune.main(POP_LM_ARGV), SEARCH_W0, SEARCH_PHASES,
+        SEARCH_STEPS, POP_LM_BATCH, POP_LM_SEQ)
+    paths[f"search {YI} vectorized"] = path
+    a = out["9a"]
+    log(f"[population-lm] 9a: {a['buckets']} bucket of {a['slots']} slots; wall "
+        f"{a['wall_s']:.2f} s, trial-steps/s {a['trial_steps_per_s']:.2f}, tokens/s "
+        f"{a['tokens_per_s']:.0f}, occupancy {a['occupancy']:.3f}, alpha {a['alpha']:.3f} "
+        f"(expected {a['expected_alpha']:.3f}), peak GB {a['peak_mem_gb']:.3f}")
+    phase_done("9a LM search, vectorized")
+
+    # 9b: one bucket at the thread backend's trial shape, profiled, and one slot
+    space = SearchSpace({"learning_rate": LogUniform(1e-4, 1e-2),
+                         "loss_chunk": Categorical((1024,)), "grad_clip": Categorical((1.0,)),
+                         "warmup_steps": Categorical((1,))})
+
+    def bucket_search(slots):
+        label = (f"9b {slots} slot{'s' if slots > 1 else ''}, one bucket, "
+                 f"{SEARCH_BATCH} x {SEARCH_SEQ}")
+        return lm_search(label, lambda: PopulationCluster(
+            slots, objective=LMObjective(YI, batch=SEARCH_BATCH, seq=SEARCH_SEQ, device=dev),
+            episodes_per_phase=POP_LM_STEPS, seed=0, device=dev).run(
+                RandomSearchPolicy(space, slots, POP_LM_PHASES, seed=0)),
+            slots, POP_LM_PHASES, POP_LM_STEPS, SEARCH_BATCH, SEARCH_SEQ, profiled=True,
+            bar=slots > 1)      # a lone trial's drawn lr may be too small to learn in 50 steps
+
+    path, out["9b"], _ = bucket_search(POP_SLOTS)
+    paths[f"search {YI} one bucket of {POP_SLOTS}"] = path
+    path, out["9b one slot"], _ = bucket_search(1)
+    paths[f"search {YI} one bucket of 1"] = path
+    k12, k1 = out["9b"]["kernels_per_bucket_step"], out["9b one slot"]["kernels_per_bucket_step"]
+    out["9b"]["kernel_ratio_to_one_slot"] = k12 / k1
+    log(f"[population-lm] 9b: kernels a step of the bucket {k12:.1f} at {POP_SLOTS} slots, "
+        f"{k1:.1f} at one ({k12 / k1:.2f} x, limit {POP_KERNEL_RATIO:g} x); busy share "
+        f"{out['9b']['device_busy_share']:.4f} ({out['9b one slot']['device_busy_share']:.4f}); "
+        f"trial-steps/s {out['9b']['trial_steps_per_s']:.2f} "
+        f"({out['9b one slot']['trial_steps_per_s']:.2f}); tokens/s "
+        f"{out['9b']['tokens_per_s']:.0f} ({out['9b one slot']['tokens_per_s']:.0f})")
+    assert k12 < POP_KERNEL_RATIO * k1, ("9b: launches grow with the slots", k12, k1)
+    phase_done(f"9b one LM bucket of {POP_SLOTS} slots, profiled, and one slot")
+
+    # 9c: a bucket against the same trials alone, on the same draws (each
+    # slot's generator is seeded by trial_seed, in this process)
+    hps = pc.SLOT_HPARAMS
+
+    def lm_engine(n, device, init_device=None):
+        return PopulationEngine(
+            LMObjective(YI, device=device, init_device=init_device), max_slots=n,
+            episodes_per_phase=10 ** 9, max_updates=10 ** 9, seed=0, device=device)
+
+    zero_counts()
+    slots = pc.slot_rows(0, dev)
+    torch.cuda.synchronize()
+    launches, fa_by, gmm_by, rms_by, scan_by = all_counts()
+    steps = pc.UPDATES * (1 + len(hps))
+    assert launches["rmsnorm"] == expect["rmsnorm"] * steps == rms_by["slots"], (launches, rms_by)
+    assert fa_by["fma"] == expect["flash_attention"] * steps, fa_by
+    paths[f"{YI} bucket of {len(hps)} and alone"] = (launches, expect, steps, fa_by, gmm_by,
+                                                     rms_by, scan_by)
+    faults = [pc.slot_faults(r) for r in slots]
+    out["9c"] = {"slots": len(hps), "updates": pc.UPDATES, "by_slot": slots, "faults": faults}
+    v_rel = [f"{r['v_sum_rel_diff']:.1e}" for r in slots]
+    log(f"[population-lm] 9c a bucket of {len(hps)} against the same trials alone, "
+        f"{pc.UPDATES} updates: summed second moments {v_rel} apart (limit {pc.V_RTOL:g} "
+        f"relative); weights outside {pc.ATOL:g} + {pc.RTOL:g} |alone| "
+        f"{[r['outside_limit'] for r in slots]} of {slots[0]['weights']} (limit "
+        f"{pc.OUTLIERS}), max |bucket - alone| / lr {[round(r['over_lr'], 4) for r in slots]} "
+        f"(limit {pc.MAX_OVER_LR:g}); summed -loss "
+        f"{max(r['loss_sum_abs_diff'] for r in slots):.3e}; limits broken {faults}")
+    assert not any(faults), ("9c", faults, slots)
+    # one bucket step on the card against the CPU, one CPU draw of the
+    # weights and of the data
+    sums = {}
+    for d in ("cpu", dev):
+        e = lm_engine(len(hps), d, init_device="cpu")
+        e._admit_grouped([TrialLease(i, hp) for i, hp in enumerate(hps)], now=0.0)
+        e.buckets[POP_LM_SEQ].step()
+        sums[str(d)] = e.buckets[POP_LM_SEQ].carry[1].cpu()
+    card, cpu = sums[str(dev)], sums["cpu"]
+    dev_diff = float((card - cpu).abs().max())
+    out["9c card vs cpu"] = {"slots": len(hps), "loss_max_abs_diff": dev_diff,
+                             "card": card.tolist(), "cpu": cpu.tolist()}
+    log(f"[population-lm] 9c one bucket step, card against CPU: losses {(-card).tolist()} and "
+        f"{(-cpu).tolist()}, max |card - cpu| {dev_diff:.3e} (limit {TRAIN_ATOL:g} + "
+        f"{TRAIN_RTOL:g} |cpu|)")
+    assert bool(((card - cpu).abs() - TRAIN_RTOL * cpu.abs() <= TRAIN_ATOL).all()), ("9c", card,
+                                                                                    cpu)
+    phase_done("9c LM bucket against lone trials, and card against CPU")
+
+    # 9d: PBT on the engine through the CLI, GA3C and LM
+    for kind, argv in (("rl", PBT_RL_ARGV), ("lm", PBT_LM_ARGV)):
+        runs = []
+        for seed in range(PBT_SEEDS):
+            zero_counts()
+            t0 = time.perf_counter()
+            res = tune.main([*argv, "--seed", str(seed)])
+            torch.cuda.synchronize()
+            summary = res.summary()
+            runs.append({"seed": seed, "wall_s": time.perf_counter() - t0,
+                         "clones": summary.get("clones", 0),
+                         "clones_on_device": summary.get("clones_on_device", 0),
+                         "by_status": summary["by_status"], "best_metric": summary["best_metric"],
+                         "launches": all_counts()[0]})
+            log(f"[population-lm] 9d PBT {kind}: {json.dumps(runs[-1])}")
+            assert summary["by_status"] == {"completed": 4}, (kind, summary)
+            if kind == "rl":
+                no_launches(f"9d {kind}", all_counts)
+            if runs[-1]["clones_on_device"]:
+                break
+        assert runs[-1]["clones"] >= 1 and runs[-1]["clones_on_device"] >= 1, (kind, runs)
+        out[f"9d pbt {kind}"] = runs
+    # one clone on the card under the sync check: bit-equal learner, the
+    # child's carry kept
+    e = lm_engine(2, dev)
+    e._admit_grouped([TrialLease(i, hp) for i, hp in enumerate(hps[:2])], now=0.0)
+    b = e.buckets[POP_LM_SEQ]
+    b.step()
+    carry = [t[1].clone() if isinstance(t, torch.Tensor) else t[1]
+             for t in b.leaves[b._n_learner:]]
+    gen_state = carry[-1].get_state()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        e._exploit(b, 1, b.meta[1], ReportReply("continue", clone_from=0, perturb=dict(
+            hps[0], learning_rate=7e-4)))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    learner = [t for t in b.leaves[:b._n_learner] if isinstance(t, torch.Tensor)]
+    assert e.clones == 1 and all(torch.equal(t[1], t[0]) for t in learner), "9d clone"
+    after = [t[1] if isinstance(t, torch.Tensor) else t[1] for t in b.leaves[b._n_learner:]]
+    assert all(torch.equal(x, y) for x, y in zip(carry[:-1], after[:-1])), "9d carry"
+    assert after[-1] is carry[-1] and torch.equal(after[-1].get_state(), gen_state), "9d gen"
+    out["9d clone"] = {"leaves_copied": len(learner), "bit_equal": True, "carry_kept": True,
+                       "sync_debug_mode": "error"}
+    log(f"[population-lm] 9d one clone on the card under set_sync_debug_mode('error'): "
+        f"{len(learner)} learner leaves bit-equal to the parent's, the child's carry kept")
+    phase_done("9d PBT on the engine, GA3C and LM, and a clone under the sync check")
+    log("[population-lm] summary " + json.dumps(out))
+    return paths, out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -941,8 +1257,8 @@ def main() -> int:
     from repro_torch.kernels.gmm.gmm import launch as gmm_launch
     from repro_torch.kernels.gmm.ops import gmm
     from repro_torch.kernels.gmm.ref import TILE_M, gmm_ref
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm
-    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_slots
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref, rmsnorm_slots_ref
     from repro_torch.kernels.rmsnorm.rmsnorm import WARP_WIDTHS as RMS_WARP_WIDTHS
     from repro_torch.kernels.rmsnorm.rmsnorm import kernel_for as rms_kernel_for
     from repro_torch.kernels.rmsnorm.rmsnorm import launch as rms_launch
@@ -958,7 +1274,7 @@ def main() -> int:
 
     kernel_ops = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
                   "selective_scan": selective_scan, "gmm": gmm}
-    clock = {"t": time.perf_counter()}
+    clock = {"t": time.perf_counter(), "start": time.perf_counter()}
 
     def phase_done(name):
         now = time.perf_counter()
@@ -971,7 +1287,7 @@ def main() -> int:
         flash_attention.launches_split_kv = flash_attention.launches_tensor_core = 0
         flash_attention.launches_fma = 0
         gmm.launches_tiled = gmm.launches_decode = gmm.launches_small = 0
-        rmsnorm.launches_warp = rmsnorm.launches_block = 0
+        rmsnorm.launches_warp = rmsnorm.launches_block = rmsnorm.launches_slots = 0
         selective_scan.launches_prefill = selective_scan.launches_sequential = 0
 
     # -- 0. device -----------------------------------------------------------
@@ -1051,10 +1367,11 @@ def main() -> int:
         return e
 
     hcfg, cfg0 = get_config(HYBRID), get_config(ARCH)
-    rms_err_by_kernel = {"warp": 0.0, "block": 0.0}
+    rms_err_by_kernel = {"warp": 0.0, "block": 0.0, "slots": 0.0}
 
     def rms_counts():
-        return {"warp": rmsnorm.launches_warp, "block": rmsnorm.launches_block}
+        return {"warp": rmsnorm.launches_warp, "block": rmsnorm.launches_block,
+                "slots": rmsnorm.launches_slots}
 
     def rms_case(label, x, sc, want=None):
         """One RMSNorm call through the dispatch, which must move the counter
@@ -1535,6 +1852,30 @@ def main() -> int:
     flash_case(f"the search's trial B{SEARCH_BATCH} S{SEARCH_SEQ}", SEARCH_BATCH,
                trial_cfg.n_heads, trial_cfg.n_kv_heads, SEARCH_SEQ, SEARCH_SEQ,
                trial_cfg.head_dim, True, 0, 0.0, torch.float32, 0, want="fma")
+    # the population engine's buckets (phase 9): RMSNorm's slot case, one
+    # scale row a slot, on the block kernel; flash over the slots' sequences
+    # as one batch (the FMA kernel, the same function)
+
+    def rms_slots_case(label, x, sc):
+        tol = 5e-2 if x.dtype == torch.bfloat16 else 1e-5
+        before = rms_counts()
+        out = rmsnorm_slots(x, sc)
+        moved = {n: c - before[n] for n, c in rms_counts().items()}
+        assert moved == {"warp": 0, "block": 1, "slots": 1}, (label, moved)
+        e = check("rmsnorm", f"[block, a scale a slot] {label}", out, rmsnorm_slots_ref(x, sc),
+                  tol)
+        rms_err_by_kernel["slots"] = max(rms_err_by_kernel["slots"], e)
+
+    width = trial_cfg.d_model
+    for rows, dt in ((POP_LM_BATCH * POP_LM_SEQ, torch.float32),
+                     (SEARCH_BATCH * SEARCH_SEQ, torch.float32),
+                     (SEARCH_BATCH * SEARCH_SEQ, torch.bfloat16)):
+        rms_slots_case(f"({POP_SLOTS}, {rows}, {width}) {dt}",
+                       t(POP_SLOTS, rows, width, dtype=dt), (t(POP_SLOTS, width) + 1.0).to(dt))
+    flash_case(f"the LM bucket's {POP_SLOTS} slots x B{POP_LM_BATCH} S{POP_LM_SEQ}",
+               POP_SLOTS * POP_LM_BATCH,
+               trial_cfg.n_heads, trial_cfg.n_kv_heads, POP_LM_SEQ, POP_LM_SEQ,
+               trial_cfg.head_dim, True, 0, 0.0, torch.float32, 0, want="fma")
 
     phase_done("2 kernels vs plain")
 
@@ -1586,7 +1927,7 @@ def main() -> int:
         n_rms = expect["rmsnorm"]
         rms_served = "warp" if cfg.d_model in RMS_WARP_WIDTHS else "block"
         assert rms_by_kernel == {k: n_rms * forwards * (k == rms_served)
-                                 for k in ("warp", "block")}, rms_by_kernel
+                                 for k in ("warp", "block", "slots")}, rms_by_kernel
         log(f"[serve] rmsnorm per forward: {n_rms} {rms_served} calls (d_model "
             f"{cfg.d_model}; norm {cfg.norm}: LayerNorm is plain PyTorch)")
         # the scan: the prefill kernel at prefill, the sequential one at decode
@@ -2042,6 +2383,33 @@ def main() -> int:
         fa_search["kernel"], rms_search["kernel"])
     log(f"[times] the search's trial shapes: flash {json.dumps(fa_search)}; rmsnorm "
         f"{json.dumps(rms_search)}")
+
+    def rms_slots_times(S, rows, D, dtype=torch.float32):
+        """The slot case's row (a scale row a slot), with the shared-scale
+        block kernel timed on the same rows beside it."""
+        x = t(S, rows, D, dtype=dtype)
+        sc = (t(S, D) + 1.0).to(dtype)
+        nbytes = 2 * x.numel() * x.element_size() + sc.numel() * sc.element_size()
+        b_ms, b_by, _ = bound(nbytes, 4 * x.numel(), str(dtype).split(".")[-1])
+        return {"shape": f"({S}, {rows}, {D}) {dtype_name[dtype]}, scale ({S}, {D})",
+                "kernel": "block (a scale a slot)",
+                "ms": device_ms(lambda: rmsnorm_slots(x, sc), flush),
+                "event_ms": cuda_ms(lambda: rmsnorm_slots(x, sc)),
+                "plain_ms": device_ms(lambda: rmsnorm_slots_ref(x, sc), flush),
+                "library_ms": None,
+                "library_note": "no single PyTorch call takes a scale a slot",
+                "shared_scale_block_ms": device_ms(lambda: rmsnorm(x, sc[0]), flush),
+                "bound_ms": b_ms, "bound_by": b_by}
+
+    # the population engine's LM buckets: the CLI's trial (2 x 32) and the
+    # thread backend's (8 x 64), 12 slots of yi-9b reduced
+    rms_slots = {f"{rows} rows a slot": rms_slots_times(POP_SLOTS, rows, trial_cfg.d_model)
+                 for rows in (POP_LM_BATCH * POP_LM_SEQ, SEARCH_BATCH * SEARCH_SEQ)}
+    fa_slots = flash_times(trial_cfg, POP_LM_SEQ, POP_LM_SEQ, 0, None, 0, torch.float32,
+                           POP_SLOTS * POP_LM_BATCH)
+    assert fa_slots["kernel"] == "fma", fa_slots["kernel"]
+    log(f"[times] the LM bucket's shapes: rmsnorm slots {json.dumps(rms_slots)}; flash "
+        f"{json.dumps(fa_slots)}")
     log(f"[profile] phase 4's profiler sessions: {SESSIONS}")
     phase_done("4 times")
 
@@ -2182,7 +2550,7 @@ def main() -> int:
         assert by[0] == {"split_kv": 0, "tensor_core": expect["flash_attention"] * TRAIN_STEPS,
                          "fma": 0}
         assert by[1] == {"tiled": expect["gmm"] * TRAIN_STEPS, "decode": 0, "small": 0}
-        assert by[2] == {"warp": expect["rmsnorm"] * TRAIN_STEPS, "block": 0}
+        assert by[2] == {"warp": expect["rmsnorm"] * TRAIN_STEPS, "block": 0, "slots": 0}
         assert by[3] == {"prefill": expect["selective_scan"] * TRAIN_STEPS, "sequential": 0}
         log(f"[train] {tcfg.name} per step: {expect} kernel launches, all in the forward")
         step_ms = [s.elapsed_time(e) for s, e in events]
@@ -2292,7 +2660,8 @@ def main() -> int:
             assert launches[name] == n * steps, (label, name, launches[name], n * steps)
         assert fa_by == {"split_kv": 0, "tensor_core": 0,
                          "fma": expect["flash_attention"] * steps}, (label, fa_by)
-        assert rms_by == {"warp": 0, "block": expect["rmsnorm"] * steps}, (label, rms_by)
+        assert rms_by == {"warp": 0, "block": expect["rmsnorm"] * steps, "slots": 0}, (
+            label, rms_by)
         assert gmm_by == {"tiled": 0, "decode": 0, "small": expect["gmm"] * steps}, (label, gmm_by)
         assert scan_by == {"prefill": expect["selective_scan"] * steps, "sequential": 0}, (
             label, scan_by)
@@ -2429,6 +2798,9 @@ def main() -> int:
     pop_paths, _ = population_phase(dev, smi, zero_counts, all_counts, phase_done, rl, res_7a)
     for k, (launches, *by_kernel) in {**rl_paths, **pop_paths}.items():
         paths[k] = (launches, {name: 0 for name in launches}, 0, *by_kernel)
+    # -- 9. LM trials on the population engine, and PBT --------------------------
+    lm_paths, _ = population_lm_phase(dev, smi, zero_counts, all_counts, phase_done)
+    paths.update(lm_paths)
 
 
     kernels = []
@@ -2436,10 +2808,10 @@ def main() -> int:
             ("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
              "src/repro/kernels/rmsnorm/rmsnorm.py:22", rms_prefill, rms_decode,
              {"jamba": rms_jamba, "grok": rms_grok, "phi3": rms_phi3, "kimi": rms_kimi,
-              "search": rms_search}),
+              "search": rms_search, "slots": rms_slots}),
             ("flash_attention", "src/repro_torch/kernels/csrc/flash_prefill.cu",
              "src/repro/kernels/flash_attention/flash_attention.py:75", fa_prefill, fa_decode,
-             {"jamba": fa_jamba, "zoo": fa_zoo, "search": fa_search}),
+             {"jamba": fa_jamba, "zoo": fa_zoo, "search": fa_search, "slots": fa_slots}),
             ("gmm", "src/repro_torch/kernels/csrc/gmm_prefill.cu",
              "src/repro/kernels/gmm/gmm.py:28", gmm_prefill, gmm_more["decode"],
              {**{k: v for k, v in gmm_more.items() if k != "decode"}, "grok": gmm_grok,
@@ -2456,7 +2828,7 @@ def main() -> int:
             "decode": dec_t, **more, "device": smi})
         if name == "rmsnorm":
             kernels[-1]["sources"] = ["src/repro_torch/kernels/csrc/rmsnorm.cu"]
-            for served in ("warp", "block"):
+            for served in ("warp", "block", "slots"):
                 kernels[-1][f"launches_{served}"] = sum(p[5][served] for p in paths.values())
                 kernels[-1][f"launches_{served}_by_path"] = {k: p[5][served]
                                                              for k, p in paths.items()}
@@ -2497,6 +2869,8 @@ def main() -> int:
         assert kernels[-1]["launches"] > 0, f"{name}: no launch on the main paths"
     serves = {k: {**p[7], **probes[k]} for k, p in paths.items() if k in probes}
     log("[serve] summary " + json.dumps(serves))
+    log(f"[phase] the smoke's total, phases 0-9 with the build: "
+        f"{time.perf_counter() - clock['start']:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                            "count": torch.cuda.device_count()}}))

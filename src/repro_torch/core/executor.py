@@ -10,7 +10,8 @@
   (paper §3.2's fault isolation): the exception is printed, not re-raised.
 * PopulationCluster — the population engine (``population/engine.py``):
   every live trial trains at once on one device, from one host thread,
-  against the same service and policy.
+  against the same service and policy; GA3C or LM trials (``objective``),
+  with PBT's clones copied slot to slot on the device.
 
 Not ported yet: ``SyncCluster`` (synchronized Successive Halving) and
 ``ProcessCluster`` (OS-process workers over TCP, the journal); ROADMAP
@@ -125,26 +126,32 @@ class PopulationCluster:
     acquires a fresh configuration" happens at slot granularity with zero
     process churn.
 
-    The workload is GA3C on ``game`` with ``n_envs`` envs a trial (the LM
-    objective is ROADMAP queue 1 item 7a-1, second part). ``slots`` defaults to the policy's initial
-    worker count W0 so the entire population is in flight from the first
-    step. ``bracket_eta`` turns on successive-halving rungs: rung phases
-    become generation barriers at which the bottom 1/eta of each cohort is
-    demoted by mask and the freed slots are hot-swapped. ``device`` is
-    checked here, before any trial starts; ``devices > 1`` (slots sharded
-    over several cards) is refused.
+    ``objective`` selects the workload: None (default) is GA3C on ``game``
+    with ``n_envs`` envs a trial; otherwise a ``PopulationObjective``
+    (``population.objectives``, e.g. the LM objective built on ``device``).
+    ``episodes_per_phase`` is the objective's unit a phase (GA3C: episodes;
+    LM: updates). ``slots`` defaults to the policy's initial worker count
+    W0 so the entire population is in flight from the first step.
+    ``bracket_eta`` turns on successive-halving rungs: rung phases become
+    generation barriers at which the bottom 1/eta of each cohort is demoted
+    by mask and the freed slots are hot-swapped. Under PBT the summary
+    counts the CLONE verdicts (``clones``) and those executed as slot
+    copies on the device (``clones_on_device``). ``device`` is checked
+    here, before any trial starts; ``devices > 1`` (slots sharded over
+    several cards) is refused.
     """
 
     def __init__(self, slots: Optional[int] = None, *, game: str = "pong",
                  episodes_per_phase: int = 60, n_envs: int = 16,
                  max_updates: int = 2000, seed: int = 0, devices: int = 1,
-                 bracket_eta: Optional[int] = None, device="cuda"):
+                 bracket_eta: Optional[int] = None, objective=None, device="cuda"):
         if devices > 1:
             raise NotImplementedError(
                 f"devices={devices}: slots sharded over several cards are not owed "
                 "on one card (ROADMAP queue 1, not owed on one card)")
         self.slots = slots
         self.game = game
+        self.objective = objective
         self.episodes_per_phase = episodes_per_phase
         self.n_envs = n_envs
         self.max_updates = max_updates
@@ -168,7 +175,7 @@ class PopulationCluster:
             svc.configure_bracket(expect_entrants=(
                 min(slots, budget) if budget else slots))
         engine = PopulationEngine(
-            self.game,
+            self.game if self.objective is None else self.objective,
             max_slots=slots, n_envs=self.n_envs,
             episodes_per_phase=self.episodes_per_phase,
             max_updates=self.max_updates, seed=self.seed,
@@ -190,5 +197,11 @@ class PopulationCluster:
             extra["bracket_alpha"] = round(demotion_alpha(br), 4)
         if engine.speculated:
             extra["speculative_refills"] = engine.speculated
+        clone_log = getattr(svc.scheduler, "clone_log", None)
+        if clone_log:
+            # clone verdicts issued against the ones executed as slot copies
+            # on the device (a parent may have left its slot already)
+            extra["clones"] = len(clone_log)
+            extra["clones_on_device"] = engine.clones
         return ExecResult(svc, records, wall, slots, env_steps=engine.total_env_steps,
                           updates=engine.total_updates, extra=extra)

@@ -41,7 +41,9 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # C signatures of the exported launchers (see csrc/*.cu); every launcher
 # returns a cudaError_t as int
 SIGNATURES = {
-    "rmsnorm_launch": [_P, _P, _P, _LL, _I, _LL, _F, _I, _I, _P],
+    # x, scale, out, rows, D, x row stride, eps, x dtype, scale dtype,
+    # rows a scale row (0: one scale for every row), stream
+    "rmsnorm_launch": [_P, _P, _P, _LL, _I, _LL, _F, _I, _I, _LL, _P],
     # x, scale, out, rows, D, x row stride, eps, scale dtype, stream
     "rmsnorm_warp_launch": [_P, _P, _P, _LL, _I, _LL, _F, _I, _P],
     "rmsnorm_warp_attrs": [_I, _IP],        # D, int[4] as flash_prefill_attrs

@@ -15,14 +15,16 @@ import threading
 _LOCK = threading.Lock()
 
 
-def count_launch(op, launched) -> None:
+def count_launch(op, launched, *cases) -> None:
     """One more launch of kernel ``launched`` on ``op``'s counters:
-    ``op.launches`` and ``op.launches_<launched>``. ``launched`` None (the
-    call launched nothing) moves none."""
+    ``op.launches``, ``op.launches_<launched>`` and ``op.launches_<case>``
+    for each of ``cases`` (a case of that kernel, e.g. RMSNorm's
+    ``slots``). ``launched`` None (the call launched nothing) moves none."""
     if launched is None:
         return
-    name = f"launches_{launched}"
+    names = [f"launches_{name}" for name in (launched, *cases)]
     with _LOCK:
-        served = getattr(op, name)
+        served = [getattr(op, name) for name in names]   # an unknown kernel raises here
         op.launches += 1
-        setattr(op, name, served + 1)
+        for name, n in zip(names, served):
+            setattr(op, name, n + 1)

@@ -17,7 +17,13 @@
 //  * block (rmsnorm_kernel): every other call (f32 x, other widths,
 //    unaligned or oddly strided rows). One block of 256 threads owns one
 //    row, staged in shared memory as f32 (16-byte loads where the row allows
-//    them), with a block reduction.
+//    them), with a block reduction. With rows_per_scale > 0 it is also the
+//    slot case (kernels/rmsnorm/rmsnorm.py::rmsnorm_slots_cuda): scale holds
+//    one row of D a slot, and row r reads row r / rows_per_scale of it. That
+//    is the reference's rmsnorm_pallas under jax.vmap over a population's
+//    slots (src/repro/population/engine.py), where each trial has its own
+//    scale. Every slot's scale row is read by rows_per_scale blocks, from
+//    L2 after the first.
 //
 // Which one serves a call is kernels/rmsnorm/rmsnorm.py::kernel_for's choice.
 #include "common.cuh"
@@ -55,13 +61,15 @@ template <typename T, typename S>
 __global__ void __launch_bounds__(kThreads)
 rmsnorm_kernel(const T* __restrict__ x, const S* __restrict__ scale,
                T* __restrict__ out, int D, long long x_row_stride, float eps,
-               bool vec) {
+               bool vec, long long rows_per_scale) {
   extern __shared__ float smem[];
   float* row = smem;               // D floats
   float* part = smem + D;          // one partial per warp
   const long long r = blockIdx.x;
   const T* xr = x + r * x_row_stride;
   T* orow = out + r * D;
+  // the slot case: this row's slot's scale row (0: one scale for every row)
+  if (rows_per_scale) scale += (r / rows_per_scale) * D;
 
   float ss = 0.f;
   load_row(xr, row, D, vec, ss);
@@ -96,7 +104,8 @@ rmsnorm_kernel(const T* __restrict__ x, const S* __restrict__ scale,
 
 template <typename T, typename S>
 cudaError_t launch(const void* x, const void* scale, void* out, long long rows,
-                   int D, long long x_row_stride, float eps, cudaStream_t stream) {
+                   int D, long long x_row_stride, float eps, long long rows_per_scale,
+                   cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const bool vec = D % V == 0 && x_row_stride % V == 0 &&
                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
@@ -110,7 +119,7 @@ cudaError_t launch(const void* x, const void* scale, void* out, long long rows,
   }
   kern<<<(unsigned)rows, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const S*>(scale), static_cast<T*>(out),
-      D, x_row_stride, eps, vec);
+      D, x_row_stride, eps, vec, rows_per_scale);
   return cudaGetLastError();
 }
 
@@ -199,20 +208,27 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }  // namespace
 
 // x: (rows, D) with rows x_row_stride elements apart; out: (rows, D)
-// contiguous; scale: (D,). x_dtype/s_dtype: ReproDtype.
+// contiguous; x_dtype/s_dtype: ReproDtype. rows_per_scale 0: scale is (D,),
+// one for every row; > 0: scale is (rows / rows_per_scale, D) contiguous,
+// row r scaled by its row r / rows_per_scale (rows must be a multiple).
 extern "C" int rmsnorm_launch(const void* x, const void* scale, void* out,
                               long long rows, int D, long long x_row_stride,
-                              float eps, int x_dtype, int s_dtype, void* stream) {
+                              float eps, int x_dtype, int s_dtype,
+                              long long rows_per_scale, void* stream) {
   if (rows == 0) return 0;
+  if (rows_per_scale < 0 || (rows_per_scale && rows % rows_per_scale))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long rps = rows_per_scale;
   if (x_dtype == kFloat32 && s_dtype == kFloat32)
-    return launch<float, float>(x, scale, out, rows, D, x_row_stride, eps, st);
+    return launch<float, float>(x, scale, out, rows, D, x_row_stride, eps, rps, st);
   if (x_dtype == kFloat32 && s_dtype == kBFloat16)
-    return launch<float, __nv_bfloat16>(x, scale, out, rows, D, x_row_stride, eps, st);
+    return launch<float, __nv_bfloat16>(x, scale, out, rows, D, x_row_stride, eps, rps, st);
   if (x_dtype == kBFloat16 && s_dtype == kFloat32)
-    return launch<__nv_bfloat16, float>(x, scale, out, rows, D, x_row_stride, eps, st);
+    return launch<__nv_bfloat16, float>(x, scale, out, rows, D, x_row_stride, eps, rps, st);
   if (x_dtype == kBFloat16 && s_dtype == kBFloat16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, scale, out, rows, D, x_row_stride, eps, st);
+    return launch<__nv_bfloat16, __nv_bfloat16>(x, scale, out, rows, D, x_row_stride, eps,
+                                                 rps, st);
   return cudaErrorInvalidValue;
 }
 

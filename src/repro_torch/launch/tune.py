@@ -17,30 +17,46 @@ thread and vectorized backends).
   PYTHONPATH=src python -m repro_torch.launch.tune --objective lm \\
       --arch yi-9b --workers 12 --nodes 4 --phases 5
 
+  # the same LM search on the population engine: every trial in one bucket
+  PYTHONPATH=src python -m repro_torch.launch.tune --backend vectorized \\
+      --objective lm
+
+  # Population Based Training: CLONE verdicts copy a parent's weights into
+  # the child's slot on the device (vectorized) or only hand the child the
+  # perturbed hyperparameters (thread)
+  PYTHONPATH=src python -m repro_torch.launch.tune --backend vectorized \\
+      --scheduler pbt --workers 4 --phases 3 --episodes-per-phase 2 --n-envs 2
+
 ``--backend thread`` (the default): ``--nodes`` threads each pull a
 configuration from the optimization service, train it phase by phase and
 report after each phase; HyperTrick stops the trials that fall behind.
 ``--backend vectorized``: the population engine trains ``--slots``
-(default ``--workers``) trials at once, the trials that share a ``t_max``
-in one bucket stepped together, and hot-swaps a fresh configuration into
-each slot the service stops; ``--bracket`` adds the service's rung
-barrier (demote the bottom 1/``--eta`` at each rung) over a random
-search. A GA3C trial (``--objective rl``, the reference's default) trains
-``--n-envs`` envs of ``--game`` for ``--episodes-per-phase`` episodes a
-phase and reports their mean score; an LM trial (``lm``, thread backend)
-trains ``--steps-per-phase`` steps of the architecture's reduced config
-(batch 8 x 64 tokens) and reports -loss; ``synthetic`` is the
-planted-optimum toy objective (thread backend). Every trial trains on
-``--device`` (default ``cuda``), and a missing card raises before any
-trial starts; ``--device cpu`` runs the plain PyTorch path. Prints the
-reference's summary as JSON.
+(default ``--workers``) trials at once, the trials that share a bucket
+key (GA3C: ``t_max``; LM: the effective ``loss_chunk``) stepped together,
+and hot-swaps a fresh configuration into each slot the service stops;
+``--bracket`` adds the service's rung barrier (demote the bottom
+1/``--eta`` at each rung) over a random search. A GA3C trial
+(``--objective rl``, the reference's default) trains ``--n-envs`` envs of
+``--game`` for ``--episodes-per-phase`` episodes a phase and reports their
+mean score; an LM trial (``lm``) trains ``--steps-per-phase`` steps of the
+architecture's reduced config and reports -loss (thread backend: batch 8 x
+64 tokens, ``make_lm_objective``; vectorized: batch 2 x 32,
+``population.objectives.lm``, the reference's); ``synthetic`` is the
+planted-optimum toy objective (thread backend). ``--scheduler pbt`` runs
+Population Based Training over ``--workers`` members on either backend
+(its perturbations keep the objective's structural keys). Every trial
+trains on ``--device`` (default ``cuda``), and a missing card raises
+before any trial starts; ``--device cpu`` runs the plain PyTorch path.
+Prints the reference's summary as JSON.
 
-Ported: ``--backend thread`` and ``vectorized``, ``--objective`` rl, lm
-(thread) or synthetic (thread), ``--policy`` and ``--scheduler``
-hypertrick or random, ``--bracket`` and ``--eta`` (vectorized). The other
+Ported: ``--backend thread`` and ``vectorized``, ``--objective`` rl, lm or
+synthetic (thread), ``--policy`` and ``--scheduler`` hypertrick or random,
+``--scheduler pbt``, ``--bracket`` and ``--eta`` (vectorized). The other
 options raise ``NotImplementedError`` naming the ROADMAP item that ports
 them; ``--devices`` above 1 is not owed on one card. Combinations the
-reference refuses exit through ``argparse``'s error, as there.
+reference refuses exit through ``argparse``'s error, as there
+(``--scheduler hyperband`` off the process and server backends among
+them).
 """
 from __future__ import annotations
 
@@ -50,9 +66,12 @@ import json
 from repro_torch.core.completion import expected_alpha, min_alpha
 from repro_torch.core.executor import PopulationCluster, ThreadCluster
 from repro_torch.core.hypertrick import HyperTrick, RandomSearchPolicy
+from repro_torch.core.scheduler import PBTScheduler
 from repro_torch.core.search_space import LogUniform, SearchSpace, lm_space, paper_rl_space
 from repro_torch.device import resolve_device
 from repro_torch.distributed.worker import make_synthetic_objective
+from repro_torch.population.objectives import spec_for
+from repro_torch.population.objectives.lm import LMObjective
 from repro_torch.rl.ga3c import make_rl_objective
 from repro_torch.train.trainer import make_lm_objective
 
@@ -60,9 +79,8 @@ from repro_torch.train.trainer import make_lm_objective
 NOT_PORTED = {
     "backend process": "7c (the control plane)",
     "backend server": "7c (the control plane)",
-    "scheduler pbt": "7a-2 (the PBT and Hyperband schedulers)",
-    "scheduler hyperband": "7a-2 (the PBT and Hyperband schedulers)",
-    "backend vectorized --objective lm": "7a-1 (its second part: the LM population objective)",
+    "scheduler hyperband": "7c (the control plane: Hyperband pools its cohorts at the "
+                           "server's rung barrier)",
     "journal": "7c (the control plane)",
     "resume": "7c (the control plane)",
 }
@@ -115,16 +133,24 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
+    # the reference's refusals and scheduler checks (src/repro/launch/tune.py)
+    scheduler = args.scheduler or args.policy
+    if scheduler == "hyperband":
+        if args.bracket:
+            ap.error("--scheduler hyperband IS a bracket scheduler (every (eta, R) bracket "
+                     "runs concurrently); drop --bracket")
+        if args.backend not in ("process", "server"):
+            ap.error("--scheduler hyperband pools its bracket cohorts at the server-side "
+                     "rung barrier; use --backend process or server")
+        _refuse("scheduler hyperband")
+    if scheduler == "pbt" and args.bracket:
+        ap.error("--scheduler pbt is asynchronous (no rung barrier); drop --bracket")
     if args.backend in ("process", "server"):
         _refuse(f"backend {args.backend}")
-    scheduler = args.scheduler or args.policy
-    if scheduler in ("pbt", "hyperband"):
-        _refuse(f"scheduler {scheduler}")
     if args.devices > 1:
         raise NotImplementedError(
             f"--devices {args.devices}: slots sharded over several cards are not owed on one "
             "card (ROADMAP queue 1, not owed on one card)")
-    # the reference's refusals (src/repro/launch/tune.py)
     if args.backend == "thread" and args.bracket:
         ap.error("--bracket needs the service-side rung barrier; use "
                  "--backend vectorized")
@@ -132,11 +158,10 @@ def main(argv=None):
         ap.error("--eta must be >= 2 (demote bottom 1/eta per rung)")
     if args.backend == "vectorized":
         if args.objective not in ("rl", "lm"):
-            ap.error("--backend vectorized runs the population engine; use --objective rl")
+            ap.error("--backend vectorized runs the population engine; use --objective rl "
+                     "or lm")
         if args.resume or args.journal:
             ap.error("--journal/--resume need a socket backend")
-        if args.objective == "lm":
-            _refuse("backend vectorized --objective lm")
     for flag in ("journal", "resume"):
         if getattr(args, flag):
             _refuse(flag)
@@ -148,7 +173,12 @@ def main(argv=None):
         space = lm_space()
     else:
         space = synthetic_space()
-    if args.bracket:
+    if scheduler == "pbt":
+        # perturbations keep the objective's structural keys (rl: t_max, lm:
+        # loss_chunk): a perturbed one would move the child to another bucket
+        policy = PBTScheduler(space, population=args.workers, n_phases=args.phases,
+                              seed=args.seed, frozen=spec_for(args.objective).structural)
+    elif args.bracket:
         # rung demotion needs a pure sampler upstream: every eviction is
         # the barrier's ranking
         policy = RandomSearchPolicy(space, args.workers, args.phases, seed=args.seed)
@@ -159,9 +189,14 @@ def main(argv=None):
         policy = RandomSearchPolicy(space, args.workers, args.phases, seed=args.seed)
 
     if args.backend == "vectorized":
+        if args.objective == "lm":
+            objective = LMObjective(args.arch, data_seed=args.seed, device=args.device)
+            units_per_phase = args.steps_per_phase
+        else:
+            objective, units_per_phase = None, args.episodes_per_phase   # GA3C on --game
         result = PopulationCluster(
-            args.slots or args.workers, game=args.game,
-            episodes_per_phase=args.episodes_per_phase, n_envs=args.n_envs,
+            args.slots or args.workers, game=args.game, objective=objective,
+            episodes_per_phase=units_per_phase, n_envs=args.n_envs,
             seed=args.seed, bracket_eta=args.eta if args.bracket else None,
             device=args.device).run(policy)
     else:

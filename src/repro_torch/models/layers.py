@@ -7,6 +7,12 @@ MLP are plain PyTorch on every device, as they are plain ``jnp`` in the
 reference. Unlike the functional reference, the blocks write the KV cache
 in place (a (R, B, L, Hkv, hd) stack is too large to copy every decode
 step).
+
+``norm_slots``, ``mlp_block_slots`` and ``attn_block_slots`` are the train
+forms of S trials at once, as the reference's blocks under ``jax.vmap``
+over a population's slots: every weight carries a leading slot axis, the
+activations are ``(S, B*T, D)``, the projections one ``bmm`` each, RMSNorm
+the op's slot case and attention one flash call over ``S*B`` sequences.
 """
 from __future__ import annotations
 
@@ -15,36 +21,65 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.rmsnorm.ops import rmsnorm
+from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_slots
 from repro_torch.models.attention import rope
 
 
-def norm(cfg: ModelConfig, p, x, prefix: str = "norm"):
+def _check_norm(cfg: ModelConfig):
     if not cfg.norm_f32:
         raise NotImplementedError("only f32-statistics norms are ported")
-    if cfg.norm == "layernorm":
-        # plain PyTorch on every device: the reference has no kernel for it
-        xf = x.float()
-        xf = xf - xf.mean(-1, keepdim=True)
-        var = (xf * xf).mean(-1, keepdim=True)
-        out = xf * torch.rsqrt(var + 1e-6) * p[f"{prefix}_scale"].float() \
-            + p[f"{prefix}_bias"].float()
-        return out.to(x.dtype)
-    if cfg.norm != "rmsnorm":
+    if cfg.norm not in ("layernorm", "rmsnorm"):
         raise NotImplementedError(f"norm {cfg.norm!r} is not ported")
+
+
+def _layernorm(x, scale, bias):
+    """Plain PyTorch on every device: the reference has no kernel for it.
+    ``scale`` and ``bias`` broadcast against x."""
+    xf = x.float()
+    xf = xf - xf.mean(-1, keepdim=True)
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + 1e-6) * scale.float() + bias.float()).to(x.dtype)
+
+
+def norm(cfg: ModelConfig, p, x, prefix: str = "norm"):
+    _check_norm(cfg)
+    if cfg.norm == "layernorm":
+        return _layernorm(x, p[f"{prefix}_scale"], p[f"{prefix}_bias"])
     return rmsnorm(x, p[f"{prefix}_scale"], eps=1e-6)
+
+
+def norm_slots(cfg: ModelConfig, p, x, prefix: str = "norm"):
+    """``norm`` of S trials: x (S, ..., D), each slot's scale (and bias) a
+    row of an (S, D) weight."""
+    _check_norm(cfg)
+    scale = p[f"{prefix}_scale"].contiguous()
+    if cfg.norm == "layernorm":
+        row = scale.shape[:1] + (1,) * (x.dim() - 2) + scale.shape[1:]
+        return _layernorm(x, scale.view(row), p[f"{prefix}_bias"].reshape(row))
+    return rmsnorm_slots(x, scale, eps=1e-6)
+
+
+def _mlp_up(cfg: ModelConfig, up, gate):
+    """The MLP's hidden activation from ``up = h w_up`` and ``gate()``,
+    which computes ``h w_gate`` (SwiGLU only)."""
+    if cfg.act == "silu":
+        return F.silu(gate()) * up                        # SwiGLU
+    if cfg.act == "gelu":
+        return F.gelu(up, approximate="tanh")             # jax.nn.gelu's default
+    raise NotImplementedError(f"act {cfg.act!r} is not ported")
 
 
 def mlp_block(cfg: ModelConfig, p, x):
     h = norm(cfg, p, x)
-    up = h @ p["w_up"]
-    if cfg.act == "silu":
-        up = F.silu(h @ p["w_gate"]) * up                 # SwiGLU
-    elif cfg.act == "gelu":
-        up = F.gelu(up, approximate="tanh")               # jax.nn.gelu's default
-    else:
-        raise NotImplementedError(f"act {cfg.act!r} is not ported")
+    up = _mlp_up(cfg, h @ p["w_up"], lambda: h @ p["w_gate"])
     return x + up @ p["w_down"]
+
+
+def mlp_block_slots(cfg: ModelConfig, p, x):
+    """``mlp_block`` of S trials: x (S, N, D), weights (S, ...)."""
+    h = norm_slots(cfg, p, x)
+    up = _mlp_up(cfg, torch.bmm(h, p["w_up"]), lambda: torch.bmm(h, p["w_gate"]))
+    return torch.baddbmm(x, up, p["w_down"])
 
 
 def _split_heads(t, hd):
@@ -107,3 +142,23 @@ def attn_block(cfg: ModelConfig, p, x, *, mode: str, pos: int, cache,
         raise ValueError(f"unknown mode {mode!r}")
 
     return x + out.reshape(B, S, -1) @ p["wo"]
+
+
+def attn_block_slots(cfg: ModelConfig, p, x, *, batch: int, window: int):
+    """``attn_block``'s train mode for S trials: x (S, batch * T, D), each
+    weight (S, ...). RoPE's positions are shared; the slots' sequences go
+    to one flash call as a batch of S * batch."""
+    hd = cfg.head_dim
+    S, N, _ = x.shape
+    T = N // batch
+    h = norm_slots(cfg, p, x)
+    q = torch.bmm(h, p["wq"]).view(S * batch, T, -1, hd)
+    k = torch.bmm(h, p["wk"]).view(S * batch, T, -1, hd)
+    v = torch.bmm(h, p["wv"]).view(S * batch, T, -1, hd)
+    if cfg.use_rope:
+        positions = torch.arange(T, device=x.device, dtype=torch.int32)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    out = flash_attention(q, k, v, causal=True, window=window, softcap=cfg.attn_softcap,
+                          q_offset=0, chunk=cfg.attn_chunk)
+    return torch.baddbmm(x, out.reshape(S, N, -1), p["wo"])

@@ -6,6 +6,11 @@ of ``lax.scan``; ``remat`` checkpoints each repetition as the reference's
 ``jax.checkpoint(body)`` does.
 Modes: 'train' (full sequence, no cache), 'prefill' (full sequence, fills
 the cache), 'decode' (one token against the cache).
+
+``forward_slots`` is the train forward of S trials at once, each with its
+own weights on a leading slot axis: the reference's ``forward`` under
+``jax.vmap`` over a population's slots (``population/objectives/lm.py``),
+for the attention and MLP blocks.
 """
 from __future__ import annotations
 
@@ -18,7 +23,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import attn_block, mlp_block, norm
+from repro_torch.models.layers import (attn_block, attn_block_slots, mlp_block,
+                                      mlp_block_slots, norm)
 from repro_torch.models.moe import moe_block
 from repro_torch.models.ssm import mamba_block
 
@@ -122,6 +128,62 @@ def forward(cfg: ModelConfig, params, batch: dict, *, mode: str = "train",
                 part = part + a
             aux = aux + part
     return x, cache, aux
+
+
+SLOTS_ITEM = ("ROADMAP queue 1 item 7a-1, third part: MoE and mamba blocks on the slot "
+              "axis")
+
+
+def check_slot_blocks(cfg: ModelConfig) -> None:
+    """Raise unless every block of ``cfg`` has a slot form: attention
+    mixers and MLP ffns."""
+    for mixer, ffn in cfg.pattern:
+        if not mixer.startswith("attn") or ffn not in ("mlp", None):
+            raise NotImplementedError(
+                f"{cfg.name}: block ({mixer}, {ffn}) has no slot form: {SLOTS_ITEM}")
+
+
+def nest_params(named: dict) -> dict:
+    """Weights by ``ModelParams`` name (``dec.b0_attn.wq``) as the nested
+    layout the model reads (``params["dec"]["b0_attn"]["wq"]``)."""
+    out: dict = {}
+    for name, t in named.items():
+        *path, leaf = name.split(".")
+        node = out
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = t
+    return out
+
+
+def embed_tokens_slots(cfg: ModelConfig, params, tokens):
+    """tokens (S, B, T) -> (S, B*T, D), each slot's rows of its own table."""
+    S, V = params["embed"].shape[:2]
+    rows = tokens.reshape(S, -1) + (torch.arange(S, device=tokens.device) * V)[:, None]
+    x = params["embed"].reshape(S * V, -1)[rows].to(getattr(torch, cfg.dtype))
+    if cfg.scale_embed:
+        x = x * math.sqrt(cfg.d_model)
+    if cfg.abs_pos:
+        raise NotImplementedError("absolute positions are not ported")
+    return x
+
+
+def forward_slots(cfg: ModelConfig, params, tokens):
+    """The train forward of S trials: ``params`` nested as ``forward``'s,
+    every weight with a leading slot axis; tokens (S, B, T). Returns the
+    hidden (S, B*T, D) before the final norm. Dense blocks only: a mamba or
+    MoE block raises (``check_slot_blocks``)."""
+    check_slot_blocks(cfg)
+    batch = tokens.shape[1]
+    x = embed_tokens_slots(cfg, params, tokens)
+    dec = params["dec"]
+    for r in range(cfg.n_repeat):
+        for i, (mixer, ffn) in enumerate(cfg.pattern):
+            p = {n: t[:, r] for n, t in dec[f"b{i}_{mixer}"].items()}
+            x = attn_block_slots(cfg, p, x, batch=batch, window=_mixer_window(cfg, mixer))
+            if ffn == "mlp":
+                x = mlp_block_slots(cfg, {n: t[:, r] for n, t in dec[f"b{i}_mlp"].items()}, x)
+    return x
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *,

@@ -81,6 +81,27 @@ def _clip_by_global_norm(grads: dict, max_norm):
     return torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0), gn
 
 
+def _update(tc: TrainConfig, p, g, state: OptState, n: str, lr, bc1=None, bc2=None):
+    """Updates weight ``p`` (named ``n``) and its accumulators in place from
+    its clipped f32 gradient ``g``: the one formula of ``apply_updates`` and
+    ``apply_updates_slots``. ``lr`` and AdamW's bias corrections ``bc1`` /
+    ``bc2`` are scalars, or broadcast over a leading slot axis."""
+    if tc.optimizer == "rmsprop":
+        # g2 <- d*g2 + (1-d)*g^2 ; p -= lr*g/sqrt(g2+eps)
+        d = tc.rmsprop_decay
+        a = state.acc1[n].mul_(d).add_((1 - d) * g * g)
+        p.copy_(p.float() - lr * g / torch.sqrt(a + tc.rmsprop_eps))
+        return
+    b1, b2 = tc.adam_b1, tc.adam_b2
+    m = state.acc1[n].mul_(b1).add_((1 - b1) * g)
+    v = state.acc2[n].mul_(b2).add_((1 - b2) * g * g)
+    pf = p.float()
+    step_ = lr * (m / bc1) / (torch.sqrt(v / bc2) + 1e-8)
+    if tc.weight_decay:
+        step_ = step_ + lr * tc.weight_decay * pf
+    p.copy_(pf - step_)
+
+
 @torch.no_grad()
 def apply_updates(tc: TrainConfig, params, grads: dict, state: OptState, lr=None,
                   grad_clip=None, warmup_steps=None):
@@ -92,42 +113,33 @@ def apply_updates(tc: TrainConfig, params, grads: dict, state: OptState, lr=None
         grads, tc.grad_clip if grad_clip is None else grad_clip)
     lr = learning_rate(tc, state.step, base=lr, warmup=warmup_steps)
     if tc.optimizer == "rmsprop":
-        # g2 <- d*g2 + (1-d)*g^2 ; p -= lr*g/sqrt(g2+eps)
-        d = tc.rmsprop_decay
         for n, p in named.items():
-            g = grads[n].float() * scale
-            a = state.acc1[n].mul_(d).add_((1 - d) * g * g)
-            p.copy_(p.float() - lr * g / torch.sqrt(a + tc.rmsprop_eps))
+            _update(tc, p, grads[n].float() * scale, state, n, lr)
         return params, OptState(state.step + 1, state.acc1, None), gnorm
     if tc.optimizer != "adamw":
         raise ValueError(f"unknown optimizer {tc.optimizer!r}")
-    b1, b2 = tc.adam_b1, tc.adam_b2
     t = state.step + 1
-    bc1 = 1 - torch.pow(_scalar(b1, t.device), t)
-    bc2 = 1 - torch.pow(_scalar(b2, t.device), t)
+    bc1 = 1 - torch.pow(_scalar(tc.adam_b1, t.device), t)
+    bc2 = 1 - torch.pow(_scalar(tc.adam_b2, t.device), t)
     for n, p in named.items():
-        g = grads[n].float() * scale
-        m = state.acc1[n].mul_(b1).add_((1 - b1) * g)
-        v = state.acc2[n].mul_(b2).add_((1 - b2) * g * g)
-        pf = p.float()
-        step_ = lr * (m / bc1) / (torch.sqrt(v / bc2) + 1e-8)
-        if tc.weight_decay:
-            step_ = step_ + lr * tc.weight_decay * pf
-        p.copy_(pf - step_)
+        _update(tc, p, grads[n].float() * scale, state, n, lr, bc1, bc2)
     return params, OptState(t, state.acc1, state.acc2), gnorm
 
 
 @torch.no_grad()
-def apply_updates_slots(tc: TrainConfig, params: dict, grads: dict, state: OptState, lr):
-    """``apply_updates`` for RMSProp, the optimizer of GA3C, over S trials
-    at once: every weight, gradient and accumulator carries a leading slot
-    axis, ``state.step`` is ``(S,)`` and ``lr`` an ``(S,)`` tensor. Each
-    slot's gradients are clipped by that slot's own global norm (a norm
-    over the whole stack would tie each trial's step to the others').
-    Returns (params, new_state, grad_norm ``(S,)``); ``params`` and the
-    accumulators are updated in place."""
-    if tc.optimizer != "rmsprop":
-        raise ValueError(f"slot-batched updates run rmsprop, not {tc.optimizer!r}")
+def apply_updates_slots(tc: TrainConfig, params: dict, grads: dict, state: OptState, lr,
+                        grad_clip=None, warmup_steps=None):
+    """``apply_updates`` over S trials at once, as the reference's under
+    ``jax.vmap``: every weight, gradient and accumulator carries a leading
+    slot axis, ``state.step`` is ``(S,)`` and ``lr`` an ``(S,)`` tensor;
+    ``grad_clip`` and ``warmup_steps`` (``(S,)`` tensors, or None for their
+    config twins) are each slot's own, and AdamW's bias correction is taken
+    at each slot's own step. Each slot's gradients are clipped by that
+    slot's own global norm (a norm over the whole stack would tie each
+    trial's step to the others'). Returns (params, new_state, grad_norm
+    ``(S,)``); ``params`` and the accumulators are updated in place."""
+    if tc.optimizer not in ("rmsprop", "adamw"):
+        raise ValueError(f"unknown optimizer {tc.optimizer!r}")
     s = lr.shape[0]
 
     def per_slot(v, like):
@@ -135,14 +147,20 @@ def apply_updates_slots(tc: TrainConfig, params: dict, grads: dict, state: OptSt
 
     gn = torch.sqrt(torch.stack([torch.sum(torch.square(g.float()).reshape(s, -1), 1)
                                  for g in grads.values()]).sum(0))
-    if tc.grad_clip:
-        scale = torch.clamp(tc.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
+    max_norm = tc.grad_clip if grad_clip is None else grad_clip
+    if isinstance(max_norm, torch.Tensor) or max_norm:
+        scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     else:
         scale = torch.ones_like(gn)
-    lr = learning_rate(tc, state.step, base=lr)
-    d = tc.rmsprop_decay
+    lr = learning_rate(tc, state.step, base=lr, warmup=warmup_steps)
+    if tc.optimizer == "rmsprop":
+        for n, p in params.items():
+            _update(tc, p, grads[n].float() * per_slot(scale, p), state, n, per_slot(lr, p))
+        return params, state._replace(step=state.step + 1), gn
+    t = state.step + 1
+    bc1 = 1 - torch.pow(_scalar(tc.adam_b1, t.device), t)
+    bc2 = 1 - torch.pow(_scalar(tc.adam_b2, t.device), t)
     for n, p in params.items():
-        g = grads[n].float() * per_slot(scale, p)
-        a = state.acc1[n].mul_(d).add_((1 - d) * g * g)
-        p.copy_(p.float() - per_slot(lr, p) * g / torch.sqrt(a + tc.rmsprop_eps))
-    return params, state._replace(step=state.step + 1), gn
+        _update(tc, p, grads[n].float() * per_slot(scale, p), state, n, per_slot(lr, p),
+                per_slot(bc1, p), per_slot(bc2, p))
+    return params, OptState(t, state.acc1, state.acc2), gn

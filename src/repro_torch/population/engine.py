@@ -29,13 +29,20 @@ as plain continue/stop decisions once the rung cohort is complete. The
 engine never ranks a cohort itself; it only tells ACQUIRE (via the
 ``rung`` hint) that freed capacity is refilling the bracket.
 
+**PBT exploit/explore** (``--scheduler pbt``): a CLONE verdict rides the
+report reply; the engine copies the parent slot's learner (weights and
+optimizer state, not the carry: the clone keeps its own envs or data and
+generator) into the child's slot on the device (``Bucket.clone_slot``),
+possibly across buckets, and installs the perturbed hyperparameters. A
+parent that holds no slot here any more leaves the child its own learner:
+it adopts the hyperparameters only.
+
 The engine talks to the service through ``LocalDriver``
 (``core.executor.PopulationCluster``, ``launch/tune.py --backend
 vectorized``). Not ported: the reference's ``RemoteDriver`` and
-``population/worker.py`` (the TCP client, ROADMAP queue 1 item 7c), the
-PBT clone (item 7a-2) and the ``shard_map`` slots over several devices
-(not owed on one card). Nor ``engine.compile_s``: an eager step has no
-trace and no compile to time.
+``population/worker.py`` (the TCP client, ROADMAP queue 1 item 7c) and
+the ``shard_map`` slots over several devices (not owed on one card). Nor
+``engine.compile_s``: an eager step has no trace and no compile to time.
 """
 from __future__ import annotations
 
@@ -180,7 +187,10 @@ class Bucket:
         self.capacity = capacity
         # a template trial fixes the stacked shapes and dtypes only (zeros;
         # real state is written per slot at admission)
-        leaves, self._spec = tree_flatten(obj.init_slot_state(0, template_hparams))
+        learner, carry = obj.init_slot_state(0, template_hparams)
+        leaves, self._spec = tree_flatten((learner, carry))
+        # the learner's leaves come first: what a PBT clone copies
+        self._n_learner = len(tree_flatten(learner)[0])
         self.leaves = [_stacked(leaf, capacity) for leaf in leaves]
         self.hyper = {n: np.zeros(capacity) for n in self.traced_names}
         self.active = np.zeros(capacity, bool)
@@ -237,11 +247,32 @@ class Bucket:
         for stack, leaf in zip(self.leaves, leaves):
             if stack is not None:
                 stack[i] = leaf
-        for n, v in zip(self.traced_names, traced):
-            self.hyper[n][i] = v
+        self.set_traced(i, traced)
         self.active[i] = True
         self.meta[i] = meta
+
+    def set_traced(self, i: int, traced: Sequence[float]) -> None:
+        """Slot ``i``'s traced hyperparameters, in ``hparam_spec().traced``
+        order."""
+        for n, v in zip(self.traced_names, traced):
+            self.hyper[n][i] = v
         self._dev = None
+
+    def clone_slot(self, dst: int, src_bucket: "Bucket", src: int,
+                   traced: Sequence[float]) -> None:
+        """PBT exploit: copy ``src_bucket``'s slot ``src`` learner (weights
+        and optimizer state, NOT the carry: the clone keeps its own envs or
+        data stream and generator) into slot ``dst``, one device-side copy
+        a leaf (nothing crosses to the host), and install the perturbed
+        traced hyperparameters. Learner shapes do not depend on the bucket
+        key, so the source may be another bucket of the same engine."""
+        for stack, source in zip(self.leaves[:self._n_learner],
+                                 src_bucket.leaves[:self._n_learner]):
+            if isinstance(stack, torch.Tensor):
+                stack[dst].copy_(source[src])
+            elif stack is not None:
+                stack[dst] = source[src]
+        self.set_traced(dst, traced)
 
     def release(self, i: int) -> None:
         """Eviction: mask the slot; it stops updating until a fresh config
@@ -338,6 +369,7 @@ class PopulationEngine:
         self.total_env_steps = 0       # active-lane env transitions
         self.total_updates = 0
         self.speculated = 0            # leases acquired by speculative refill
+        self.clones = 0                # PBT clones executed as slot copies
         self._slot_counter = 0
         self.records: List[Tuple] = []  # (trial_id, slot, phase, t0, t1, m)
 
@@ -527,13 +559,40 @@ class PopulationEngine:
                 bucket.release(i)
                 continue
             if getattr(decision, "clone_from", None) is not None:
-                raise NotImplementedError(
-                    "a CLONE verdict needs the PBT slot copy: ROADMAP queue 1 item 7a-2")
+                # PBT exploit/explore: copy the parent's learner on the
+                # device and adopt the perturbed hyperparameters
+                self._exploit(bucket, i, meta, decision)
             meta.phase += 1
             meta.updates_in_phase = 0
             meta.start_n = float(fin_n[i])
             meta.start_sum = float(fin_sum[i])
             meta.phase_t0 = t_now
+
+    # -- PBT exploit/explore (CLONE verdicts) -------------------------------
+    def _find_slot(self, trial_id: int) -> Optional[Tuple[Bucket, int]]:
+        for bucket in self.buckets.values():
+            for i, meta in enumerate(bucket.meta):
+                if meta is not None and meta.trial_id == trial_id:
+                    return bucket, i
+        return None
+
+    def _exploit(self, bucket: Bucket, i: int, meta: SlotMeta, reply) -> None:
+        """Execute a CLONE verdict: the trial goes on as a copy of
+        ``reply.clone_from``'s learner under ``reply.perturb``. A parent in
+        a slot of this engine is copied slot to slot on the device; a parent
+        that left its slot cannot give its weights, so the trial keeps its
+        own learner and adopts the perturbed hyperparameters only."""
+        hp = dict(reply.perturb) if reply.perturb else dict(meta.hparams)
+        traced = self.objective.traced_values(hp, fallback=meta.hparams)
+        src = self._find_slot(reply.clone_from)
+        if src is not None and src != (bucket, i):
+            src_bucket, j = src
+            bucket.clone_slot(i, src_bucket, j, traced)
+            self.clones += 1
+            self.metrics.counter("engine.clones").inc()
+        else:
+            bucket.set_traced(i, traced)
+        meta.hparams = hp
 
     # -- rung barriers (service-side successive halving) --------------------
     def _any_parked(self) -> bool:

@@ -1,5 +1,6 @@
 """Population objectives: the workload plugged into the population engine
-(port of ``repro/population/objectives/__init__.py``).
+(port of ``repro/population/objectives/__init__.py``). Two are ported:
+GA3C (``ga3c.py``, alias ``rl``) and LM training (``lm.py``).
 
 The engine (``repro_torch.population.engine``) is pure mechanism — slot
 stacking, bucketing, eviction masks, hot-swap, park/poll. Everything
@@ -163,8 +164,7 @@ def _objective_class(name: str):
         from repro_torch.population.objectives.ga3c import GA3CObjective
         return GA3CObjective
     if name == "lm":
-        raise NotImplementedError(
-            "the LM population objective is not ported: ROADMAP queue 1 "
-            "item 7a-1, second part (objectives/lm.py)")
+        from repro_torch.population.objectives.lm import LMObjective
+        return LMObjective
     raise ValueError(f"unknown population objective {name!r}; "
                      "known: ga3c (alias rl), lm")

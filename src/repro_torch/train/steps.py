@@ -3,20 +3,25 @@
 The LM loss chunks over the sequence so that (B, S, V) logits are made one
 chunk at a time. ``make_train_step`` differentiates ``lm_loss + aux`` with
 ``torch.autograd.grad`` and applies the optimizer to the weights in place.
+``lm_loss_slots`` is the loss of S trials at once, one mean a slot.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
-from repro_torch.models.layers import norm
+from repro_torch.models.layers import norm, norm_slots
 from repro_torch.models.model import forward, logits_fn
 from repro_torch.optim.optimizers import OptState, apply_updates
 
 
 def _xent_chunk(cfg: ModelConfig, params, h, labels):
     """h: (B, C, D), labels: (B, C) -> summed xent (f32 scalar)."""
-    logits = (h @ params["unembed"]).float()
+    return _xent(cfg, (h @ params["unembed"]).float(), labels).sum()
+
+
+def _xent(cfg: ModelConfig, logits, labels):
+    """f32 logits (..., V) and labels (...) -> the xent of each position."""
     if cfg.final_softcap:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
     vpad = logits.shape[-1]
@@ -25,7 +30,7 @@ def _xent_chunk(cfg: ModelConfig, params, h, labels):
         logits = torch.where(cols < cfg.vocab_size, logits, -1e30)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    return (lse - gold).sum()
+    return lse - gold
 
 
 def lm_loss(cfg: ModelConfig, params, hidden, labels, chunk: int = 1024):
@@ -40,6 +45,22 @@ def lm_loss(cfg: ModelConfig, params, hidden, labels, chunk: int = 1024):
         tot = tot + _xent_chunk(cfg, params, h[:, c0:c0 + chunk],
                                 labels[:, c0:c0 + chunk])
     return tot / (B * S)
+
+
+def lm_loss_slots(cfg: ModelConfig, params, hidden, labels, chunk: int = 1024):
+    """``lm_loss`` of S trials: each slot's own chunked mean, (S,) f32.
+    hidden: (S, B*T, D) before the final norm (``forward_slots``); labels:
+    (S, B, T); each weight with a leading slot axis. The slots' losses are
+    independent, so the gradient of their sum is each slot's own."""
+    S, B, T = labels.shape
+    h = norm_slots(cfg, params, hidden, prefix="final_norm").view(S, B, T, -1)
+    chunk = min(chunk, T)
+    tot = torch.zeros(S, dtype=torch.float32, device=h.device)
+    for c0 in range(0, T, chunk):
+        hc = h[:, :, c0:c0 + chunk]
+        logits = torch.bmm(hc.reshape(S, -1, hc.shape[-1]), params["unembed"]).float()
+        tot = tot + _xent(cfg, logits, labels[:, :, c0:c0 + chunk].reshape(S, -1)).sum(1)
+    return tot / (B * T)
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig):

@@ -137,6 +137,54 @@ def test_rmsnorm_warp_kernel_makes_no_host_sync(cuda):
                                rmsnorm_ref(x, sc).float().cpu().numpy(), atol=5e-2)
 
 
+@pytest.mark.parametrize("shape", [(12, 64, 256), (12, 512, 256), (3, 7, 9, 1000), (2, 5, 257)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_slots_kernel_matches_plain(cuda, shape, dtype):
+    """The block kernel's slot case (a scale row a slot) against
+    ``rmsnorm_slots_ref``: one block launch, counted in ``launches_slots``
+    too; rows_per_scale 0 keeps the shared scale."""
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_slots
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_slots_ref
+    from repro_torch.kernels.rmsnorm.rmsnorm import launch, row_stride
+    rng = np.random.default_rng(15)
+    x = _t(rng, shape, dtype, cuda)
+    sc = (_t(rng, (shape[0], shape[-1]), torch.float32, cuda) + 1.0).to(dtype)
+    before = (rmsnorm.launches_block, rmsnorm.launches_slots, rmsnorm.launches_warp)
+    out = rmsnorm_slots(x, sc)
+    torch.cuda.synchronize()
+    assert (rmsnorm.launches_block, rmsnorm.launches_slots, rmsnorm.launches_warp) == (
+        before[0] + 1, before[1] + 1, before[2])
+    assert out.dtype == dtype
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               rmsnorm_slots_ref(x, sc).float().cpu().numpy(),
+                               atol=RMS_TOL[dtype])
+    shared = torch.full_like(x, float("nan"))
+    D = shape[-1]
+    launch("block", x, sc[1], shared, x.numel() // D, row_stride(x), 1e-6)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(shared.float().cpu().numpy(),
+                               rmsnorm_ref(x, sc[1]).float().cpu().numpy(), atol=RMS_TOL[dtype])
+    with pytest.raises(ValueError, match="scale shape"):
+        rmsnorm_slots(x, sc[:1])
+
+
+def test_rmsnorm_slots_kernel_makes_no_host_sync(cuda):
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_slots
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_slots_ref
+    rng = np.random.default_rng(16)
+    x = _t(rng, (12, 64, 256), torch.float32, cuda)
+    sc = _t(rng, (12, 256), torch.float32, cuda)
+    rmsnorm_slots(x, sc)                        # build, warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = rmsnorm_slots(x, sc)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    np.testing.assert_allclose(out.cpu().numpy(), rmsnorm_slots_ref(x, sc).cpu().numpy(),
+                               atol=RMS_TOL[torch.float32])
+
+
 @pytest.mark.parametrize("case", [
     # B, Hq, Hkv, Sq, Skv, hd, causal, window, softcap, q_offset, ring
     (2, 4, 2, 64, 64, 32, True, 0, 0.0, 0, False),
@@ -889,3 +937,31 @@ def test_reduced_starcoder2_train_step_on_card_matches_cpu(cuda):
     for key in ("loss", "aux_loss", "grad_norm"):
         np.testing.assert_allclose(out["cuda"][key], out["cpu"][key], rtol=1e-4, atol=1e-5,
                                    err_msg=key)
+
+
+def test_lm_bucket_step_on_card_matches_cpu(cuda):
+    """Two steps of a 3-slot LM bucket (yi-9b reduced, f32, batch 2 x 32)
+    on the card and on the CPU, every trial's weights and draws from one
+    CPU generator: each slot's summed -loss within 1e-5 + 1e-5 |cpu| (the
+    f32 kernels and cuBLAS sum in other orders); on the card 3 RMSNorm slot
+    launches (block kernel) and 1 FMA flash launch a step."""
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm as rms_op
+    from repro_torch.population.engine import PopulationEngine, TrialLease
+    from repro_torch.population.objectives.lm import LMObjective
+    hps = [dict(learning_rate=lr, loss_chunk=1024, grad_clip=c, warmup_steps=w)
+           for lr, c, w in ((1e-3, 1.0, 1), (3e-4, 0.5, 4), (2e-3, 2.0, 2))]
+    sums = {}
+    for dev in ("cpu", "cuda"):
+        engine = PopulationEngine(LMObjective("yi-9b", device=dev, init_device="cpu"),
+                                  max_slots=3, episodes_per_phase=10 ** 9, max_updates=10 ** 9,
+                                  seed=0, device=dev)
+        engine._admit_grouped([TrialLease(i, dict(hp)) for i, hp in enumerate(hps)], now=0.0)
+        bucket = engine.buckets[32]
+        counts = (rms_op.launches_slots, rms_op.launches_block, flash_attention.launches_fma)
+        for _ in range(2):
+            bucket.step()
+        moved = (rms_op.launches_slots - counts[0], rms_op.launches_block - counts[1],
+                 flash_attention.launches_fma - counts[2])
+        assert moved == ((0, 0, 0) if dev == "cpu" else (6, 6, 2)), (dev, moved)
+        sums[dev] = bucket.carry[1].cpu().numpy()
+    np.testing.assert_allclose(sums["cuda"], sums["cpu"], rtol=1e-5, atol=1e-5)

@@ -3,7 +3,7 @@ the reference's ``_bucket_step`` on the reference's draws (plain, with the
 gradient clip engaged, with a masked slot), a slot against the same trial
 trained alone, and the port's counterparts of the reference's engine tests
 (tests/test_population.py, test_population_sharded.py, test_bracket_barrier.py,
-test_scheduler.py).
+test_scheduler.py). PBT's clones: tests/test_torch_pbt.py.
 
 As in tests/test_torch_rl.py, the port's rollouts take the draws the
 reference's keys give, derived by that file's ``RefDraws`` helpers from each
@@ -341,8 +341,12 @@ def test_objective_specs_are_the_reference_specs():
     hp = {"learning_rate": 1e-3, "gamma": 0.9, "t_max": 6}
     assert obj.bucket_key(hp) == ref.bucket_key(hp) and obj.cache_key() == ref.cache_key()
     assert obj.traced_values(hp) == ref.traced_values(hp)
-    with pytest.raises(NotImplementedError, match="7a-1"):
-        objectives.get_objective("lm")
+    lm = objectives.objective_from_spec({"kind": "lm", "arch": "gemma2-2b", "seq": 8,
+                                         "device": "cpu"})
+    ref_lm = ref_objectives.objective_from_spec({"kind": "lm", "arch": "gemma2-2b", "seq": 8})
+    hp = {"learning_rate": 1e-3, "loss_chunk": 256, "grad_clip": 0.5}
+    assert lm.bucket_key(hp) == ref_lm.bucket_key(hp) and lm.cache_key() == ref_lm.cache_key()
+    assert lm.traced_values(hp) == ref_lm.traced_values(hp)
 
 
 # ---------------------------------------------------------------------------
@@ -450,23 +454,6 @@ def test_engine_speculative_refill_overlaps_barrier_wait():
     assert driver.speculative_acquires >= 1      # acquired while parked
     assert engine.speculated == 1                # exactly n // eta = 1
     assert driver.granted == 4                   # 3 initial + 1 speculative
-
-
-def test_clone_verdict_names_its_roadmap_item():
-    class CloneDriver:
-        def acquire_many(self, k, rung=None):
-            return [TrialLease(0, dict(HP))], None
-
-        def report(self, *a, **k):
-            from repro_torch.core.scheduler import ReportReply
-            return ReportReply("continue", clone_from=1, perturb=dict(HP))
-
-        def poll_lost(self):
-            return set()
-
-    engine = _engine(1, episodes_per_phase=0, max_updates=1)
-    with pytest.raises(NotImplementedError, match="7a-2"):
-        engine.run(CloneDriver())
 
 
 def test_population_cluster_refuses_several_devices():
