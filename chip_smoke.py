@@ -235,7 +235,35 @@ Phases, each of which passes or ends the script with a non-zero exit:
      every trial completed and at least one clone copied on the device (a
      run without one is repeated at the next seed, up to ``PBT_SEEDS``);
      then one clone on the card under ``set_sync_debug_mode("error")``: the
-     child's learner bit-equal to the parent's, its carry unchanged.
+     child's learner bit-equal to the parent's, its carry unchanged;
+ 10. the control plane (``repro_torch.launch.tune --backend server /
+     process``): the CLI as a subprocess, its trials in worker processes
+     (``python -m repro_torch.distributed.worker``) against the TCP server
+     in the launcher; each run's summary from ``--out``, its trials, the
+     workers' phase seconds (``trial.phase`` spans) and its start-up (from
+     its spawn to the first acquire and to the first report) from
+     ``--journal``, and each worker's launch counters from its closing line. 10a: 6a's search
+     on --backend server, 12 workers on 4 worker processes: 6a's checks,
+     the same configuration by trial id as 6a, every (trial, phase) both
+     trained within ``SEARCH_NODES_ATOL`` (each difference printed), and
+     the workers' summed launches at the reported steps x (3 block RMSNorm
+     + 1 FMA flash), no warp RMSNorm, gmm or scan; prints wall time,
+     occupancy, trial-steps/s, tokens/s and trial-steps a busy second
+     beside 6a's. 10b: the same search with a fresh journal, its process
+     group SIGKILLed once 12 reports are journaled, then the same command
+     with --resume: no (trial, phase) journaled twice, the budget's 12
+     configurations completed or killed with 1 to 5 reports, every metric
+     equal to 6a's for the same configuration and phase (the requeued
+     ones trained from phase 0 again), the resumed workers' launches held
+     as 10a's; prints the time to the kill, the resumed wall time and the
+     configurations requeued. 10c: Hyperband on --backend process (4
+     phases, eta 2, 10 worker processes, 4 steps a phase): bracket 0's
+     cohorts (phase, n, demoted) (0, 4, 2), (1, 2, 1), bracket 1's (1, 3,
+     2), 5 killed and 5 completed, launches held as 10a's. 10d: 7a's GA3C
+     search on --backend process, 4 worker processes: 7a's checks, every
+     worker counter 0; prints wall time, env frames/s, updates/s (the
+     workers' trainers' counts) and env frames a busy second beside 7a's
+     (4 threads) and 7b's (1 thread).
 Seconds per phase are printed as each ends. The last two lines are the
 kernels' JSON line and the result line.
 """
@@ -708,13 +736,9 @@ def rl_search(label, argv, run, w0, phases, episodes, smi, zero_counts, all_coun
     run_s = time.perf_counter() - t0
     counts = no_launches(label, all_counts)
     summary, tab = res.summary(), trial_table(res)
-    assert summary["n_trials"] == w0 and len(tab) == w0, (label, summary)
+    assert summary["n_trials"] == w0, (label, summary)
     assert "crashed" not in summary["by_status"], (label, summary["by_status"])
-    for tid, (hp, status, ms) in tab.items():
-        assert status in ("completed", "killed"), (label, tid, status)
-        assert 1 <= len(ms) <= phases and (status != "completed" or len(ms) == phases), (
-            label, tid, status, ms)
-        assert all(math.isfinite(m) and abs(m) <= RL_SCORE for m in ms), (label, tid, ms)
+    hold_trials(label, tab, phases, w0, score=RL_SCORE)
     alpha = res.service.db.completion_rate(phases)
     assert 0 < alpha <= 1, (label, alpha)
     wall = res.wall_time
@@ -1046,13 +1070,9 @@ def population_lm_phase(dev, smi, zero_counts, all_counts, phase_done):
         run_s = time.perf_counter() - t0
         launches, fa_by, gmm_by, rms_by, scan_by = all_counts()
         summary, tab = res.summary(), trial_table(res)
-        assert summary["n_trials"] == w0 and len(tab) == w0, (label, summary)
+        assert summary["n_trials"] == w0, (label, summary)
         assert "crashed" not in summary["by_status"], (label, summary["by_status"])
-        for tid, (hp, status, ms) in tab.items():
-            assert status in ("completed", "killed"), (label, tid, status)
-            assert 1 <= len(ms) <= phases and (status != "completed" or len(ms) == phases), (
-                label, tid, status, ms)
-            assert all(math.isfinite(m) for m in ms), (label, tid, ms)
+        hold_trials(label, tab, phases, w0)
         if bar:
             assert summary["best_metric"] > -math.log(rcfg.vocab_size), (label, summary)
         alpha = res.service.db.completion_rate(phases)
@@ -1236,6 +1256,304 @@ def population_lm_phase(dev, smi, zero_counts, all_counts, phase_done):
         f"{len(learner)} learner leaves bit-equal to the parent's, the child's carry kept")
     phase_done("9d PBT on the engine, GA3C and LM, and a clone under the sync check")
     log("[population-lm] summary " + json.dumps(out))
+    return paths, out
+
+
+# phase 10: the control plane. The tune CLI runs as a subprocess, its
+# trials in worker processes (``python -m repro_torch.distributed.worker``)
+# against the TCP server in the launcher; each run's summary comes from
+# ``--out``, its trials from ``--journal`` (both under a temporary
+# directory) and each worker's launch counters from its closing line on the
+# captured stdout. 10a: 6a's search (the CLI's LM defaults) on --backend
+# server, 12 workers on 4 worker processes. 10b: the same with a fresh
+# journal, its process group SIGKILLed once CONTROL_KILL_AFTER reports are
+# journaled, then --resume. 10c: Hyperband (the reference's acceptance
+# scenario, tests/test_scheduler.py:133) with LM trials on --backend
+# process. 10d: 7a's GA3C search on --backend process, 4 worker processes
+CONTROL_NODES, CONTROL_KILL_AFTER = 4, 12
+CONTROL_LM_ARGV = ["--backend", "server", "--objective", "lm"]
+CONTROL_HB_ARGV = ["--backend", "process", "--objective", "lm", "--scheduler", "hyperband",
+                   "--phases", "4", "--eta", "2", "--nodes", "10", "--steps-per-phase", "4"]
+CONTROL_HB_RUNGS = {0: [(0, 4, 2), (1, 2, 1)], 1: [(1, 3, 2)]}
+CONTROL_RL_ARGV = ["--backend", "process", *RL_ARGV]
+CONTROL_TIMEOUT = 300
+
+
+def tune_process(argv, tmp, name):
+    """``python -m repro_torch.launch.tune argv --out --journal`` in a
+    session of its own (its worker processes join its process group)."""
+    out, journal = os.path.join(tmp, f"{name}.json"), os.path.join(tmp, f"{name}.jsonl")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.tune", *argv, "--out", out,
+         "--journal", journal], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env, start_new_session=True)
+    return proc, out, journal
+
+
+def finish(proc, label, timeout=CONTROL_TIMEOUT):
+    """Wait for a tune subprocess (its workers hold its pipes, so the end
+    of output is the end of every worker); kill its process group if it
+    overruns. Returns its stdout."""
+    import signal
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        stdout, stderr = proc.communicate()
+        raise AssertionError((label, f"no end in {timeout} s", stderr[-4000:]))
+    assert proc.returncode == 0, (label, proc.returncode, stderr[-4000:])
+    return stdout
+
+
+def journal_trials(path):
+    """{trial id: (hparams, status, [metric a phase])} from a journal, its
+    (trial id, phase) reports in order, and the seconds the workers spent
+    in phases (the server's ``trial.phase`` spans)."""
+    from repro_torch.distributed.journal import read_events
+    table, reports, busy = {}, [], 0.0
+    for ev in read_events(path):
+        tid = ev.get("trial_id")
+        if ev["ev"] == "span" and ev["name"] == "trial.phase":
+            busy += ev["dur"]
+        elif ev["ev"] == "acquire":
+            table[tid] = [ev["hparams"], "running", []]
+        elif ev["ev"] == "report":
+            assert len(table[tid][2]) == ev["phase"], ("journal phase order", ev)
+            table[tid][2].append(ev["metric"])
+            reports.append((tid, ev["phase"]))
+        elif ev["ev"] == "status":
+            table[tid][1] = ev["status"]
+    return {t: tuple(v) for t, v in table.items()}, reports, busy
+
+
+def start_up(path, t_spawn):
+    """Seconds from a tune subprocess's spawn (``time.monotonic()``, the
+    clock the server journals and every process shares) to its first
+    journaled acquire (the launcher's and a worker's start-up) and to its
+    first report (a worker's first phase too)."""
+    from repro_torch.distributed.journal import read_events
+    ts = {"acquire": [], "report": []}
+    for ev in read_events(path):
+        if ev["ev"] in ts and ev.get("t") is not None and ev["t"] >= t_spawn:
+            ts[ev["ev"]].append(ev["t"] - t_spawn)
+    return {"first_acquire_s": min(ts["acquire"]), "first_report_s": min(ts["report"])}
+
+
+def worker_counts(stdout, label, n_workers):
+    """The summed launch counters of the workers' closing lines, as
+    ``all_counts`` gives them, and the GA3C trainers' env steps and
+    updates."""
+    from repro_torch.distributed.worker import parse_closing_line
+    lines = [c for c in map(parse_closing_line, stdout.splitlines()) if c is not None]
+    assert sorted(c["node"] for c in lines) == list(range(n_workers)), (label, lines)
+    tot = collections.defaultdict(int)
+    for c in lines:
+        for op, counters in c["launches"].items():
+            for k, v in counters.items():
+                tot[(op, k)] += v
+    launches = {op: tot[(op, "launches")] for op in
+                ("rmsnorm", "flash_attention", "selective_scan", "gmm")}
+    by = lambda op, names: {n: tot[(op, f"launches_{n}")] for n in names}  # noqa: E731
+    counts = (launches, by("flash_attention", ("split_kv", "tensor_core", "fma")),
+              by("gmm", ("tiled", "decode", "small")), by("rmsnorm", ("warp", "block", "slots")),
+              by("selective_scan", ("prefill", "sequential")))
+    return counts, (sum(c.get("env_steps", 0) for c in lines),
+                    sum(c.get("updates", 0) for c in lines))
+
+
+def hold_lm_counts(label, counts, steps, expect):
+    """The launches of an LM search (``counts`` as ``all_counts`` gives
+    them) at ``steps`` trial steps x ``expect`` (``per_forward`` of the
+    reduced config), each on the f32 kernels: block RMSNorm, FMA flash, the
+    small gmm, the prefill scan. Returns the search's launch record."""
+    launches, fa_by, gmm_by, rms_by, scan_by = counts
+    for name, n in expect.items():
+        assert launches[name] == n * steps, (label, name, launches[name], n * steps)
+    assert fa_by == {"split_kv": 0, "tensor_core": 0, "fma": expect["flash_attention"] * steps}, (
+        label, fa_by)
+    assert rms_by == {"warp": 0, "block": expect["rmsnorm"] * steps, "slots": 0}, (label, rms_by)
+    assert gmm_by == {"tiled": 0, "decode": 0, "small": expect["gmm"] * steps}, (label, gmm_by)
+    assert scan_by == {"prefill": expect["selective_scan"] * steps, "sequential": 0}, (
+        label, scan_by)
+    return (launches, expect, steps, fa_by, gmm_by, rms_by, scan_by)
+
+
+def hold_trials(label, table, phases, w0=None, score=None):
+    """No trial crashed but those ``table`` marks reclaimed; every other
+    trial 1 to ``phases`` reports (all when it completed), every metric
+    finite (and a score of pong within ``score``)."""
+    if w0 is not None:
+        assert len(table) == w0, (label, len(table))
+    for tid, (hp, status, ms) in table.items():
+        if status == "crashed":
+            continue
+        assert status in ("completed", "killed"), (label, tid, status)
+        assert 1 <= len(ms) <= phases and (status != "completed" or len(ms) == phases), (
+            label, tid, status, ms)
+        assert all(math.isfinite(m) and (score is None or abs(m) <= score) for m in ms), (
+            label, tid, ms)
+
+
+def control_plane_phase(smi, phase_done, out_6a, table_6a, rl):
+    """Phase 10: the control plane on the card (10a-10d above). Returns the
+    launch records of its searches, counted in the worker processes."""
+    import signal
+    import tempfile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.completion import expected_alpha
+
+    expect = per_forward(get_config(YI).reduced())
+    paths, out = {}, {}
+    key = lambda hp: json.dumps(hp, sort_keys=True)  # noqa: E731
+    by_config_6a = {(key(hp), ph): m for hp, _, ms in table_6a.values()
+                    for ph, m in enumerate(ms)}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 10a: 6a's search on the server backend, 4 worker processes
+        t0, spawned = time.perf_counter(), time.monotonic()
+        proc, out_path, jpath = tune_process(CONTROL_LM_ARGV, tmp, "10a")
+        stdout = finish(proc, "10a")
+        run_s = time.perf_counter() - t0
+        summary = json.load(open(out_path))
+        table, reports, busy = journal_trials(jpath)
+        hold_trials("10a", table, SEARCH_PHASES, SEARCH_W0)
+        assert "crashed" not in summary["by_status"] and 0 < summary["alpha"] <= 1, summary
+        assert summary["best_metric"] > -math.log(get_config(YI).reduced().vocab_size), summary
+        assert {t: hp for t, (hp, _, _) in table.items()} == {
+            t: hp for t, (hp, _, _) in table_6a.items()}, "10a: configs differ from 6a's"
+        pairs = [(t, ph, ms[ph], table_6a[t][2][ph]) for t, (_, _, ms) in sorted(table.items())
+                 for ph in range(min(len(ms), len(table_6a[t][2])))]
+        unequal = [(t, ph, a, b) for t, ph, a, b in pairs if abs(a - b) > SEARCH_NODES_ATOL]
+        for t, ph, a, b in unequal:
+            log(f"[control] 10a trial {t} phase {ph}: processes {a!r}, 6a threads {b!r}, "
+                f"difference {a - b!r}")
+        steps = SEARCH_STEPS * len(reports)
+        counts, _ = worker_counts(stdout, "10a", CONTROL_NODES)
+        paths["control lm server 4 processes"] = hold_lm_counts("10a", counts, steps, expect)
+        wall = summary["wall_time"]
+        out["10a"] = {"argv": CONTROL_LM_ARGV, "trials": len(table), "processes": CONTROL_NODES,
+                      "wall_s": wall, "run_s": run_s, "occupancy": summary["occupancy"],
+                      "alpha": summary["alpha"],
+                      "expected_alpha": expected_alpha(SEARCH_R, SEARCH_PHASES),
+                      "by_status": summary["by_status"], "trial_steps": steps,
+                      "trial_steps_per_s": steps / wall,
+                      "tokens_per_s": steps * SEARCH_BATCH * SEARCH_SEQ / wall,
+                      "phase_busy_s": busy, "trial_steps_per_busy_s": steps / busy,
+                      "compared_with_6a": len(pairs), "unequal": len(unequal),
+                      "max_abs_diff": max(abs(a - b) for _, _, a, b in pairs),
+                      "atol": SEARCH_NODES_ATOL, "launches": counts[0],
+                      "start_up": start_up(jpath, spawned),
+                      "6a_threads": {k: out_6a[k] for k in (
+                          "wall_s", "occupancy", "trial_steps_per_s", "tokens_per_s")}}
+        log(f"[control] {smi}: " + json.dumps(out["10a"]))
+        assert not unequal, ("10a: metrics differ from 6a's", unequal)
+        phase_done("10a LM search, server backend, 4 worker processes")
+
+        # 10b: the same search killed once CONTROL_KILL_AFTER reports are
+        # journaled, then resumed from its journal
+        t0, spawned = time.perf_counter(), time.monotonic()
+        proc, out_path, jpath = tune_process(CONTROL_LM_ARGV, tmp, "10b")
+        try:
+            while time.perf_counter() - t0 < CONTROL_TIMEOUT and proc.poll() is None:
+                if os.path.exists(jpath) and sum(
+                        r == "report" for r in (json.loads(ln).get("ev") for ln in
+                                                open(jpath) if ln.endswith("\n"))
+                ) >= CONTROL_KILL_AFTER:
+                    break
+                time.sleep(0.05)
+        finally:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+        killed_s = time.perf_counter() - t0
+        _, before, _ = journal_trials(jpath)
+        assert CONTROL_KILL_AFTER <= len(before) < len(reports), ("10b: kill", len(before))
+        killed_start_up = start_up(jpath, spawned)
+        resumed_at = time.monotonic()
+        proc, out_path, _ = tune_process([*CONTROL_LM_ARGV, "--resume"], tmp, "10b")
+        stdout = finish(proc, "10b resume")
+        summary = json.load(open(out_path))
+        table, both, _ = journal_trials(jpath)
+        assert len(both) == len(set(both)), "10b: a (trial, phase) journaled twice"
+        hold_trials("10b", table, SEARCH_PHASES)
+        crashed = [t for t, (_, st_, _) in table.items() if st_ == "crashed"]
+        assert len(table) - len(crashed) == SEARCH_W0, ("10b", len(table), crashed)
+        assert 0 < summary["alpha"] <= 1, summary
+        held = missing = 0
+        for hp, _, ms in table.values():
+            for ph, m in enumerate(ms):
+                want = by_config_6a.get((key(hp), ph))
+                if want is None:
+                    missing += 1
+                    continue
+                held += 1
+                assert abs(m - want) <= SEARCH_NODES_ATOL, ("10b", hp, ph, m, want)
+        steps = SEARCH_STEPS * (len(both) - len(before))
+        counts, _ = worker_counts(stdout, "10b", CONTROL_NODES)
+        paths["control lm server resumed"] = hold_lm_counts("10b", counts, steps, expect)
+        out["10b"] = {"killed_after_s": killed_s, "reports_before_kill": len(before),
+                      "resumed_wall_s": summary["wall_time"], "reclaimed": len(crashed),
+                      "requeued_configs": len(crashed), "reports": len(both),
+                      "held_against_6a": held, "not_trained_by_6a": missing,
+                      "by_status": summary["by_status"], "alpha": summary["alpha"],
+                      "launches": counts[0], "start_up_killed_run": killed_start_up,
+                      "start_up_resumed_run": start_up(jpath, resumed_at)}
+        log(f"[control] {smi}: 10b " + json.dumps(out["10b"]))
+        phase_done("10b LM search killed and resumed")
+
+        # 10c: Hyperband, every bracket at once, LM trials in 10 processes
+        t0, spawned = time.perf_counter(), time.monotonic()
+        proc, out_path, jpath = tune_process(CONTROL_HB_ARGV, tmp, "10c")
+        stdout = finish(proc, "10c")
+        summary = json.load(open(out_path))
+        table, reports, _ = journal_trials(jpath)
+        hold_trials("10c", table, 4, 10)
+        by_b = collections.defaultdict(list)
+        for e in sorted(summary["rungs"], key=lambda e: (e["bracket"], e["phase"])):
+            by_b[e["bracket"]].append((e["phase"], e["n"], len(e["demoted"])))
+        assert dict(by_b) == CONTROL_HB_RUNGS, ("10c rungs", summary["rungs"])
+        assert summary["by_status"] == {"killed": 5, "completed": 5}, summary["by_status"]
+        steps = 4 * len(reports)
+        counts, _ = worker_counts(stdout, "10c", 10)
+        paths["control lm hyperband 10 processes"] = hold_lm_counts("10c", counts, steps, expect)
+        out["10c"] = {"rungs": dict(by_b), "by_status": summary["by_status"],
+                      "wall_s": summary["wall_time"], "run_s": time.perf_counter() - t0,
+                      "trial_steps": steps, "launches": counts[0],
+                      "start_up": start_up(jpath, spawned)}
+        log(f"[control] {smi}: 10c " + json.dumps(out["10c"]))
+        phase_done("10c Hyperband, process backend, 10 worker processes")
+
+        # 10d: 7a's GA3C search on 4 worker processes; no kernel of the port
+        t0, spawned = time.perf_counter(), time.monotonic()
+        proc, out_path, jpath = tune_process(CONTROL_RL_ARGV, tmp, "10d")
+        stdout = finish(proc, "10d")
+        summary = json.load(open(out_path))
+        table, reports, busy = journal_trials(jpath)
+        hold_trials("10d", table, RL_PHASES, RL_W0, score=RL_SCORE)
+        assert "crashed" not in summary["by_status"] and 0 < summary["alpha"] <= 1, summary
+        counts, (env_steps, updates) = worker_counts(stdout, "10d", RL_NODES)
+        for c in counts:
+            assert not any(c.values()), ("10d: a kernel launched on the GA3C path", counts)
+        paths[f"control rl {RL_GAME} 4 processes"] = (
+            counts[0], {name: 0 for name in counts[0]}, 0, *counts[1:])
+        wall = summary["wall_time"]
+        out["10d"] = {"argv": CONTROL_RL_ARGV, "processes": RL_NODES, "wall_s": wall,
+                      "run_s": time.perf_counter() - t0, "trial_phases": len(reports),
+                      "updates": updates, "env_frames": env_steps,
+                      "env_frames_per_s": env_steps / wall, "updates_per_s": updates / wall,
+                      "phase_busy_s": busy, "env_frames_per_busy_s": env_steps / busy,
+                      "occupancy": summary["occupancy"], "alpha": summary["alpha"],
+                      "expected_alpha": expected_alpha(RL_R, RL_PHASES),
+                      "by_status": summary["by_status"],
+                      "start_up": start_up(jpath, spawned),
+                      "7a_4_threads": {k: rl["7a"][k] for k in (
+                          "wall_s", "env_frames_per_s", "updates_per_s")},
+                      "7b_1_thread": {k: rl["7b"][k] for k in (
+                          "wall_s", "env_frames_per_s", "updates_per_s")}}
+        log(f"[control] {smi}: 10d " + json.dumps(out["10d"]))
+        phase_done("10d GA3C search, process backend, 4 worker processes")
+    log("[control] summary " + json.dumps(out))
     return paths, out
 
 
@@ -2639,15 +2957,12 @@ def main() -> int:
             res = tune.main(argv)
             torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        launches, fa_by, gmm_by, rms_by, scan_by = all_counts()
+        counts = all_counts()
+        launches, fa_by, gmm_by, rms_by, scan_by = counts
         summary, table = res.summary(), trial_table(res)
-        assert summary["n_trials"] == w0 and len(table) == w0, (label, summary)
+        assert summary["n_trials"] == w0, (label, summary)
         assert "crashed" not in summary["by_status"], (label, summary["by_status"])
-        for tid, (hp, status, ms) in table.items():
-            assert status in ("completed", "killed"), (label, tid, status)
-            assert 1 <= len(ms) <= phases and (status != "completed" or len(ms) == phases), (
-                label, tid, status, ms)
-            assert all(math.isfinite(m) for m in ms), (label, tid, ms)
+        hold_trials(label, table, phases, w0)
         assert 0 < summary["alpha"] <= 1, (label, summary["alpha"])
         if bar:
             assert summary["best_metric"] > -math.log(rcfg.vocab_size), (label, summary)
@@ -2656,15 +2971,7 @@ def main() -> int:
         log(f"[search] {label}: {steps} trial-steps, launches {launches}, flash by kernel "
             f"{fa_by}, gmm by kernel {gmm_by}, rmsnorm by kernel {rms_by}, selective_scan by "
             f"kernel {scan_by}; per step {expect}")
-        for name, n in expect.items():
-            assert launches[name] == n * steps, (label, name, launches[name], n * steps)
-        assert fa_by == {"split_kv": 0, "tensor_core": 0,
-                         "fma": expect["flash_attention"] * steps}, (label, fa_by)
-        assert rms_by == {"warp": 0, "block": expect["rmsnorm"] * steps, "slots": 0}, (
-            label, rms_by)
-        assert gmm_by == {"tiled": 0, "decode": 0, "small": expect["gmm"] * steps}, (label, gmm_by)
-        assert scan_by == {"prefill": expect["selective_scan"] * steps, "sequential": 0}, (
-            label, scan_by)
+        path = hold_lm_counts(label, counts, steps, expect)
         wall = res.wall_time
         out = {"search": label, "arch": rcfg.name, "argv": argv, "trials": w0,
                "nodes": res.n_nodes, "phases": phases, "steps_per_phase": steps_per_phase,
@@ -2690,7 +2997,7 @@ def main() -> int:
                 log(f"[profile]   {a.self_device_time_total / 1e3:9.3f} ms {a.count:7d}x "
                     f"{a.key[:90]}")
         log(f"[search] {smi}: " + json.dumps(out))
-        return (launches, expect, steps, fa_by, gmm_by, rms_by, scan_by), out, res
+        return path, out, res
 
     searches = {}
     # 6a: the CLI's defaults, 4 node threads, without the profiler
@@ -2801,6 +3108,12 @@ def main() -> int:
     # -- 9. LM trials on the population engine, and PBT --------------------------
     lm_paths, _ = population_lm_phase(dev, smi, zero_counts, all_counts, phase_done)
     paths.update(lm_paths)
+    # -- 10. the control plane: worker processes against the TCP server --------
+    gc.collect()
+    torch.cuda.empty_cache()
+    control_paths, _ = control_plane_phase(smi, phase_done, searches["6a"], trial_table(res_4),
+                                           rl)
+    paths.update(control_paths)
 
 
     kernels = []
@@ -2869,7 +3182,7 @@ def main() -> int:
         assert kernels[-1]["launches"] > 0, f"{name}: no launch on the main paths"
     serves = {k: {**p[7], **probes[k]} for k, p in paths.items() if k in probes}
     log("[serve] summary " + json.dumps(serves))
-    log(f"[phase] the smoke's total, phases 0-9 with the build: "
+    log(f"[phase] the smoke's total, phases 0-10 with the build: "
         f"{time.perf_counter() - clock['start']:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

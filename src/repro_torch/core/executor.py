@@ -1,37 +1,48 @@
-"""The in-process backends of a search (port of
-``repro/core/executor.py``: ``ExecRecord``, ``ExecResult`` and
-``ThreadCluster``, copied whole, and ``PopulationCluster``;
-``ExecResult.updates`` is the port's).
+"""The backends of a search (port of ``repro/core/executor.py``:
+``ExecRecord``, ``ExecResult``, ``ThreadCluster`` and ``ProcessCluster``,
+copied whole, and ``PopulationCluster``; ``ExecResult.updates`` is the
+port's).
 
 * ThreadCluster — asynchronous policies (HyperTrick, random search): each
   node-thread pulls a configuration, runs phases of the REAL objective, and
   polls the optimization service after every phase. No barriers anywhere.
   A trial whose objective raises is marked crashed and its node goes on
   (paper §3.2's fault isolation): the exception is printed, not re-raised.
+* ProcessCluster — real OS-process workers
+  (``python -m repro_torch.distributed.worker``) talking to an in-launcher
+  TCP server (``repro_torch.distributed``): the paper's actual deployment
+  shape, with per-trial leases, crash reclamation, an optional durable
+  journal and the server-side rung barrier (Hyperband, ``--bracket``).
+  Each worker process trains its trials on the device its spec names.
 * PopulationCluster — the population engine (``population/engine.py``):
   every live trial trains at once on one device, from one host thread,
   against the same service and policy; GA3C or LM trials (``objective``),
   with PBT's clones copied slot to slot on the device.
 
-Not ported yet: ``SyncCluster`` (synchronized Successive Halving) and
-``ProcessCluster`` (OS-process workers over TCP, the journal); ROADMAP
-queue 1 item 7 lists them.
+Not ported yet: ``SyncCluster`` (synchronized Successive Halving; ROADMAP
+queue 1 item 7c, second part) and the population worker, which would lease
+several trials a process (the same item): ``ProcessCluster`` runs scalar
+workers, one trial a process.
 
 Objectives have the signature  objective(hparams, phase, state) ->
 (metric, state)  where state carries the live trainer across phases.
 """
 from __future__ import annotations
 
+import json
+import os
+import subprocess
+import sys
 import threading
 import time
 import traceback
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
 from repro_torch.core.service import (AsyncPolicy, Decision,
                                       OptimizationService)
-from repro_torch.device import resolve_device
 
 
 @dataclass
@@ -117,6 +128,191 @@ class ThreadCluster:
                           if clone_log else None)
 
 
+class ProcessCluster:
+    """Workers are real OS processes speaking the distributed protocol to a
+    TCP server hosted by this launcher. ``objective_spec`` is a JSON-able
+    dict resolved by ``repro_torch.distributed.worker.resolve_objective``
+    on the worker side (e.g. ``{"kind": "rl", "game": "pong", "device":
+    "cuda"}``, from ``worker.build_spec``), since closures do not cross
+    process boundaries. Each worker resolves the spec's ``device`` (default
+    ``cuda``) before it connects: without a card every worker exits
+    non-zero, having leased nothing, and ``run`` raises.
+
+    With ``journal_path`` set, every event is WAL-logged; ``resume=True``
+    replays an existing journal first, so a restarted search continues with
+    the same trial records (orphaned RUNNING trials are reclaimed).
+
+    ``bracket_eta`` turns on the service-side successive-halving barrier
+    (``core.service.RungBarrier``): ONE bracket spans every worker process
+    — rung-phase reports park on the server, cohorts pool across hosts,
+    and the bottom 1/eta of each pooled cohort is demoted. Workers are
+    launched with ``--bracket`` so their acquires carry the rung hint.
+    """
+
+    def __init__(self, n_nodes: int, objective_spec: Dict,
+                 lease_ttl: float = 15.0, heartbeat_interval: float = 1.0,
+                 journal_path: Optional[str] = None, resume: bool = False,
+                 host: str = "127.0.0.1", port: int = 0,
+                 bracket_eta: Optional[int] = None,
+                 worker_grace: Optional[float] = None):
+        self.n_nodes = n_nodes
+        self.objective_spec = dict(objective_spec)
+        self.lease_ttl = lease_ttl
+        self.heartbeat_interval = heartbeat_interval
+        self.journal_path = journal_path
+        self.resume = resume
+        self.host = host
+        self.port = port
+        self.bracket_eta = bracket_eta
+        # do workers join the server-side rung barrier (--bracket)? Updated
+        # in run() once the service exists: a first-class Scheduler
+        # (Hyperband) declares its own brackets without bracket_eta
+        self._workers_bracket = bracket_eta is not None
+        # how long workers may linger once the service is drained (no
+        # leases, no requeued configs) before the launcher presumes them
+        # hung and kills them; None -> 3 lease TTLs (>= 30 s)
+        self.worker_grace = (worker_grace if worker_grace is not None
+                             else max(3.0 * lease_ttl, 30.0))
+
+    def _worker_cmd(self, port: int, node: int) -> List[str]:
+        cmd = [sys.executable, "-m", "repro_torch.distributed.worker",
+               "--host", self.host, "--port", str(port),
+               "--spec", json.dumps(self.objective_spec),
+               "--node", str(node),
+               "--heartbeat-interval", str(self.heartbeat_interval)]
+        if self._workers_bracket:
+            cmd += ["--bracket"]
+        return cmd
+
+    def spawn_workers(self, port: int) -> List[subprocess.Popen]:
+        """Launch one worker process per node against a running server."""
+        import repro_torch
+        # namespace package: locate the src dir from __path__, not __file__
+        src_dir = os.path.dirname(os.path.abspath(list(repro_torch.__path__)[0]))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = src_dir + (
+            os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+        return [subprocess.Popen(self._worker_cmd(port, i), env=env)
+                for i in range(self.n_nodes)]
+
+    def _await_workers(self, procs, server, svc,
+                       journal=None) -> List[int]:
+        """Wait for every worker, but bounded: once the service is drained
+        (no live leases, no requeued configs waiting for a taker) a healthy
+        worker exits within one acquire round-trip, so any process still
+        alive ``worker_grace`` seconds later is presumed hung and killed —
+        a single stuck worker cannot stall the launcher forever. Returns
+        per-process exit codes."""
+        drained_since: Optional[float] = None
+        dead_nodes: set = set()
+        while True:
+            exited = {i for i, p in enumerate(procs) if p.poll() is not None}
+            for i in exited - dead_nodes:
+                # an exited worker's free capacity will never refill the
+                # bracket: stop the entry cohort waiting for it
+                svc.reduce_bracket_entrants(1)
+                if journal is not None:
+                    # host churn, journaled WHEN it happened (the final
+                    # exit-code summary knows the codes but not the time):
+                    # the dashboard plots worker deaths from these. Replay
+                    # skips unknown event kinds, so old tooling is
+                    # unaffected.
+                    journal.append({"ev": "worker_exit", "node": i,
+                                    "exit_code": procs[i].poll()})
+            dead_nodes = exited
+            if len(exited) == len(procs):
+                break
+            # "drained" only makes sense once the search has started:
+            # before the first acquire (workers still importing torch /
+            # building kernels) there is nothing to be drained OF — svc.drained()
+            # is False until the first trial exists
+            busy = server.live_lease_count() > 0 or not svc.drained()
+            now = time.monotonic()
+            if busy:
+                drained_since = None
+            elif drained_since is None:
+                drained_since = now
+            elif now - drained_since > self.worker_grace:
+                hung = [p for p in procs if p.poll() is None]
+                warnings.warn(
+                    f"killing {len(hung)} worker process(es) still alive "
+                    f"{self.worker_grace:.0f}s after the service drained "
+                    "(no leases, no requeued configs) — presumed hung")
+                for p in hung:
+                    p.kill()
+                for p in hung:
+                    p.wait()
+                break
+            time.sleep(0.1)
+        return [p.wait() for p in procs]
+
+    def run(self, policy: AsyncPolicy) -> ExecResult:
+        from repro_torch.distributed.journal import Journal, replay_journal
+        from repro_torch.distributed.server import MetaoptServer
+
+        svc = OptimizationService(policy, bracket_eta=self.bracket_eta)
+        # a first-class Scheduler (Hyperband) brings its own brackets:
+        # workers must join the barrier even without bracket_eta
+        self._workers_bracket = svc.barrier is not None
+        # bracket entry cohorts are sized to real capacity: the first waits
+        # for min(worker processes, budget) enrollments (seeded via the
+        # server's bracket_capacity below, split across brackets by the
+        # scheduler), and a fully-parked cohort missing dead capacity
+        # resolves after the patience window instead of wedging
+        capacity = self.n_nodes
+        budget = (getattr(policy, "n_trials", None)
+                  or getattr(policy, "w0", None))
+        bracket_capacity = (min(capacity, budget) if budget else capacity) \
+            if svc.barrier is not None else None
+        journal = None
+        if self.journal_path:
+            if not self.resume and os.path.exists(self.journal_path):
+                # a fresh (non-resume) search must not append to a previous
+                # run's journal: trial ids would collide on a later --resume
+                os.remove(self.journal_path)
+            journal = Journal(self.journal_path)
+            if self.resume:
+                replay_journal(self.journal_path, svc, journal=journal)
+
+        server = MetaoptServer(svc, self.host, self.port,
+                               lease_ttl=self.lease_ttl, journal=journal,
+                               bracket_capacity=bracket_capacity)
+        server.start()
+        t0 = time.monotonic()
+        try:
+            procs = self.spawn_workers(server.port)
+            rcs = self._await_workers(procs, server, svc, journal=journal)
+            wall = time.monotonic() - t0
+        finally:
+            server.stop()
+            if journal is not None:
+                journal.close()
+        if not server.report_log and all(rc != 0 for rc in rcs):
+            raise RuntimeError(
+                f"all {self.n_nodes} workers failed (exit codes {rcs}) "
+                "before reporting anything — check the objective spec and "
+                "worker environment")
+        extra: Dict = {}
+        failed = {node: rc for node, rc in enumerate(rcs) if rc != 0}
+        if failed:
+            # a PARTIAL failure must not be silent: the search completed on
+            # the surviving workers, but the caller should know
+            warnings.warn(f"{len(failed)}/{self.n_nodes} worker "
+                          f"process(es) exited nonzero: {failed}")
+            extra["worker_exit_codes"] = rcs
+        if svc.barrier is not None and svc.barrier.rung_log:
+            extra["rungs"] = svc.barrier.rung_log
+        clone_log = getattr(svc.scheduler, "clone_log", None)
+        if clone_log:
+            extra["clones"] = len(clone_log)
+        records = [ExecRecord(tid, node if node is not None else -1, phase,
+                              ts, te, metric)
+                   for tid, node, phase, ts, te, metric in server.report_log]
+        # capacity for occupancy accounting: one trial a scalar worker
+        return ExecResult(svc, records, wall, self.n_nodes,
+                          extra=extra or None)
+
+
 class PopulationCluster:
     """The population backend: every live trial trains at once on one
     device (``repro_torch.population.engine``), driving the same
@@ -158,6 +354,7 @@ class PopulationCluster:
         self.seed = seed
         self.devices = devices
         self.bracket_eta = bracket_eta
+        from repro_torch.device import resolve_device
         self.device = resolve_device(device)
 
     def run(self, policy: AsyncPolicy) -> ExecResult:

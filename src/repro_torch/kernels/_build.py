@@ -7,11 +7,15 @@ repository root, keyed by a hash of the sources and flags, so a changed
 source rebuilds and an unchanged one loads the cached file. Beside it,
 ``build.log`` keeps what ``ptxas -v`` said of every kernel when it was
 built (registers, spills), as a record. The build runs at the first launch
-of any kernel, never at import.
+of any kernel, never at import. Several processes that reach it at once
+(a search's worker processes) compile once: the check-and-build holds an
+exclusive ``flock`` on ``BUILD_ROOT/<hash>.lock``, so one process runs
+``nvcc`` and the others wait for the lock and load its library.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -147,20 +151,34 @@ def _compile(out_dir: pathlib.Path) -> pathlib.Path:
     return out_dir / LIB_NAME
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (if the sources changed) and load the kernel library."""
-    global _lib, build_seconds
-    with _lock:
-        if _lib is not None:
-            return _lib
-        out_dir = BUILD_ROOT / _digest()
-        path = out_dir / LIB_NAME
-        if not path.exists():
-            BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+def build_library() -> pathlib.Path:
+    """The kernel library's path, built first if the sources changed. The
+    check and the build hold an exclusive lock on a file beside the build
+    directory, which the system drops when its process ends, so a build
+    cut short leaves no stale lock; ``os.replace`` puts the library in
+    place whole."""
+    global build_seconds
+    out_dir = BUILD_ROOT / _digest()
+    path = out_dir / LIB_NAME
+    if path.exists():
+        return path
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_ROOT / f"{out_dir.name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not path.exists():       # another process may have built it meanwhile
             t0 = time.perf_counter()
             path = _compile(out_dir)
             build_seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(path))
+    return path
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if the sources changed) and load the kernel library."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib = ctypes.CDLL(str(build_library()))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

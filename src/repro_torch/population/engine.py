@@ -40,7 +40,8 @@ it adopts the hyperparameters only.
 The engine talks to the service through ``LocalDriver``
 (``core.executor.PopulationCluster``, ``launch/tune.py --backend
 vectorized``). Not ported: the reference's ``RemoteDriver`` and
-``population/worker.py`` (the TCP client, ROADMAP queue 1 item 7c) and
+``population/worker.py`` (the engine as a client of the TCP server, ROADMAP
+queue 1 item 7c, second part) and
 the ``shard_map`` slots over several devices (not owed on one card). Nor
 ``engine.compile_s``: an eager step has no trace and no compile to time.
 """
@@ -330,8 +331,9 @@ class PopulationEngine:
 
     ``objective``: a ``PopulationObjective`` or a game name, which builds
     the GA3C objective with ``n_envs`` envs a trial on ``device``. The
-    reference's ``engine.*`` spans are not recorded: the span recorder
-    comes with the control plane (ROADMAP queue 1 item 7c)."""
+    reference's ``engine.*`` spans are not recorded: the engine takes no
+    ``telemetry.spans.SpanRecorder`` until it runs behind the server (ROADMAP
+    queue 1 item 7c, second part)."""
 
     def __init__(self, objective, *, max_slots: int, n_envs: int = 16,
                  episodes_per_phase: int = 60, max_updates: int = 2000,

@@ -27,6 +27,7 @@ from repro.core import hypertrick as ref_hypertrick  # noqa: E402
 from repro.core import search_space as ref_space  # noqa: E402
 from repro.core import service as ref_service  # noqa: E402
 from repro_torch.core import completion, executor, hypertrick, search_space, service  # noqa: E402
+from repro_torch.distributed.journal import read_events  # noqa: E402
 from repro_torch.launch import tune  # noqa: E402
 
 # the Trainer's losses (AdamW, reduced models): tests/test_torch_train.py
@@ -293,13 +294,12 @@ def test_tune_cli_runs_on_the_cpu(monkeypatch, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--backend", "process"], "ROADMAP queue 1 item 7c "),
-    (["--backend", "server"], "ROADMAP queue 1 item 7c "),
-    (["--backend", "server", "--scheduler", "hyperband"], "hyperband is not ported: ROADMAP "
-                                                          "queue 1 item 7c "),
-    (["--devices", "2"], "not owed on one card"),
-    (["--journal", "j.jsonl"], "ROADMAP queue 1 item 7c "),
-    (["--resume"], "ROADMAP queue 1 item 7c "),
+    (["--backend", "process", "--slots", "2"], "ROADMAP queue 1 item 7c, second part "),
+    (["--backend", "server", "--slots", "2", "--objective", "lm"],
+     "ROADMAP queue 1 item 7c, second part "),
+    (["--backend", "vectorized", "--devices", "2"], "not owed on one card"),
+    (["--backend", "process", "--slots", "4", "--objective", "lm", "--scheduler",
+      "hyperband"], "--slots 4 on --backend process is not ported"),
 ])
 def test_tune_cli_refuses_what_is_not_ported(argv, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -317,15 +317,76 @@ def test_tune_cli_refuses_what_is_not_ported(argv, match):
     ["--scheduler", "hyperband"],
     ["--backend", "vectorized", "--scheduler", "hyperband"],
     ["--backend", "process", "--scheduler", "hyperband", "--bracket"],
+    ["--journal", "j.jsonl"],
+    ["--resume"],
+    ["--devices", "2"],
+    ["--backend", "process", "--devices", "2"],
+    ["--backend", "process", "--resume"],
+    ["--backend", "process", "--objective", "synthetic", "--slots", "2"],
+    ["--backend", "server", "--slots", "2", "--objective", "synthetic"],
 ])
 def test_tune_cli_refuses_what_the_reference_refuses(argv, capsys):
-    """The reference's argparse errors: --bracket needs the vectorized
-    backend, which runs GA3C and LM only and keeps no journal; PBT has no
-    rung barrier; Hyperband pools its cohorts at the server's barrier and
-    is a bracket scheduler itself."""
+    """The reference's argparse errors: --bracket needs the vectorized or a
+    socket backend, the vectorized backend runs GA3C and LM only, the
+    journal needs a socket backend and --resume a journal, --devices drives
+    the vectorized backend; PBT has no rung barrier; Hyperband pools its
+    cohorts at the server's barrier and is a bracket scheduler itself."""
     with pytest.raises(SystemExit) as exc:
         tune.main(["--device", "cpu", *argv])
     assert exc.value.code == 2 and "error:" in capsys.readouterr().err
+
+
+SOCKET_ARGV = ["--device", "cpu", "--objective", "synthetic", "--synthetic-sleep", "0.01",
+               "--workers", "4", "--nodes", "2", "--phases", "2", "--lease-ttl", "10"]
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("argv", [
+    ["--backend", "process"],
+    ["--backend", "process", "--journal", "{tmp}/j.jsonl"],
+    ["--backend", "server", "--journal", "{tmp}/j.jsonl"],
+    ["--backend", "server", "--journal", "{tmp}/j.jsonl", "--scheduler", "hyperband"],
+    ["--backend", "process", "--bracket", "--eta", "2", "--scheduler", "random"],
+], ids=["process", "process-journal", "server", "server-hyperband", "process-bracket"])
+def test_tune_cli_socket_backends_run_on_the_cpu(argv, monkeypatch, capsys, tmp_path):
+    """The process and server backends through the CLI, with worker
+    processes, against the reference's CLI on the same arguments: the same
+    summary keys, trial count and statuses, and the same rungs."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    argv = [a.replace("{tmp}", str(tmp_path)) for a in argv]
+    tune.main([*SOCKET_ARGV, *argv, "--out", str(tmp_path / "s.json")])
+    printed = json.loads((tmp_path / "s.json").read_text())
+    from repro.launch import tune as ref_tune
+    ref_argv = [a.replace("j.jsonl", "ref.jsonl") for a in [*SOCKET_ARGV[2:], *argv]]
+    monkeypatch.setattr(sys, "argv", ["tune", *ref_argv])
+    ref = ref_tune.main().summary()
+    assert set(printed) == set(ref) | {"expected_alpha", "min_alpha"}
+    if "--bracket" in argv:
+        # one bracket over 2 worker processes: the first cohort waits for
+        # both entrants, but a later cohort holds only the trials that park
+        # before the other process acquires again, in either package (the
+        # reference's barrier races so too). Held: what no timing moves.
+        assert printed["n_trials"] == ref["n_trials"]
+        for summary in (printed, ref):
+            rungs = summary["rungs"]
+            assert sum(e["n"] for e in rungs) == summary["n_trials"]
+            assert all(len(e["demoted"]) == e["n"] // 2 for e in rungs)
+            assert summary["by_status"].get("killed", 0) == sum(len(e["demoted"]) for e in rungs)
+            assert set(summary["by_status"]) <= {"completed", "killed"}
+        first = [(s["rungs"][0]["phase"], s["rungs"][0]["n"], sorted(s["rungs"][0]["demoted"]))
+                 for s in (printed, ref)]
+        assert first[0] == first[1] and first[0][1] == 2
+        return
+    for key in ("n_trials", "by_status", "alpha", "best_hparams", "best_metric"):
+        assert printed[key] == ref[key], key
+    if "rungs" in ref:
+        assert sorted((e.get("bracket"), e["phase"], e["n"], sorted(e["demoted"]))
+                      for e in printed["rungs"]) == sorted(
+            (e.get("bracket"), e["phase"], e["n"], sorted(e["demoted"])) for e in ref["rungs"])
+    if "--journal" in argv:
+        events = [e["ev"] for e in read_events(str(tmp_path / "j.jsonl"))]
+        assert events.count("acquire") == printed["n_trials"]
+        assert events.count("worker_exit") == 2
 
 
 def test_tune_cli_vectorized_runs_on_the_cpu(monkeypatch, capsys):
