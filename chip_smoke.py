@@ -264,8 +264,36 @@ Phases, each of which passes or ends the script with a non-zero exit:
      worker counter 0; prints wall time, env frames/s, updates/s (the
      workers' trainers' counts) and env frames a busy second beside 7a's
      (4 threads) and 7b's (1 thread).
+ 11. the population worker (``tune --backend process / server --slots N``:
+     each worker process is ``python -m repro_torch.population.worker``,
+     one population engine leasing a batch of trials), each run the CLI as
+     a subprocess as in phase 10. 11a: 9a's LM search on --backend server,
+     one worker of 12 slots, against 9a's trials (the same command on
+     --backend vectorized): the same configuration by trial id, the same
+     ``by_status``, every (trial, phase) metric both trained equal
+     (each difference printed), and each worker's launches at its steps of
+     the bucket x (3 slot-case RMSNorm + 1 FMA flash), no warp RMSNorm, gmm
+     or scan. 11b: the same search on two workers of 6 slots: the same
+     configurations, every (trial, phase) metric both trained within 9c's
+     limit on a slot's summed -loss (``population_checks.slot_faults``:
+     RTOL |summed -loss| + ATOL a step), launches as 11a's. 11c: 7a's GA3C
+     search on --backend process, two workers of 6 slots (12 distinct
+     t_max: one-slot buckets, the trainer's own update) against 8a's
+     trials: every (trial, phase) both trained equal, every worker counter
+     0. 11d: the pooled bracket of tests/test_bracket_barrier.py:362, two
+     population workers of 2 slots, eta 3: one rung of n 4 at phase 0, its
+     one demoted trial the pooled bottom metric, both nodes reporting, 1
+     killed and 3 completed. Each run prints wall time, occupancy, alpha,
+     trial-steps/s and tokens/s or env frames/s and updates/s, and its
+     start-up, beside 9a's, 8a's and 10a's.
 Seconds per phase are printed as each ends. The last two lines are the
 kernels' JSON line and the result line.
+
+``trial_seed`` (``repro_torch.rl.ga3c``) seeds each trial on the population
+engine with Python's salted ``hash`` of its hyperparameters, so the script
+re-executes itself once under ``PYTHONHASHSEED=0`` (``SMOKE_HASH_SEED``):
+phase 11's worker processes inherit the pin, and the same trial draws the
+same weights and data there as in 8a and 9a.
 """
 from __future__ import annotations
 
@@ -285,6 +313,8 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "src"))
+# the hash seed the script runs under (see the end of the docstring)
+SMOKE_HASH_SEED = "0"
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 FLOP/s
 PEAK_BYTES = 3.35e12
@@ -1010,7 +1040,7 @@ def population_phase(dev, smi, zero_counts, all_counts, phase_done, rl, res_7a):
     phase_done(f"8c one bucket of {POP_SLOTS} slots, profiled, and a bucket against lone "
                "trainers")
     log("[population] summary " + json.dumps(pop))
-    return paths, pop
+    return paths, pop, t8
 
 
 def lm_expect(rcfg):
@@ -1117,7 +1147,7 @@ def population_lm_phase(dev, smi, zero_counts, all_counts, phase_done):
         return (launches, expect, iterations, fa_by, gmm_by, rms_by, scan_by), row, res
 
     # 9a: the CLI's vectorized LM search at its defaults
-    path, out["9a"], _ = lm_search(
+    path, out["9a"], res_9a = lm_search(
         f"9a {YI}, vectorized", lambda: tune.main(POP_LM_ARGV), SEARCH_W0, SEARCH_PHASES,
         SEARCH_STEPS, POP_LM_BATCH, POP_LM_SEQ)
     paths[f"search {YI} vectorized"] = path
@@ -1256,7 +1286,7 @@ def population_lm_phase(dev, smi, zero_counts, all_counts, phase_done):
         f"{len(learner)} learner leaves bit-equal to the parent's, the child's carry kept")
     phase_done("9d PBT on the engine, GA3C and LM, and a clone under the sync check")
     log("[population-lm] summary " + json.dumps(out))
-    return paths, out
+    return paths, out, trial_table(res_9a)
 
 
 # phase 10: the control plane. The tune CLI runs as a subprocess, its
@@ -1330,14 +1360,15 @@ def journal_trials(path):
 def start_up(path, t_spawn):
     """Seconds from a tune subprocess's spawn (``time.monotonic()``, the
     clock the server journals and every process shares) to its first
-    journaled acquire (the launcher's and a worker's start-up) and to its
-    first report (a worker's first phase too)."""
+    journaled acquire (the launcher's and a worker's start-up), to its
+    first report (a worker's first phase too) and to its last report."""
     from repro_torch.distributed.journal import read_events
     ts = {"acquire": [], "report": []}
     for ev in read_events(path):
         if ev["ev"] in ts and ev.get("t") is not None and ev["t"] >= t_spawn:
             ts[ev["ev"]].append(ev["t"] - t_spawn)
-    return {"first_acquire_s": min(ts["acquire"]), "first_report_s": min(ts["report"])}
+    return {"first_acquire_s": min(ts["acquire"]), "first_report_s": min(ts["report"]),
+            "last_report_s": max(ts["report"])}
 
 
 def worker_counts(stdout, label, n_workers):
@@ -1554,6 +1585,221 @@ def control_plane_phase(smi, phase_done, out_6a, table_6a, rl):
         log(f"[control] {smi}: 10d " + json.dumps(out["10d"]))
         phase_done("10d GA3C search, process backend, 4 worker processes")
     log("[control] summary " + json.dumps(out))
+    return paths, out
+
+
+# phase 11: the population worker. Each run is the tune CLI as a subprocess
+# (as in phase 10), its worker processes population engines that lease a
+# batch of trials (``--slots``), under the script's pinned hash seed
+# (SMOKE_HASH_SEED), so a trial draws what it drew in 8a and 9a. 11a: 9a's
+# LM search on one worker of 12 slots; 11b: on two of 6; 11c: 7a's GA3C
+# search on two workers of 6; 11d: the pooled bracket of
+# tests/test_bracket_barrier.py:362
+POPW_LM_ARGV = ["--backend", "server", "--objective", "lm"]
+POPW_LM_LAYOUTS = {"11a": (1, 12), "11b": (2, 6)}
+POPW_RL_ARGV = ["--backend", "process", *RL_ARGV, "--nodes", "2", "--slots", "6"]
+POPW_BRACKET = dict(spec={"kind": "rl", "game": "pong", "episodes_per_phase": 2,
+                          "max_updates": 3, "seed": 0}, trials=4, phases=2, nodes=2, slots=2,
+                    eta=3)
+
+
+def population_workers(stdout, label, n_workers, slots_expect=None):
+    """Each population worker's closing line (``parse_closing_line``), by
+    node; with ``slots_expect`` (launches a step of the LM bucket) each
+    worker's counters held at its steps of the bucket x that: every
+    RMSNorm the slot case of the block kernel, every flash call the FMA
+    kernel, no gmm or scan."""
+    from repro_torch.distributed.worker import parse_closing_line
+    lines = {c["node"]: c for c in map(parse_closing_line, stdout.splitlines())
+             if c is not None and "reports" in c}
+    assert sorted(lines) == list(range(n_workers)), (label, lines)
+    for node, c in lines.items():
+        la, steps = c["launches"], c["engine_steps"]
+        if slots_expect is None:
+            assert not any(v for op in la.values() for v in op.values()), (label, node, la)
+            continue
+        rms, fa = slots_expect["rmsnorm"] * steps, slots_expect["flash_attention"] * steps
+        assert la["rmsnorm"] == {"launches": rms, "launches_block": rms, "launches_slots": rms,
+                                 "launches_warp": 0}, (label, node, steps, la["rmsnorm"])
+        assert la["flash_attention"] == {"launches": fa, "launches_fma": fa,
+                                         "launches_split_kv": 0, "launches_tensor_core": 0}, (
+            label, node, steps, la["flash_attention"])
+        assert not any(la["gmm"].values()) and not any(la["selective_scan"].values()), (
+            label, node, la)
+    return lines
+
+
+def same_configs(label, table, ref):
+    assert {t: hp for t, (hp, _, _) in table.items()} == {
+        t: hp for t, (hp, _, _) in ref.items()}, f"{label}: configs differ by trial id"
+
+
+def both_trained(table, ref):
+    """(trial, phase, metric here, metric in ``ref``) of every (trial,
+    phase) both runs trained."""
+    return [(t, ph, ms[ph], ref[t][2][ph]) for t, (_, _, ms) in sorted(table.items())
+            for ph in range(min(len(ms), len(ref[t][2])))]
+
+
+def population_worker_phase(smi, phase_done, beside, table_9a, table_8a):
+    """Phase 11: the population worker on the card (11a-11d above).
+    ``beside``: 9a's, 8a's and 10a's rows of this run, printed beside each
+    run's; ``table_9a`` / ``table_8a``: their trials, which 11a-11b and 11c
+    are held against. Returns the launch records of the LM runs (counted in
+    the worker processes) and the phase's numbers."""
+    import tempfile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.executor import ProcessCluster
+    from repro_torch.core.hypertrick import RandomSearchPolicy
+    from repro_torch.core.search_space import Categorical, LogUniform, SearchSpace
+    from repro_torch.launch import population_checks as pc
+
+    expect = lm_expect(get_config(YI).reduced())
+    paths, out = {}, {}
+    near = lambda row, keys: {k: row[k] for k in keys if k in row}  # noqa: E731
+    with tempfile.TemporaryDirectory() as tmp:
+        # 11a / 11b: 9a's search, held against 9a's trials
+        for label, (nodes, slots) in POPW_LM_LAYOUTS.items():
+            argv = [*POPW_LM_ARGV, "--nodes", str(nodes), "--slots", str(slots)]
+            t0, spawned = time.perf_counter(), time.monotonic()
+            proc, out_path, jpath = tune_process(argv, tmp, label)
+            stdout = finish(proc, label)
+            run_s = time.perf_counter() - t0
+            summary = json.load(open(out_path))
+            table, reports, busy = journal_trials(jpath)
+            hold_trials(label, table, SEARCH_PHASES, SEARCH_W0)
+            assert "crashed" not in summary["by_status"] and 0 < summary["alpha"] <= 1, summary
+            same_configs(label, table, table_9a)
+            pairs = both_trained(table, table_9a)
+            if label == "11a":
+                # one engine of 12 slots, as 9a's: the same bucket, the same
+                # decisions, so the same numbers
+                assert summary["by_status"] == beside["9a"]["by_status"], (
+                    label, summary["by_status"], beside["9a"]["by_status"])
+                limit = lambda b: 0.0  # noqa: E731
+            else:
+                # buckets of 6 against one of 12: 9c's limit on a slot's
+                # summed -loss (pc.slot_faults), over a phase's steps
+                limit = lambda b: (pc.RTOL * abs(b) + pc.ATOL) * SEARCH_STEPS  # noqa: E731
+            over = []
+            for t, ph, a, b in pairs:
+                d = (a - b) * SEARCH_STEPS
+                if a != b or label != "11a":      # 11a: each difference; 11b: every pair
+                    log(f"[popworker] {label} trial {t} phase {ph}: {a!r} against 9a's "
+                        f"{b!r}: summed -loss {d!r} apart (limit {limit(b)!r})")
+                if abs(d) > limit(b):
+                    over.append((t, ph, a, b))
+            lines = population_workers(stdout, label, nodes, expect)
+            steps = sum(c["engine_steps"] for c in lines.values())
+            updates = sum(c["updates"] for c in lines.values())
+            assert updates == SEARCH_STEPS * len(reports), (label, updates, len(reports))
+            counts, _ = worker_counts(stdout, label, nodes)
+            paths[f"population worker lm {nodes} x {slots}"] = (counts[0], expect, steps,
+                                                               *counts[1:])
+            wall = summary["wall_time"]
+            out[label] = {
+                "argv": argv, "processes": nodes, "slots": slots, "wall_s": wall,
+                "run_s": run_s, "occupancy": summary["occupancy"], "alpha": summary["alpha"],
+                "by_status": summary["by_status"], "trial_steps": updates,
+                "bucket_steps": steps, "trial_steps_per_s": updates / wall,
+                "tokens_per_s": updates * POP_LM_BATCH * POP_LM_SEQ / wall,
+                "phase_busy_s": busy, "compared_with_9a": len(pairs),
+                "unequal": sum(a != b for _, _, a, b in pairs),
+                "max_abs_diff": max((abs(a - b) for _, _, a, b in pairs), default=0.0),
+                "outside_limit": len(over), "launches": counts[0],
+                "start_up": start_up(jpath, spawned), "device_busy_share": "not measured",
+                "9a_vectorized": near(beside["9a"], ("wall_s", "occupancy", "alpha",
+                                                     "trial_steps_per_s", "tokens_per_s")),
+                "10a_4_processes": near(beside["10a"], ("wall_s", "occupancy", "alpha",
+                                                        "trial_steps_per_s", "tokens_per_s",
+                                                        "start_up"))}
+            log(f"[popworker] {smi}: {label} " + json.dumps(out[label]))
+            assert not over, (label, "metrics outside the limit", over)
+            phase_done(f"{label} LM search, {nodes} population worker(s) of {slots} slots")
+
+        # 11c: 7a's GA3C search on two population workers of 6 slots, held
+        # against 8a's trials
+        t0, spawned = time.perf_counter(), time.monotonic()
+        proc, out_path, jpath = tune_process(POPW_RL_ARGV, tmp, "11c")
+        stdout = finish(proc, "11c")
+        run_s = time.perf_counter() - t0
+        summary = json.load(open(out_path))
+        table, reports, busy = journal_trials(jpath)
+        hold_trials("11c", table, RL_PHASES, RL_W0, score=RL_SCORE)
+        assert "crashed" not in summary["by_status"] and 0 < summary["alpha"] <= 1, summary
+        same_configs("11c", table, table_8a)
+        assert len({hp["t_max"] for hp, _, _ in table.values()}) == RL_W0, "11c: t_max repeat"
+        pairs = both_trained(table, table_8a)
+        unequal = [p for p in pairs if abs(p[2] - p[3]) > RL_NODES_ATOL]
+        for t, ph, a, b in unequal:
+            log(f"[popworker] 11c trial {t} phase {ph}: {a!r} against 8a's {b!r}")
+        lines = population_workers(stdout, "11c", 2)
+        counts, (env_steps, updates) = worker_counts(stdout, "11c", 2)
+        for c in counts:
+            assert not any(c.values()), ("11c: a kernel launched on the GA3C path", counts)
+        paths[f"population worker rl {RL_GAME} 2 x 6"] = (
+            counts[0], {name: 0 for name in counts[0]}, 0, *counts[1:])
+        wall = summary["wall_time"]
+        out["11c"] = {
+            "argv": POPW_RL_ARGV, "processes": 2, "slots": 6, "wall_s": wall, "run_s": run_s,
+            "occupancy": summary["occupancy"], "alpha": summary["alpha"],
+            "by_status": summary["by_status"], "trial_phases": len(reports),
+            "updates": updates, "env_frames": env_steps, "env_frames_per_s": env_steps / wall,
+            "updates_per_s": updates / wall, "phase_busy_s": busy,
+            "compared_with_8a": len(pairs), "unequal": len(unequal),
+            "atol": RL_NODES_ATOL, "start_up": start_up(jpath, spawned),
+            "device_busy_share": "not measured",
+            "8a_vectorized": near(beside["8a"], ("wall_s", "occupancy", "alpha",
+                                                 "env_frames_per_s", "updates_per_s")),
+            "10d_4_processes": near(beside["10d"], ("wall_s", "occupancy", "alpha",
+                                                    "env_frames_per_s", "updates_per_s",
+                                                    "start_up"))}
+        log(f"[popworker] {smi}: 11c " + json.dumps(out["11c"]))
+        assert pairs and not unequal, ("11c: metrics differ from 8a's", unequal)
+        phase_done("11c GA3C search, 2 population workers of 6 slots")
+
+    # 11d: the reference's pooled bracket, 2 population workers x 2 slots;
+    # the workers write their closing lines to this process's stdout, caught
+    # in a file for the run
+    b = POPW_BRACKET
+    space = SearchSpace({"learning_rate": LogUniform(1e-4, 1e-3), "t_max": Categorical((4,)),
+                         "gamma": Categorical((0.99,))})
+    cluster = ProcessCluster(b["nodes"], b["spec"], lease_ttl=30.0, heartbeat_interval=1.0,
+                             slots=b["slots"], bracket_eta=b["eta"])
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile(mode="w+") as caught:
+        sys.stdout.flush()
+        saved = os.dup(1)
+        os.dup2(caught.fileno(), 1)
+        try:
+            res = cluster.run(RandomSearchPolicy(space, b["trials"], b["phases"], seed=0))
+        finally:
+            sys.stdout.flush()
+            os.dup2(saved, 1)
+            os.close(saved)
+        caught.seek(0)
+        stdout = caught.read()
+    s = res.summary()
+    rungs = s["rungs"]
+    by_trial = {r.trial_id: r.metric for r in res.records if r.phase == 0}
+    # at 3 updates of pong no episode may end, and then every phase-0 metric
+    # is equal and the bottom-metric check holds whichever trial was
+    # demoted: the pooling shows in n 4 with both nodes reporting
+    out["11d"] = {"rungs": rungs, "by_status": s["by_status"], "wall_s": res.wall_time,
+                  "run_s": time.perf_counter() - t0,
+                  "nodes": sorted({r.node for r in res.records}), "phase_0": by_trial,
+                  "distinct_phase_0_metrics": len(set(by_trial.values()))}
+    log(f"[popworker] {smi}: 11d " + json.dumps(out["11d"]))
+    assert s["n_trials"] == b["trials"], s
+    assert rungs and rungs[0]["phase"] == 0 and rungs[0]["n"] == 4, rungs
+    assert len(rungs[0]["demoted"]) == 4 // b["eta"], rungs
+    assert len(by_trial) == 4 and by_trial[rungs[0]["demoted"][0]] == min(by_trial.values())
+    assert {r.node for r in res.records} == {0, 1}, res.records
+    assert s["by_status"] == {"killed": 1, "completed": 3}, s["by_status"]
+    population_workers(stdout, "11d", b["nodes"])
+    phase_done("11d pooled bracket, 2 population workers of 2 slots")
+    log("[popworker] summary " + json.dumps(out))
     return paths, out
 
 
@@ -3102,18 +3348,27 @@ def main() -> int:
     # -- 7. the GA3C search ------------------------------------------------------
     rl_paths, rl, res_7a = rl_phase(dev, smi, zero_counts, all_counts, phase_done)
     # -- 8. the population engine -------------------------------------------------
-    pop_paths, _ = population_phase(dev, smi, zero_counts, all_counts, phase_done, rl, res_7a)
+    pop_paths, pop, table_8a = population_phase(dev, smi, zero_counts, all_counts, phase_done,
+                                                rl, res_7a)
     for k, (launches, *by_kernel) in {**rl_paths, **pop_paths}.items():
         paths[k] = (launches, {name: 0 for name in launches}, 0, *by_kernel)
     # -- 9. LM trials on the population engine, and PBT --------------------------
-    lm_paths, _ = population_lm_phase(dev, smi, zero_counts, all_counts, phase_done)
+    lm_paths, lm_out, table_9a = population_lm_phase(dev, smi, zero_counts, all_counts,
+                                                     phase_done)
     paths.update(lm_paths)
     # -- 10. the control plane: worker processes against the TCP server --------
     gc.collect()
     torch.cuda.empty_cache()
-    control_paths, _ = control_plane_phase(smi, phase_done, searches["6a"], trial_table(res_4),
-                                           rl)
+    control_paths, control = control_plane_phase(smi, phase_done, searches["6a"],
+                                                 trial_table(res_4), rl)
     paths.update(control_paths)
+    # -- 11. the population worker: a batch of trials a worker process -------
+    gc.collect()
+    torch.cuda.empty_cache()
+    popw_paths, _ = population_worker_phase(
+        smi, phase_done, {"9a": lm_out["9a"], "8a": pop["8a"], "10a": control["10a"],
+                          "10d": control["10d"]}, table_9a, table_8a)
+    paths.update(popw_paths)
 
 
     kernels = []
@@ -3182,7 +3437,7 @@ def main() -> int:
         assert kernels[-1]["launches"] > 0, f"{name}: no launch on the main paths"
     serves = {k: {**p[7], **probes[k]} for k, p in paths.items() if k in probes}
     log("[serve] summary " + json.dumps(serves))
-    log(f"[phase] the smoke's total, phases 0-10 with the build: "
+    log(f"[phase] the smoke's total, phases 0-11 with the build: "
         f"{time.perf_counter() - clock['start']:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
@@ -3191,4 +3446,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if os.environ.get("PYTHONHASHSEED") != SMOKE_HASH_SEED:
+        os.execve(sys.executable, [sys.executable, os.path.abspath(sys.argv[0]), *sys.argv[1:]],
+                  dict(os.environ, PYTHONHASHSEED=SMOKE_HASH_SEED))
     sys.exit(main())

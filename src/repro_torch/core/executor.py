@@ -13,16 +13,16 @@ port's).
   TCP server (``repro_torch.distributed``): the paper's actual deployment
   shape, with per-trial leases, crash reclamation, an optional durable
   journal and the server-side rung barrier (Hyperband, ``--bracket``).
-  Each worker process trains its trials on the device its spec names.
+  Each worker process trains its trials on the device its spec names:
+  one at a time (a scalar worker), or with ``slots > 1`` up to that many at
+  once in a population engine (``repro_torch.population.worker``).
 * PopulationCluster — the population engine (``population/engine.py``):
   every live trial trains at once on one device, from one host thread,
   against the same service and policy; GA3C or LM trials (``objective``),
   with PBT's clones copied slot to slot on the device.
 
 Not ported yet: ``SyncCluster`` (synchronized Successive Halving; ROADMAP
-queue 1 item 7c, second part) and the population worker, which would lease
-several trials a process (the same item): ``ProcessCluster`` runs scalar
-workers, one trial a process.
+queue 1 item 7c, second part).
 
 Objectives have the signature  objective(hparams, phase, state) ->
 (metric, state)  where state carries the live trainer across phases.
@@ -147,12 +147,18 @@ class ProcessCluster:
     — rung-phase reports park on the server, cohorts pool across hosts,
     and the bottom 1/eta of each pooled cohort is demoted. Workers are
     launched with ``--bracket`` so their acquires carry the rung hint.
+
+    ``slots > 1`` (rl and lm specs): each worker process is a population
+    engine leasing up to ``slots`` trials at once; bracket capacity and
+    occupancy count ``n_nodes * slots``. Each prints its launch counters,
+    env steps and updates in its closing line
+    (``distributed.worker.parse_closing_line``).
     """
 
     def __init__(self, n_nodes: int, objective_spec: Dict,
                  lease_ttl: float = 15.0, heartbeat_interval: float = 1.0,
                  journal_path: Optional[str] = None, resume: bool = False,
-                 host: str = "127.0.0.1", port: int = 0,
+                 host: str = "127.0.0.1", port: int = 0, slots: int = 1,
                  bracket_eta: Optional[int] = None,
                  worker_grace: Optional[float] = None):
         self.n_nodes = n_nodes
@@ -163,6 +169,9 @@ class ProcessCluster:
         self.resume = resume
         self.host = host
         self.port = port
+        # slots > 1: each worker process is a multi-trial population engine
+        # leasing up to this many trials at once (rl / lm objectives only)
+        self.slots = slots
         self.bracket_eta = bracket_eta
         # do workers join the server-side rung barrier (--bracket)? Updated
         # in run() once the service exists: a first-class Scheduler
@@ -180,6 +189,8 @@ class ProcessCluster:
                "--spec", json.dumps(self.objective_spec),
                "--node", str(node),
                "--heartbeat-interval", str(self.heartbeat_interval)]
+        if self.slots > 1:
+            cmd += ["--slots", str(self.slots)]
         if self._workers_bracket:
             cmd += ["--bracket"]
         return cmd
@@ -210,7 +221,7 @@ class ProcessCluster:
             for i in exited - dead_nodes:
                 # an exited worker's free capacity will never refill the
                 # bracket: stop the entry cohort waiting for it
-                svc.reduce_bracket_entrants(1)
+                svc.reduce_bracket_entrants(self.slots)
                 if journal is not None:
                     # host churn, journaled WHEN it happened (the final
                     # exit-code summary knows the codes but not the time):
@@ -255,11 +266,11 @@ class ProcessCluster:
         # workers must join the barrier even without bracket_eta
         self._workers_bracket = svc.barrier is not None
         # bracket entry cohorts are sized to real capacity: the first waits
-        # for min(worker processes, budget) enrollments (seeded via the
+        # for min(total worker slots, budget) enrollments (seeded via the
         # server's bracket_capacity below, split across brackets by the
         # scheduler), and a fully-parked cohort missing dead capacity
         # resolves after the patience window instead of wedging
-        capacity = self.n_nodes
+        capacity = self.n_nodes * self.slots
         budget = (getattr(policy, "n_trials", None)
                   or getattr(policy, "w0", None))
         bracket_capacity = (min(capacity, budget) if budget else capacity) \
@@ -308,8 +319,8 @@ class ProcessCluster:
         records = [ExecRecord(tid, node if node is not None else -1, phase,
                               ts, te, metric)
                    for tid, node, phase, ts, te, metric in server.report_log]
-        # capacity for occupancy accounting: one trial a scalar worker
-        return ExecResult(svc, records, wall, self.n_nodes,
+        # capacity for occupancy accounting: slots trials fit in each worker
+        return ExecResult(svc, records, wall, self.n_nodes * self.slots,
                           extra=extra or None)
 
 

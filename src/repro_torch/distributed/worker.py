@@ -21,8 +21,9 @@ process's kernel launch counters and, for GA3C trials, its trainers' env
 steps and updates (``closing_line`` / ``parse_closing_line``): they live in
 the worker process, and the launcher cannot read them otherwise.
 
-Not ported: ``--slots > 1`` (the population worker, ROADMAP queue 1 item
-7c, second part).
+``--slots > 1`` hands an rl or lm spec to the population worker
+(``repro_torch.population.worker``): one engine in this process leasing up
+to that many trials at once, on the spec's device.
 """
 from __future__ import annotations
 
@@ -41,8 +42,6 @@ import numpy as np
 
 from repro_torch.distributed.client import (Pending, RemoteTrial, ServiceClient,
                                             ServiceError)
-
-SLOTS_ITEM = "7c, second part (the population worker)"
 
 
 # -- objective registry (specs are JSON so they cross process boundaries) ---
@@ -252,6 +251,9 @@ class WorkerAgent:
 
 # -- the closing line: what only the worker process can count ----------------
 _CLOSING = re.compile(r"^worker node=(\S+) ran (\d+) trials (\{.*\})$")
+_POP_CLOSING = re.compile(
+    r"^population worker node=(\S+) delivered (\d+) phase reports \(\d+ env steps\) "
+    r"(\{.*\})$")
 
 
 def launch_counters() -> dict:
@@ -279,14 +281,28 @@ def closing_line(node, n: int, objective: Callable) -> str:
     return f"worker node={node} ran {n} trials {json.dumps(extra, sort_keys=True)}"
 
 
+def write_line(line: str) -> None:
+    """``line`` and its newline to stdout in one write. A launcher's
+    workers share its stdout pipe, and ``print`` on an unbuffered stdout
+    writes the newline apart, so another worker's line could land between
+    them; one write under ``PIPE_BUF`` bytes is not split."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
+
+
 def parse_closing_line(line: str) -> Optional[dict]:
-    """The closing line's fields ({"node", "trials", "launches", ...}), or
-    None for any other line."""
-    m = _CLOSING.match(line.strip())
-    if m is None:
-        return None
-    node = None if m.group(1) == "None" else int(m.group(1))
-    return {"node": node, "trials": int(m.group(2)), **json.loads(m.group(3))}
+    """A worker's closing line as its fields: ``{"node", "trials",
+    "launches", ...}`` for a scalar worker's, ``{"node", "reports",
+    "launches", "env_steps", "updates", "engine_steps"}`` for a population
+    worker's (``population.worker.closing_line``); None for any other
+    line."""
+    line = line.strip()
+    for pattern, count in ((_CLOSING, "trials"), (_POP_CLOSING, "reports")):
+        m = pattern.match(line)
+        if m is not None:
+            node = None if m.group(1) == "None" else int(m.group(1))
+            return {"node": node, count: int(m.group(2)), **json.loads(m.group(3))}
+    return None
 
 
 def main(argv=None) -> int:
@@ -309,7 +325,8 @@ def main(argv=None) -> int:
     ap.add_argument("--node", type=int, default=None)
     ap.add_argument("--heartbeat-interval", type=float, default=2.0)
     ap.add_argument("--slots", type=int, default=1,
-                    help="1 = classic scalar worker (the only kind ported)")
+                    help="1 = classic scalar worker; >1 = population worker "
+                         "leasing that many trials at once (rl / lm specs)")
     ap.add_argument("--bracket", action="store_true",
                     help="join the server-side successive-halving bracket: "
                          "acquires carry the rung-0 hint and 'parked' "
@@ -334,9 +351,32 @@ def main(argv=None) -> int:
                           seed=args.seed, device=args.device)
 
     if args.slots > 1:
-        print(f"--slots {args.slots} is not ported: ROADMAP queue 1 item {SLOTS_ITEM}",
-              file=sys.stderr)
-        return 2
+        if spec.get("kind") not in ("rl", "lm"):
+            print(f"--slots {args.slots} requires an rl or lm spec, got "
+                  f"{spec.get('kind')!r}")
+            return 2
+        from repro_torch.population.worker import main as population_main
+        if spec.get("kind") == "lm":
+            # the LM spec's steps_per_phase is the engine's generic
+            # units-per-phase knob (the lm objective counts updates)
+            workload = ["--objective", "lm",
+                        "--arch", spec.get("arch", "yi-9b"),
+                        "--episodes-per-phase",
+                        str(spec.get("steps_per_phase", 25))]
+        else:
+            workload = ["--game", spec.get("game", "pong"),
+                        "--episodes-per-phase",
+                        str(spec.get("episodes_per_phase", 20))]
+        return population_main([
+            "--host", args.host, "--port", str(args.port)]
+            + workload + [
+            "--slots", str(args.slots),
+            "--max-updates", str(spec.get("max_updates", 2000)),
+            "--seed", str(spec.get("seed", 0)),
+            "--heartbeat-interval", str(args.heartbeat_interval),
+            "--device", str(spec["device"])]
+            + (["--bracket"] if args.bracket else [])
+            + ([] if args.node is None else ["--node", str(args.node)]))
 
     from repro_torch.device import resolve_device
     try:
@@ -355,7 +395,7 @@ def main(argv=None) -> int:
                         heartbeat_interval=args.heartbeat_interval,
                         node=args.node, bracket=args.bracket,
                         batched=not args.unbatched).run()
-    print(closing_line(args.node, n, objective), flush=True)
+    write_line(closing_line(args.node, n, objective))
     return 0
 
 

@@ -26,6 +26,11 @@ thread, process, server and vectorized backends).
   PYTHONPATH=src python -m repro_torch.launch.tune --backend server \\
       --objective lm --journal /tmp/metaopt_journal.jsonl
 
+  # population workers: one process leases 12 trials and trains them at
+  # once on its card (--nodes 2 --slots 6: two processes of 6 each)
+  PYTHONPATH=src python -m repro_torch.launch.tune --backend server \\
+      --objective lm --nodes 1 --slots 12 --journal /tmp/metaopt_journal.jsonl
+
   # Hyperband: every bracket at once, cohorts pooled at the server's barrier
   PYTHONPATH=src python -m repro_torch.launch.tune --backend process \\
       --objective lm --scheduler hyperband --phases 4 --eta 2 --nodes 10
@@ -48,8 +53,12 @@ with the journal on by default (``metaopt_journal.jsonl``), and
 ``--scheduler hyperband`` (process and server) runs every bracket of the
 (``--eta``, R = ``--phases``) construction at once through the server's
 rung barrier; ``--bracket`` there is one successive-halving bracket
-across every worker process. ``--backend vectorized``: the population
-engine trains ``--slots`` (default ``--workers``) trials at once, the
+across every worker process. ``--slots`` above 1 there (rl and lm) makes
+each worker process a population worker
+(``python -m repro_torch.population.worker``) that leases up to that many
+trials at once and trains them in one population engine; the bracket's
+cohorts pool across every slot of every process. ``--backend
+vectorized``: the population engine trains ``--slots`` (default ``--workers``) trials at once, the
 trials that share a bucket key (GA3C: ``t_max``; LM: the effective
 ``loss_chunk``) stepped together, and hot-swaps a fresh configuration into
 each slot the service stops; ``--bracket`` adds the service's rung barrier
@@ -72,11 +81,9 @@ before it connects, so it exits without a lease and the launcher raises
 cpu`` runs the plain PyTorch path. Prints the reference's summary as JSON.
 
 Ported: every backend, objective, policy and scheduler of the reference,
-``--bracket``, ``--eta``, ``--journal``, ``--resume`` and ``--lease-ttl``.
-``--slots`` above 1 on the process and server backends (population
-workers) raises ``NotImplementedError`` naming the ROADMAP item that ports
-it; ``--devices`` above 1 is not owed on one card. Combinations the
-reference refuses exit through ``argparse``'s error, as there.
+``--slots``, ``--bracket``, ``--eta``, ``--journal``, ``--resume`` and
+``--lease-ttl``. ``--devices`` above 1 is not owed on one card. Combinations
+the reference refuses exit through ``argparse``'s error, as there.
 """
 from __future__ import annotations
 
@@ -90,10 +97,7 @@ from repro_torch.core.executor import PopulationCluster, ProcessCluster, ThreadC
 from repro_torch.core.hypertrick import HyperTrick, RandomSearchPolicy
 from repro_torch.core.scheduler import HyperbandScheduler, PBTScheduler
 from repro_torch.core.search_space import LogUniform, SearchSpace, lm_space, paper_rl_space
-from repro_torch.distributed.worker import SLOTS_ITEM, build_spec, make_synthetic_objective
-
-# what is not ported yet, and the ROADMAP queue 1 item that ports it
-NOT_PORTED = {"slots": SLOTS_ITEM}
+from repro_torch.distributed.worker import build_spec, make_synthetic_objective
 
 # the entry points that import torch, loaded on first use (module
 # ``__getattr__``): on the process and server backends only the workers
@@ -156,7 +160,8 @@ def main(argv=None):
                          "trials train at once on the device")
     ap.add_argument("--slots", type=int, default=None,
                     help="vectorized: trials on the device at once (default: --workers); "
-                         "process / server: 1 (population workers are not ported)")
+                         "process / server with an rl or lm objective: trials leased a "
+                         "worker process (default 1 = classic scalar workers)")
     ap.add_argument("--devices", type=int, default=1)
     ap.add_argument("--bracket", action="store_true",
                     help="successive-halving rungs through the service's generation "
@@ -244,12 +249,8 @@ def main(argv=None):
             journal_path = "metaopt_journal.jsonl"
         if args.resume and journal_path is None:
             ap.error("--resume requires a journal (--backend server or --journal PATH)")
-        if args.slots and args.slots > 1:
-            if args.objective not in ("rl", "lm"):
-                ap.error("--slots > 1 (population workers) requires --objective rl or lm")
-            raise NotImplementedError(
-                f"--slots {args.slots} on --backend {args.backend} is not ported: ROADMAP "
-                f"queue 1 item {NOT_PORTED['slots']}")
+        if args.slots and args.slots > 1 and args.objective not in ("rl", "lm"):
+            ap.error("--slots > 1 (population workers) requires --objective rl or lm")
 
     if args.backend in ("thread", "vectorized"):
         for name in _TORCH_ENTRY_POINTS:     # into this module's globals
@@ -283,7 +284,7 @@ def main(argv=None):
     else:
         result = ProcessCluster(args.nodes, build_objective_spec(args),
                                 lease_ttl=args.lease_ttl, journal_path=journal_path,
-                                resume=args.resume,
+                                resume=args.resume, slots=args.slots or 1,
                                 bracket_eta=args.eta if args.bracket else None).run(policy)
     summary = result.summary()
     summary["expected_alpha"] = expected_alpha(args.eviction_rate, args.phases)

@@ -37,16 +37,29 @@ possibly across buckets, and installs the perturbed hyperparameters. A
 parent that holds no slot here any more leaves the child its own learner:
 it adopts the hyperparameters only.
 
-The engine talks to the service through ``LocalDriver``
-(``core.executor.PopulationCluster``, ``launch/tune.py --backend
-vectorized``). Not ported: the reference's ``RemoteDriver`` and
-``population/worker.py`` (the engine as a client of the TCP server, ROADMAP
-queue 1 item 7c, second part) and
-the ``shard_map`` slots over several devices (not owed on one card). Nor
-``engine.compile_s``: an eager step has no trace and no compile to time.
+The engine talks to the service through a *driver*, so the same loop
+serves two deployments:
+
+* ``LocalDriver``  — an in-process ``OptimizationService``
+  (``core.executor.PopulationCluster``, ``launch/tune.py --backend
+  vectorized``);
+* ``RemoteDriver`` — the TCP ``ServiceClient``, leasing up to ``slots``
+  trials an ACQUIRE, so one card trains a whole search or a share of it
+  (``population.worker``; ``tune --backend process / server --slots N``).
+
+With ``spans`` (a ``telemetry.spans.SpanRecorder``) the engine records the
+reference's ``engine.compile`` (the host seconds of a bucket's first step
+at its slot count: the kernel library's load, cuBLAS's and the caching
+allocator's warm-up; there is no trace to compile, and the host clock
+needs no sync with the card), ``engine.phase``, ``engine.clone`` and
+``engine.park_stall`` spans.
+
+Not ported: the ``shard_map`` slots over several devices (not owed on one
+card).
 """
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, Hashable, List, Optional, Sequence, Tuple
@@ -58,6 +71,7 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 from repro_torch.population.objectives import PopulationObjective
 from repro_torch.rl.ga3c import trial_seed
 from repro_torch.telemetry.metrics import MetricsRegistry
+from repro_torch.telemetry.spans import NULL_RECORDER
 
 
 @dataclass(frozen=True)
@@ -68,7 +82,7 @@ class TrialLease:
 
 
 # ---------------------------------------------------------------------------
-# the driver: how the engine talks to the metaoptimization service
+# drivers: how the engine talks to the metaoptimization service
 # ---------------------------------------------------------------------------
 class LocalDriver:
     """In-process service — the engine IS the whole cluster. Speaks the
@@ -113,6 +127,86 @@ class LocalDriver:
     def poll_lost(self) -> set:
         """Trials whose lease was revoked out from under us (remote only)."""
         return set()
+
+
+class RemoteDriver:
+    """The TCP client: one process leases a whole population. A lease lost
+    to the server's reaper (reported by the worker's heartbeat thread via
+    ``mark_lost``) is abandoned without a report, exactly like a worker
+    death with strictly local effect."""
+
+    def __init__(self, client, node: Optional[int] = None):
+        self.client = client
+        self.node = node
+        # written by the heartbeat thread, taken by the engine's loop
+        self._lost: set = set()
+        self._lost_lock = threading.Lock()
+        self._t0 = time.monotonic()
+
+    def set_timebase(self, t0: float) -> None:
+        """Adopt the engine's run clock (``time.monotonic()`` at run start)
+        so the trace ``t`` this driver sends shares the t_start / t_end
+        timebase of the engine's reports."""
+        self._t0 = t0
+
+    def _now(self) -> float:
+        return time.monotonic() - self._t0
+
+    def acquire_many(self, k: int, rung: Optional[int] = None,
+                     ) -> Tuple[List[TrialLease], Optional[float]]:
+        from repro_torch.distributed.client import Pending
+        got = self.client.acquire_batch(node=self.node, slots=k, rung=rung,
+                                        trace_t=self._now())
+        if got is None:
+            return [], None
+        if isinstance(got, Pending):
+            return [], got.retry_after
+        return [TrialLease(t.trial_id, t.hparams, t.n_phases) for t in got], None
+
+    def report(self, trial_id: int, phase: int, metric: float,
+               t_start: float, t_end: float,
+               env_steps: Optional[int] = None) -> str:
+        from repro_torch.distributed.client import ServiceError
+        try:
+            return self.client.report(trial_id, phase, metric,
+                                      t_start=t_start, t_end=t_end,
+                                      node=self.node, env_steps=env_steps,
+                                      trace_t=self._now())
+        except ServiceError:
+            # stale trial (server restarted / lease reaped between our
+            # heartbeat and this report): strictly local effect — drop the
+            # one slot, keep the rest of the population training
+            return "stop"
+
+    def report_many(self, reports: List[dict]) -> List:
+        """A whole generation's reports in ONE ``report_batch`` frame. A
+        server-rejected entry comes back ``"stop"`` (the client maps entry
+        errors), and a frame the server rejects as a whole stops every slot
+        in it: the same strictly-local abandonment as the per-trial path. A
+        broken connection raises, and the worker ends as "server gone"."""
+        from repro_torch.distributed.client import ServiceError
+        entries = []
+        for r in reports:
+            e = {"trial_id": r["trial_id"], "phase": r["phase"],
+                 "metric": r["metric"], "t_start": r["t_start"],
+                 "t_end": r["t_end"]}
+            if r.get("env_steps") is not None:
+                e["env_steps"] = r["env_steps"]
+            entries.append(e)
+        try:
+            return self.client.report_batch(entries, node=self.node,
+                                            trace_t=self._now())
+        except ServiceError:
+            return ["stop"] * len(reports)
+
+    def mark_lost(self, trial_id: int) -> None:
+        with self._lost_lock:
+            self._lost.add(trial_id)
+
+    def poll_lost(self) -> set:
+        with self._lost_lock:
+            lost, self._lost = self._lost, set()
+        return lost
 
 
 # ---------------------------------------------------------------------------
@@ -198,6 +292,7 @@ class Bucket:
         self._dev = None                # active slots and their hparams on the device
         self.meta: List[Optional[SlotMeta]] = [None] * capacity
         self.slot_ids = [engine._new_slot_id() for _ in range(capacity)]
+        self._stepped = False           # telemetry: the first step is engine.compile
         self._step = obj.make_step(key, capacity)
 
     @property
@@ -236,6 +331,7 @@ class Bucket:
         self.meta += [None] * pad
         self.slot_ids += [self.engine._new_slot_id() for _ in range(pad)]
         self.capacity = new_capacity
+        self._stepped = False           # a new slot count: its first step again
         self._step = self.engine.objective.make_step(self.key, new_capacity)
 
     def write_slot(self, i: int, meta: SlotMeta, learner, carry,
@@ -330,15 +426,14 @@ class PopulationEngine:
     ``max_updates`` updates.
 
     ``objective``: a ``PopulationObjective`` or a game name, which builds
-    the GA3C objective with ``n_envs`` envs a trial on ``device``. The
-    reference's ``engine.*`` spans are not recorded: the engine takes no
-    ``telemetry.spans.SpanRecorder`` until it runs behind the server (ROADMAP
-    queue 1 item 7c, second part)."""
+    the GA3C objective with ``n_envs`` envs a trial on ``device``.
+    ``spans``: a ``telemetry.spans.SpanRecorder`` for the ``engine.*``
+    spans (default ``NULL_RECORDER``, which records nothing)."""
 
     def __init__(self, objective, *, max_slots: int, n_envs: int = 16,
                  episodes_per_phase: int = 60, max_updates: int = 2000,
                  seed: int = 0, bracket_eta: Optional[int] = None,
-                 metrics=None, device="cuda"):
+                 metrics=None, spans=None, device="cuda"):
         if isinstance(objective, str):
             from repro_torch.population.objectives.ga3c import GA3CObjective
             objective = GA3CObjective(objective, n_envs=n_envs, device=device)
@@ -347,6 +442,9 @@ class PopulationEngine:
         # telemetry (engine.* metrics — see telemetry.metrics.METRIC_SCHEMA);
         # pass NULL_REGISTRY for a zero-overhead run
         self.metrics = metrics if metrics is not None else MetricsRegistry()
+        # a SpanRecorder sinking to a journal, or the no-op twin (spans are
+        # recorded per phase, clone, park and first step, never per step)
+        self.spans = spans if spans is not None else NULL_RECORDER
         self.max_slots = max_slots
         self.n_envs = n_envs
         self.episodes_per_phase = episodes_per_phase
@@ -389,8 +487,13 @@ class PopulationEngine:
         return sum(b.n_occupied for b in self.buckets.values())
 
     def active_trial_ids(self) -> List[int]:
-        """Live trial ids (parked trials included — they still hold leases)."""
-        return [m.trial_id for b in self.buckets.values() for m in b.meta if m is not None]
+        """Snapshot of live trial ids (parked trials included — they still
+        hold leases that heartbeats must renew). Called from the worker's
+        heartbeat thread while the engine mutates buckets: every container
+        is copied in one C-level call (atomic under the GIL) before
+        iterating."""
+        return [m.trial_id for b in list(self.buckets.values()) for m in list(b.meta)
+                if m is not None]
 
     # -- admission ----------------------------------------------------------
     def admit(self, lease: TrialLease, now: float = 0.0) -> None:
@@ -428,6 +531,12 @@ class PopulationEngine:
     # -- the loop -----------------------------------------------------------
     def run(self, driver) -> List[Tuple]:
         t0 = time.monotonic()
+        set_tb = getattr(driver, "set_timebase", None)
+        if set_tb is not None:
+            # remote tracing: the driver's trace `t` must share this run's
+            # t_start/t_end timebase, or the server's clock offset is off
+            # by the construction-to-run gap
+            set_tb(t0)
         exhausted = False
         retry_at = 0.0
         poll_at = 0.0
@@ -479,7 +588,20 @@ class PopulationEngine:
             iter_t0 = time.perf_counter()
             for bucket in self.buckets.values():
                 if bucket.n_active:
+                    step_t0 = time.perf_counter()
                     bucket.step()
+                    if not bucket._stepped:
+                        # the first step at this slot count: host seconds
+                        # (the kernel library's load, cuBLAS's and the
+                        # allocator's warm-up), no sync with the card
+                        bucket._stepped = True
+                        first_s = time.perf_counter() - step_t0
+                        self.metrics.histogram("engine.compile_s").observe(first_s)
+                        # it serves every trial stacked in the bucket
+                        self.spans.end("engine.compile", first_s, cat="engine",
+                                       bucket=bucket.key,
+                                       trials=[m.trial_id for m in bucket.meta
+                                               if m is not None])
                     stepped = bucket.n_active
                     self.total_updates += stepped
                     self.total_env_steps += stepped * bucket.update_cost
@@ -538,6 +660,9 @@ class PopulationEngine:
                 if phase_s > 0:
                     self.metrics.histogram("engine.phase_env_steps_s").observe(
                         phase_steps / phase_s)
+                self.spans.end("engine.phase", phase_s, cat="engine",
+                               trial_id=meta.trial_id, phase=meta.phase,
+                               slot=meta.slot_id)
                 ready.append((bucket, fin_n, fin_sum, i, meta, score, t_now, phase_steps))
         if not ready:
             return
@@ -589,9 +714,12 @@ class PopulationEngine:
         src = self._find_slot(reply.clone_from)
         if src is not None and src != (bucket, i):
             src_bucket, j = src
+            clone_t0 = time.perf_counter()
             bucket.clone_slot(i, src_bucket, j, traced)
             self.clones += 1
             self.metrics.counter("engine.clones").inc()
+            self.spans.end("engine.clone", time.perf_counter() - clone_t0, cat="engine",
+                           trial_id=meta.trial_id, clone_from=reply.clone_from)
         else:
             bucket.set_traced(i, traced)
         meta.hparams = hp
@@ -640,6 +768,8 @@ class PopulationEngine:
             if meta.parked_at is not None:
                 stall_s = time.perf_counter() - meta.parked_at
                 self.metrics.histogram("engine.park_stall_s").observe(stall_s)
+                self.spans.end("engine.park_stall", stall_s, cat="engine",
+                               trial_id=meta.trial_id, phase=meta.phase, slot=meta.slot_id)
                 meta.parked_at = None
             if decision == "stop":
                 bucket.release(i)

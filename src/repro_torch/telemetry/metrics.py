@@ -213,6 +213,9 @@ METRIC_SCHEMA: Dict[str, str] = {
     "engine.updates": "counter — per-slot train-step executions",
     "engine.env_steps_s": "gauge — aggregate env-steps/s since engine start",
     "engine.step_s": "histogram — wall seconds per engine loop iteration",
+    "engine.compile_s": ("histogram — host seconds of a bucket's first step "
+                         "at its slot count (kernel library, cuBLAS and "
+                         "allocator warm-up)"),
     "engine.phase_env_steps_s": ("histogram — per-trial env-steps/s over "
                                  "each reported phase"),
     "engine.park_stall_s": ("histogram — seconds a slot sat parked at the "

@@ -16,10 +16,10 @@ the search's ``Journal``; a journal-less search records through
 lifecycle, park-wait and cohort spans from the acquire / park / report /
 status events the journal already carries.
 
-Not ported yet (ROADMAP queue 1 item 7c, second part): the tools that read
-spans (``trace``, ``export``, ``critical_path``, ``dashboard``,
-``tailer``) and the population engine's ``engine.*`` spans, which
-``SPAN_SCHEMA`` names as the reference's vocabulary.
+The population engine (``population/engine.py``) records its ``engine.*``
+spans through the recorder it is given. Not ported yet (ROADMAP queue 1
+item 7c, second part): the tools that read spans (``trace``, ``export``,
+``critical_path``, ``dashboard``, ``tailer``).
 """
 from __future__ import annotations
 

@@ -764,8 +764,13 @@ def test_worker_main_refuses_cuda_and_slots_without_connecting(monkeypatch, caps
         port = s.getsockname()[1]
     assert worker.main(["--port", str(port), "--objective", "lm"]) == 1
     assert "device 'cuda' requested" in capsys.readouterr().err
-    assert worker.main(["--port", str(port), "--spec", '{"kind": "rl"}', "--slots", "4"]) == 2
-    assert "ROADMAP queue 1 item 7c, second part" in capsys.readouterr().err
+    # --slots > 1: a population worker, which checks the device before it
+    # connects too; a spec it cannot train is refused
+    assert worker.main(["--port", str(port), "--spec", '{"kind": "rl"}', "--slots", "4"]) == 1
+    assert "device 'cuda' requested" in capsys.readouterr().err
+    assert worker.main(["--port", str(port), "--spec", '{"kind": "synthetic"}', "--slots",
+                        "4"]) == 2
+    assert "--slots 4 requires an rl or lm spec, got 'synthetic'" in capsys.readouterr().out
     # a CPU worker does connect: no server there
     assert worker.main(["--port", str(port), "--device", "cpu"]) == 1
     assert "cannot reach server" in capsys.readouterr().out
@@ -796,3 +801,29 @@ def test_closing_line_round_trips():
     assert worker.parse_closing_line("worker node=None ran 0 trials {}") == {
         "node": None, "trials": 0}
     assert worker.parse_closing_line("some other output") is None
+
+
+def test_closing_line_is_one_write_on_an_unbuffered_stdout(monkeypatch):
+    """Workers share their launcher's stdout pipe: on an unbuffered stdout
+    (``PYTHONUNBUFFERED``) ``print`` writes the newline apart, and another
+    worker's line can land between; ``write_line`` makes one write."""
+    import io
+
+    class Raw(io.RawIOBase):
+        def __init__(self):
+            self.writes = []
+
+        def writable(self):
+            return True
+
+        def write(self, b):
+            self.writes.append(bytes(b))
+            return len(b)
+
+    raw = Raw()
+    monkeypatch.setattr("sys.stdout", io.TextIOWrapper(raw, write_through=True))
+    print("worker node=1 ran 2 trials {}", flush=True)
+    assert len(raw.writes) == 2          # the fault the single write avoids
+    raw.writes.clear()
+    worker.write_line("worker node=1 ran 2 trials {}")
+    assert raw.writes == [b"worker node=1 ran 2 trials {}\n"]

@@ -294,16 +294,59 @@ def test_tune_cli_runs_on_the_cpu(monkeypatch, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--backend", "process", "--slots", "2"], "ROADMAP queue 1 item 7c, second part "),
-    (["--backend", "server", "--slots", "2", "--objective", "lm"],
-     "ROADMAP queue 1 item 7c, second part "),
     (["--backend", "vectorized", "--devices", "2"], "not owed on one card"),
-    (["--backend", "process", "--slots", "4", "--objective", "lm", "--scheduler",
-      "hyperband"], "--slots 4 on --backend process is not ported"),
 ])
 def test_tune_cli_refuses_what_is_not_ported(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         tune.main(["--device", "cpu", *argv])
+
+
+def test_tune_cli_slots_need_an_rl_or_lm_objective(capsys):
+    """``--slots > 1`` on a socket backend runs population workers, which
+    train rl or lm trials only: the reference's refusal otherwise."""
+    with pytest.raises(SystemExit):
+        tune.main(["--device", "cpu", "--backend", "process", "--slots", "2", "--objective",
+                   "synthetic"])
+    assert "--slots > 1 (population workers) requires --objective rl or lm" in (
+        capsys.readouterr().err)
+
+
+@pytest.fixture
+def worker_env(monkeypatch):
+    """Worker processes: one intra-op thread each, and no card."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+
+
+@pytest.mark.timeout(240)
+def test_tune_cli_slots_on_server_run_population_workers(worker_env, capfd, tmp_path):
+    """``tune --backend server --slots 2 --objective lm``: one population
+    worker process leases both trials and trains them in one engine."""
+    journal = tmp_path / "j.jsonl"
+    res = tune.main(["--device", "cpu", "--backend", "server", "--slots", "2", "--objective",
+                     "lm", "--workers", "2", "--nodes", "1", "--phases", "2",
+                     "--steps-per-phase", "2", "--journal", str(journal)])
+    summary = res.summary()
+    assert summary["n_trials"] == 2 and "crashed" not in summary["by_status"]
+    assert res.n_nodes == 2
+    from repro_torch.distributed.worker import parse_closing_line
+    (line,) = [c for c in map(parse_closing_line, capfd.readouterr().out.splitlines()) if c]
+    assert line["node"] == 0 and line["reports"] == len(res.records)
+    assert line["updates"] == 2 * len(res.records)         # 2 steps a phase
+    acquires = [e for e in read_events(str(journal)) if e["ev"] == "acquire"]
+    assert [e["node"] for e in acquires] == [0, 0]
+
+
+@pytest.mark.timeout(240)
+def test_tune_cli_slots_with_hyperband_pool_every_slot(worker_env):
+    """Hyperband (eta 2, R 2) over one population worker of 4 slots: the
+    reference's rung log (4 trials, one cohort of 2 demoting 1)."""
+    res = tune.main(["--device", "cpu", "--backend", "process", "--slots", "4", "--objective",
+                     "lm", "--scheduler", "hyperband", "--phases", "2", "--eta", "2",
+                     "--nodes", "1", "--steps-per-phase", "2"])
+    summary = res.summary()
+    assert [(e["phase"], e["n"], len(e["demoted"])) for e in summary["rungs"]] == [(0, 2, 1)]
+    assert summary["by_status"] == {"killed": 1, "completed": 3}
 
 
 @pytest.mark.parametrize("argv", [
