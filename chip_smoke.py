@@ -281,11 +281,35 @@ Phases, each of which passes or ends the script with a non-zero exit:
      t_max: one-slot buckets, the trainer's own update) against 8a's
      trials: every (trial, phase) both trained equal, every worker counter
      0. 11d: the pooled bracket of tests/test_bracket_barrier.py:362, two
-     population workers of 2 slots, eta 3: one rung of n 4 at phase 0, its
-     one demoted trial the pooled bottom metric, both nodes reporting, 1
-     killed and 3 completed. Each run prints wall time, occupancy, alpha,
-     trial-steps/s and tokens/s or env frames/s and updates/s, and its
-     start-up, beside 9a's, 8a's and 10a's.
+     population workers of 2 slots, eta 3, 64 updates a phase: one rung of
+     n 4 at phase 0, more than one distinct phase-0 metric, its one demoted
+     trial the pooled bottom metric and every trial at the top metric
+     promoted, both nodes reporting, 1 killed and 3 completed. Each run
+     prints wall time, occupancy, alpha, trial-steps/s
+     and tokens/s or env frames/s and updates/s, and its start-up, beside
+     9a's, 8a's and 10a's.
+ 12. the paper's baselines, in this process through the port's Python API
+     (the tune CLI reaches neither): ``SyncCluster.run_sh``, synchronous
+     Successive Halving with a barrier at each phase and the bottom quarter
+     killed at each, and ``EvolutionaryHyperTrick``, whose freed nodes
+     restart from a mutated top-quartile configuration after a warmup of
+     fresh draws. 12a: ``run_sh`` of 6a's 12 configurations (by trial id)
+     over 6a's LM objective on 4 node threads, 5 phases, evict 0.25: 12, 9,
+     7, 5 and 4 trials a phase, 9 killed and 3 completed, each record's
+     node its index among the phase's survivors mod 4, every
+     (configuration, phase) both trained equal to 6a's, and the launches at
+     the trial steps x (3 block RMSNorm + 1 FMA flash), no other kernel.
+     12b: ``run_sh`` of 7a's 12 configurations over 7a's GA3C objective, 4
+     node threads, 3 phases, evict 0.25: 12, 9 and 7 trials, 7 killed and 5
+     completed, equal to 7a's, every counter 0. 12c:
+     ``EvolutionaryHyperTrick(lm_space, w0 12, 3 phases, r 0.25, seed 0)``
+     on ``ThreadCluster`` over 12a's objective: trials 0-5 carry 6a's
+     configurations and metrics, at least one mutated child trained, each
+     child's parent reported before it and each child's learning rate its
+     parent's x 0.5, 0.8, 1.25 or 2 within the space's bounds; launches as
+     12a's. Each run prints wall time, trial-steps/s and tokens/s or env
+     frames/s and updates/s, occupancy, alpha beside ``expected_alpha``
+     (HyperTrick's at r 0.25) and peak memory, beside 6a's or 7a's.
 Seconds per phase are printed as each ends. The last two lines are the
 kernels' JSON line and the result line.
 
@@ -1594,13 +1618,32 @@ def control_plane_phase(smi, phase_done, out_6a, table_6a, rl):
 # (SMOKE_HASH_SEED), so a trial draws what it drew in 8a and 9a. 11a: 9a's
 # LM search on one worker of 12 slots; 11b: on two of 6; 11c: 7a's GA3C
 # search on two workers of 6; 11d: the pooled bracket of
-# tests/test_bracket_barrier.py:362
+# tests/test_bracket_barrier.py:362, at 64 updates a phase (the reference's
+# test takes 3): 64 updates at t_max 4 are 256 steps, pong's step limit, so
+# every env ends an episode in phase 0 whatever its draws, and the phase-0
+# metrics can differ (at 3 updates no episode ends and every metric reads
+# 0.0; on the CPU's draws the first episodes end at 16 updates)
 POPW_LM_ARGV = ["--backend", "server", "--objective", "lm"]
 POPW_LM_LAYOUTS = {"11a": (1, 12), "11b": (2, 6)}
 POPW_RL_ARGV = ["--backend", "process", *RL_ARGV, "--nodes", "2", "--slots", "6"]
 POPW_BRACKET = dict(spec={"kind": "rl", "game": "pong", "episodes_per_phase": 2,
-                          "max_updates": 3, "seed": 0}, trials=4, phases=2, nodes=2, slots=2,
+                          "max_updates": 64, "seed": 0}, trials=4, phases=2, nodes=2, slots=2,
                     eta=3)
+
+# phase 12: the paper's baselines through the port's Python API. 12a:
+# SyncCluster.run_sh of 6a's configurations over 6a's objective, SH_PHASES
+# phases at SH_EVICT; 12b: of 7a's over 7a's GA3C objective, cut to
+# SH_RL_PHASES phases (5 would add two phases of the slowest survivors to
+# the smoke's time); 12c: EvolutionaryHyperTrick over 6a's objective on 4
+# node threads, its warmup (warmup_frac 0.5: 6 fresh draws) HyperTrick's
+# first draws at seed 0. The counts a run_sh must give, from Python's round
+# (12 at 0.25 keep 9; 9 keep 7; 7 keep 5; 5 keep 4; 4 keep 3), as the
+# reference gives them on the CPU
+SH_PHASES, SH_RL_PHASES, SH_EVICT = 5, 3, 0.25
+SH_PER_PHASE = {5: [12, 9, 7, 5, 4], 3: [12, 9, 7]}
+SH_BY_STATUS = {5: {"killed": 9, "completed": 3}, 3: {"killed": 7, "completed": 5}}
+EVO_PHASES, EVO_WARMUP = 3, 6
+PERTURB_FACTORS = (0.5, 0.8, 1.25, 2.0)
 
 
 def population_workers(stdout, label, n_workers, slots_expect=None):
@@ -1634,6 +1677,12 @@ def same_configs(label, table, ref):
         t: hp for t, (hp, _, _) in ref.items()}, f"{label}: configs differ by trial id"
 
 
+def near(row, keys):
+    """The entries of ``row`` under ``keys``, where it has them: an earlier
+    run's numbers, printed beside a run's."""
+    return {k: row[k] for k in keys if k in row}
+
+
 def both_trained(table, ref):
     """(trial, phase, metric here, metric in ``ref``) of every (trial,
     phase) both runs trained."""
@@ -1657,7 +1706,6 @@ def population_worker_phase(smi, phase_done, beside, table_9a, table_8a):
 
     expect = lm_expect(get_config(YI).reduced())
     paths, out = {}, {}
-    near = lambda row, keys: {k: row[k] for k in keys if k in row}  # noqa: E731
     with tempfile.TemporaryDirectory() as tmp:
         # 11a / 11b: 9a's search, held against 9a's trials
         for label, (nodes, slots) in POPW_LM_LAYOUTS.items():
@@ -1783,9 +1831,6 @@ def population_worker_phase(smi, phase_done, beside, table_9a, table_8a):
     s = res.summary()
     rungs = s["rungs"]
     by_trial = {r.trial_id: r.metric for r in res.records if r.phase == 0}
-    # at 3 updates of pong no episode may end, and then every phase-0 metric
-    # is equal and the bottom-metric check holds whichever trial was
-    # demoted: the pooling shows in n 4 with both nodes reporting
     out["11d"] = {"rungs": rungs, "by_status": s["by_status"], "wall_s": res.wall_time,
                   "run_s": time.perf_counter() - t0,
                   "nodes": sorted({r.node for r in res.records}), "phase_0": by_trial,
@@ -1794,12 +1839,209 @@ def population_worker_phase(smi, phase_done, beside, table_9a, table_8a):
     assert s["n_trials"] == b["trials"], s
     assert rungs and rungs[0]["phase"] == 0 and rungs[0]["n"] == 4, rungs
     assert len(rungs[0]["demoted"]) == 4 // b["eta"], rungs
-    assert len(by_trial) == 4 and by_trial[rungs[0]["demoted"][0]] == min(by_trial.values())
+    assert len(by_trial) == 4 and len(set(by_trial.values())) > 1, (
+        "11d: every phase-0 metric equal, so the demotion is not held", by_trial)
+    assert by_trial[rungs[0]["demoted"][0]] == min(by_trial.values()), (rungs, by_trial)
+    # with ties at the bottom the line above holds only a demotion of the top:
+    # every trial at the largest metric is also held to be promoted
+    best = {t for t, m in by_trial.items() if m == max(by_trial.values())}
+    assert best <= set(rungs[0]["promoted"]), (rungs, by_trial)
     assert {r.node for r in res.records} == {0, 1}, res.records
     assert s["by_status"] == {"killed": 1, "completed": 3}, s["by_status"]
     population_workers(stdout, "11d", b["nodes"])
     phase_done("11d pooled bracket, 2 population workers of 2 slots")
     log("[popworker] summary " + json.dumps(out))
+    return paths, out
+
+
+def baselines_phase(dev, smi, zero_counts, all_counts, phase_done, table_6a, out_6a,
+                    table_7a, out_7a):
+    """Phase 12: SyncCluster's Successive Halving with LM (12a) and GA3C
+    (12b) trials, and EvolutionaryHyperTrick with LM trials (12c), on the
+    card in this process. ``table_6a`` / ``table_7a``: the trials the runs
+    take their configurations from and are held against; ``out_6a`` /
+    ``out_7a``: their rows, printed beside. Returns the launch records (for
+    the kernels' line) and the phase's numbers."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.completion import expected_alpha
+    from repro_torch.core.evolution import EvolutionaryHyperTrick
+    from repro_torch.core.executor import SyncCluster, ThreadCluster
+    from repro_torch.core.search_space import Categorical, lm_space
+    from repro_torch.rl.ga3c import make_rl_objective
+    from repro_torch.train.trainer import make_lm_objective
+
+    expect = per_forward(get_config(YI).reduced())
+    paths, out = {}, {}
+    lm_keys = ("wall_s", "trial_steps_per_s", "tokens_per_s", "occupancy", "alpha",
+               "peak_mem_gb")
+    rl_keys = ("wall_s", "env_frames_per_s", "updates_per_s", "occupancy", "alpha",
+               "peak_mem_gb")
+
+    def lm_objective():
+        return make_lm_objective(YI, SEARCH_STEPS, batch=SEARCH_BATCH, seq=SEARCH_SEQ, seed=0,
+                                 device=dev)
+
+    def timed(run):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, all_counts()
+
+    def held(label, table, ref, atol):
+        """(pairs both trained, those unequal) of ``table`` against the
+        earlier search's ``ref``, by trial id; each difference printed."""
+        pairs = both_trained(table, ref)
+        unequal = [p for p in pairs if abs(p[2] - p[3]) > atol]
+        for t, ph, a, b in pairs:
+            if a != b:
+                log(f"[baselines] {label} trial {t} phase {ph}: {a!r} against {b!r}")
+        return pairs, unequal
+
+    def sh_checks(label, res, n_phases):
+        per_phase = [[r for r in res.records if r.phase == p] for p in range(n_phases)]
+        assert [len(rs) for rs in per_phase] == SH_PER_PHASE[n_phases], (
+            label, [len(rs) for rs in per_phase])
+        assert all(r.node == i % res.n_nodes for rs in per_phase for i, r in enumerate(rs)), (
+            label, [(r.trial_id, r.phase, r.node) for r in res.records])
+        summary = res.summary()
+        assert summary["by_status"] == SH_BY_STATUS[n_phases], (label, summary["by_status"])
+        alpha = res.service.db.completion_rate(n_phases)
+        assert alpha == sum(SH_PER_PHASE[n_phases]) / (n_phases * 12), (label, alpha)
+        return summary, alpha
+
+    def lm_row(label, res, run_s, n_phases, counts, pairs, unequal):
+        steps = SEARCH_STEPS * len(res.records)
+        path = hold_lm_counts(label, counts, steps, expect)
+        wall = res.wall_time
+        summary = res.summary()
+        row = {"nodes": res.n_nodes, "phases": n_phases, "steps_per_phase": SEARCH_STEPS,
+               "batch": SEARCH_BATCH, "seq": SEARCH_SEQ, "wall_s": wall, "run_s": run_s,
+               "trial_phases": len(res.records), "trial_steps": steps,
+               "trial_steps_per_s": steps / wall,
+               "tokens_per_s": steps * SEARCH_BATCH * SEARCH_SEQ / wall,
+               "occupancy": res.occupancy, "alpha": res.service.db.completion_rate(n_phases),
+               "expected_alpha": expected_alpha(SEARCH_R, n_phases),
+               "by_status": summary["by_status"], "best_metric": summary["best_metric"],
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "compared_with_6a": len(pairs), "unequal": len(unequal),
+               "atol": SEARCH_NODES_ATOL, "launches": counts[0],
+               "6a_thread_hypertrick": near(out_6a, lm_keys)}
+        return path, row
+
+    # 12a: Successive Halving of 6a's configurations with LM trials
+    configs = [table_6a[i][0] for i in sorted(table_6a)]
+    res, run_s, counts = timed(lambda: SyncCluster(SEARCH_NODES, lm_objective()).run_sh(
+        configs, SH_PHASES, SH_EVICT))
+    label = "12a"
+    _, alpha = sh_checks(label, res, SH_PHASES)
+    table = trial_table(res)
+    hold_trials(label, table, SH_PHASES, SEARCH_W0)
+    same_configs(label, table, table_6a)
+    pairs, unequal = held(label, table, table_6a, SEARCH_NODES_ATOL)
+    path, out[label] = lm_row(label, res, run_s, SH_PHASES, counts, pairs, unequal)
+    out[label]["sh_alpha"] = alpha
+    paths[f"sync sh {YI} {SEARCH_NODES} nodes"] = path
+    log(f"[baselines] {smi}: {label} Successive Halving, {YI} " + json.dumps(out[label]))
+    assert pairs and not unequal, (label, "metrics differ from 6a's", unequal)
+    phase_done("12a Successive Halving, LM trials, 4 node threads")
+
+    # 12b: Successive Halving of 7a's configurations with GA3C trials
+    configs = [table_7a[i][0] for i in sorted(table_7a)]
+    objective = make_rl_objective(RL_GAME, RL_EPISODES, n_envs=RL_ENVS, seed=0, device=dev)
+    res, run_s, counts = timed(lambda: SyncCluster(RL_NODES, objective).run_sh(
+        configs, SH_RL_PHASES, SH_EVICT))
+    label = "12b"
+    summary, alpha = sh_checks(label, res, SH_RL_PHASES)
+    no_launches(label, lambda: counts)
+    table = trial_table(res)
+    hold_trials(label, table, SH_RL_PHASES, RL_W0, score=RL_SCORE)
+    same_configs(label, table, table_7a)
+    pairs, unequal = held(label, table, table_7a, RL_NODES_ATOL)
+    env_steps = sum(tr.env_steps for tr in objective.trainers)
+    updates = sum(tr.updates for tr in objective.trainers)
+    wall = res.wall_time
+    out[label] = {"game": RL_GAME, "nodes": res.n_nodes, "phases": SH_RL_PHASES,
+                  "episodes_per_phase": RL_EPISODES, "n_envs": RL_ENVS, "wall_s": wall,
+                  "run_s": run_s, "trial_phases": len(res.records), "updates": updates,
+                  "env_frames": env_steps, "env_frames_per_s": env_steps / wall,
+                  "updates_per_s": updates / wall, "occupancy": res.occupancy,
+                  "alpha": alpha, "expected_alpha": expected_alpha(RL_R, SH_RL_PHASES),
+                  "by_status": summary["by_status"], "best_metric": summary["best_metric"],
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                  "compared_with_7a": len(pairs), "unequal": len(unequal),
+                  "atol": RL_NODES_ATOL, "7a_thread_hypertrick": near(out_7a, rl_keys)}
+    paths[f"sync sh rl {RL_GAME} {RL_NODES} nodes"] = (
+        counts[0], {name: 0 for name in counts[0]}, 0, *counts[1:])
+    log(f"[baselines] {smi}: {label} Successive Halving, GA3C {RL_GAME} "
+        + json.dumps(out[label]))
+    assert pairs and not unequal, (label, "metrics differ from 7a's", unequal)
+    phase_done("12b Successive Halving, GA3C trials, 4 node threads")
+
+    # 12c: evolutionary HyperTrick with LM trials; the policy's _mutate is
+    # wrapped here to record each (parent, child) and the trials launched
+    # before the child
+    label = "12c"
+    space = lm_space()
+    policy = EvolutionaryHyperTrick(space, SEARCH_W0, EVO_PHASES, SEARCH_R, seed=0)
+    assert policy.warmup == EVO_WARMUP, policy.warmup
+    mutations = []
+    mutate = policy._mutate
+
+    def recording(hp):
+        parent = next(t for t in policy.db.trials.values() if t.hparams is hp)
+        child = mutate(hp)
+        mutations.append({"parent": parent.trial_id, "parent_reports": len(parent.reports),
+                          "launched_before": len(policy.db.trials), "parent_hp": dict(hp),
+                          "child_hp": child})
+        return child
+
+    policy._mutate = recording
+    res, run_s, counts = timed(lambda: ThreadCluster(SEARCH_NODES, lm_objective()).run(policy))
+    summary = res.summary()
+    table = trial_table(res)
+    assert summary["n_trials"] == SEARCH_W0, (label, summary)
+    assert "crashed" not in summary["by_status"], (label, summary["by_status"])
+    hold_trials(label, table, EVO_PHASES, SEARCH_W0)
+    warm = {i: table[i] for i in range(EVO_WARMUP)}
+    same_configs(label, warm, {i: table_6a[i] for i in range(EVO_WARMUP)})
+    pairs, unequal = held(label, warm, table_6a, SEARCH_NODES_ATOL)
+    children = []
+    for m in mutations:
+        # trial ids count the acquires, and the child's is the next one
+        child = m["launched_before"]
+        assert table[child][0] == m["child_hp"], (label, m, table[child][0])
+        assert m["parent_reports"] >= 1 and m["parent"] < child, (
+            label, "a parent had not reported before its child", m)
+        lo, hi = space.params["learning_rate"].lo, space.params["learning_rate"].hi
+        assert any(m["child_hp"]["learning_rate"] == float(np.clip(
+            m["parent_hp"]["learning_rate"] * f, lo, hi)) for f in PERTURB_FACTORS), (label, m)
+        for k, p in space.params.items():
+            v = m["child_hp"][k]
+            assert (v in p.values) if isinstance(p, Categorical) else p.lo <= v <= p.hi, (
+                label, k, v)
+        children.append({"child": child, "parent": m["parent"],
+                         "child_phase_0": table[child][2][0],
+                         "parent_phase_0": table[m["parent"]][2][0],
+                         "child_lr": m["child_hp"]["learning_rate"],
+                         "parent_lr": m["parent_hp"]["learning_rate"]})
+    path, out[label] = lm_row(label, res, run_s, EVO_PHASES, counts, pairs, unequal)
+    out[label]["children"] = children
+    paths[f"evolutionary hypertrick {YI} {SEARCH_NODES} nodes"] = path
+    log(f"[baselines] {smi}: {label} evolutionary HyperTrick, {YI} " + json.dumps(out[label]))
+    for c in children:
+        log(f"[baselines] 12c child {c['child']} of {c['parent']}: phase 0 {c['child_phase_0']!r}"
+            f" against its parent's {c['parent_phase_0']!r} (lr {c['child_lr']:.3e} from "
+            f"{c['parent_lr']:.3e})")
+    assert pairs and not unequal, (label, "warmup metrics differ from 6a's", unequal)
+    assert children, (label, "no mutated child was launched")
+    phase_done("12c evolutionary HyperTrick, LM trials, 4 node threads")
+    log("[baselines] summary " + json.dumps(out))
     return paths, out
 
 
@@ -3369,7 +3611,13 @@ def main() -> int:
         smi, phase_done, {"9a": lm_out["9a"], "8a": pop["8a"], "10a": control["10a"],
                           "10d": control["10d"]}, table_9a, table_8a)
     paths.update(popw_paths)
-
+    # -- 12. the paper's baselines: Successive Halving and evolution ----------
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_paths, _ = baselines_phase(dev, smi, zero_counts, all_counts, phase_done,
+                                    trial_table(res_4), searches["6a"], trial_table(res_7a),
+                                    rl["7a"])
+    paths.update(base_paths)
 
     kernels = []
     for name, src, replaces, main_t, dec_t, more in [
@@ -3437,7 +3685,7 @@ def main() -> int:
         assert kernels[-1]["launches"] > 0, f"{name}: no launch on the main paths"
     serves = {k: {**p[7], **probes[k]} for k, p in paths.items() if k in probes}
     log("[serve] summary " + json.dumps(serves))
-    log(f"[phase] the smoke's total, phases 0-11 with the build: "
+    log(f"[phase] the smoke's total, phases 0-12 with the build: "
         f"{time.perf_counter() - clock['start']:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

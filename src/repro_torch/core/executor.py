@@ -1,13 +1,18 @@
 """The backends of a search (port of ``repro/core/executor.py``:
-``ExecRecord``, ``ExecResult``, ``ThreadCluster`` and ``ProcessCluster``,
-copied whole, and ``PopulationCluster``; ``ExecResult.updates`` is the
-port's).
+``ExecRecord``, ``ExecResult``, ``ThreadCluster``, ``SyncCluster`` and
+``ProcessCluster``, copied whole, and ``PopulationCluster``;
+``ExecResult.updates`` is the port's).
 
 * ThreadCluster — asynchronous policies (HyperTrick, random search): each
   node-thread pulls a configuration, runs phases of the REAL objective, and
   polls the optimization service after every phase. No barriers anywhere.
   A trial whose objective raises is marked crashed and its node goes on
   (paper §3.2's fault isolation): the exception is printed, not re-raised.
+* SyncCluster   — synchronized Successive Halving with real objectives,
+  the paper's baseline: phase barriers; "preemption" is trivially the
+  in-process trainer state being kept while the worker is paused (which is
+  exactly the support HyperTrick does not need). No crash isolation: an
+  objective's exception leaves ``run_sh``.
 * ProcessCluster — real OS-process workers
   (``python -m repro_torch.distributed.worker``) talking to an in-launcher
   TCP server (``repro_torch.distributed``): the paper's actual deployment
@@ -21,8 +26,10 @@ port's).
   against the same service and policy; GA3C or LM trials (``objective``),
   with PBT's clones copied slot to slot on the device.
 
-Not ported yet: ``SyncCluster`` (synchronized Successive Halving; ROADMAP
-queue 1 item 7c, second part).
+Not ported yet, of the search's reference modules: the trace
+(``telemetry/trace.py``), the cluster simulator (``core/simulator.py``) and
+the load generator (``distributed/loadgen.py``); ROADMAP queue 1 item 7c,
+path 2.
 
 Objectives have the signature  objective(hparams, phase, state) ->
 (metric, state)  where state carries the live trainer across phases.
@@ -42,7 +49,7 @@ from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
 from repro_torch.core.service import (AsyncPolicy, Decision,
-                                      OptimizationService)
+                                      OptimizationService, TrialStatus)
 
 
 @dataclass
@@ -126,6 +133,63 @@ class ThreadCluster:
         return ExecResult(svc, records, time.monotonic() - t0, self.n_nodes,
                           extra={"clones": len(clone_log)}
                           if clone_log else None)
+
+
+class SyncCluster:
+    """Successive-Halving-style synchronized execution with real objectives."""
+
+    def __init__(self, n_nodes: int, objective: Callable):
+        self.n_nodes = n_nodes
+        self.objective = objective
+
+    def run_sh(self, configs: List[dict], n_phases: int,
+               evict_frac: float) -> ExecResult:
+        """Vanilla SH: barrier per phase, bottom evict_frac terminated."""
+        from repro_torch.core.hypertrick import RandomSearchPolicy
+        from repro_torch.core.search_space import SearchSpace
+        policy = RandomSearchPolicy(SearchSpace({}), len(configs), n_phases,
+                                    configs=configs)
+        svc = OptimizationService(policy)
+        trials = [svc.acquire_trial(i % self.n_nodes)
+                  for i in range(len(configs))]
+        states = {t.trial_id: None for t in trials}
+        survivors = list(trials)
+        records: List[ExecRecord] = []
+        t0 = time.monotonic()
+
+        for phase in range(n_phases):
+            results = []
+
+            def run_one(args):
+                idx, trial = args
+                t_start = time.monotonic() - t0
+                metric, states[trial.trial_id] = self.objective(
+                    trial.hparams, phase, states[trial.trial_id])
+                t_end = time.monotonic() - t0
+                return (trial, metric, idx % self.n_nodes, t_start, t_end)
+
+            with ThreadPoolExecutor(self.n_nodes) as pool:
+                results = list(pool.map(run_one, enumerate(survivors)))
+            # barrier happened; report + evict bottom fraction
+            for trial, metric, node, ts, te in results:
+                svc.db.report(trial.trial_id, phase, metric,
+                              time.monotonic() - t0)
+                records.append(ExecRecord(trial.trial_id, node, phase, ts,
+                                          te, metric))
+            keep = max(1, len(survivors)
+                       - int(round(evict_frac * len(survivors))))
+            ranked = sorted(results, key=lambda r: -r[1])
+            kept_ids = {r[0].trial_id for r in ranked[:keep]}
+            now = time.monotonic() - t0
+            for trial, *_ in results:
+                last = phase + 1 >= n_phases
+                if trial.trial_id not in kept_ids:
+                    svc.db.set_status(trial.trial_id, TrialStatus.KILLED, now)
+                elif last:
+                    svc.db.set_status(trial.trial_id, TrialStatus.COMPLETED,
+                                      now)
+            survivors = [t for t in survivors if t.trial_id in kept_ids]
+        return ExecResult(svc, records, time.monotonic() - t0, self.n_nodes)
 
 
 class ProcessCluster:

@@ -290,20 +290,44 @@ def test_tune_cli_pbt_thread_backend_matches_reference(monkeypatch, capsys):
     assert ours["by_status"] == {"completed": 6}
 
 
-def test_population_checks_cli_runs_on_the_cpu(capsys):
+def test_population_checks_cli_runs_on_the_cpu():
     """``launch/population_checks.py``: a PBT run's clone counts, and 9c's
     bucket against lone trials (on the CPU the slots' weights and moments
-    match their lone trials within the limit)."""
-    from repro_torch.launch import population_checks
-    rows = population_checks.main(["pbt", "--objective", "lm", "--seeds", "1", "--device", "cpu"])
+    match their lone trials within the limit). The engine seeds each trial
+    with ``trial_seed``, a salted ``str`` hash, so its draws change with
+    the interpreter's hash seed: the command runs under a pinned one
+    (``PYTHONHASHSEED=0``, chip_smoke.py's), on one intra-op thread as this
+    file's process. Unpinned, 2 salts of 48 (40 and 47) put one of slot 2's
+    852,736 weights outside the limit, 0.016 x its lr away (AdamW's step
+    on a gradient near 0; the module's comment). That lies within 9c's own
+    limits (``OUTLIERS`` weights, ``MAX_OVER_LR`` x lr), which a last run
+    at a hash seed drawn anew each time holds."""
+    import os
+    import subprocess
+
+    def run(*argv, hash_seed="0"):
+        env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+        env.pop("PYTHONHASHSEED", None)
+        if hash_seed is not None:
+            env["PYTHONHASHSEED"] = hash_seed
+        ran = subprocess.run([sys.executable, "-m", "repro_torch.launch.population_checks",
+                              *argv, "--seeds", "1", "--device", "cpu"],
+                             capture_output=True, text=True, timeout=300, env=env)
+        assert ran.returncode == 0, ran.stderr[-2000:]
+        return [json.loads(line) for line in ran.stdout.strip().splitlines()]
+
+    rows = run("pbt", "--objective", "lm")[:-1]
     assert rows[0]["by_status"] == {"completed": 4} and rows[0]["clones"] >= rows[0][
         "clones_on_device"]
-    rows = population_checks.main(["slots", "--seeds", "1", "--device", "cpu"])
+    from repro_torch.launch import population_checks
+    *rows, last = run("slots")
     assert len(rows) == len(population_checks.SLOT_HPARAMS)
     assert all(r["outside_limit"] == 0 and r["v_sum_rel_diff"] < 1e-4 for r in rows)
-    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert last["max"]["outside_limit"] == 0 and last["seeds_failing"] == 0
     assert last["faults"] == []
+    *rows, last = run("slots", hash_seed=None)
+    assert len(rows) == len(population_checks.SLOT_HPARAMS)
+    assert last["seeds_failing"] == 0 and last["faults"] == [], last
 
 
 @pytest.mark.parametrize("control", ["global_clip", "slot_mean"])
