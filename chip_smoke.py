@@ -310,6 +310,31 @@ Phases, each of which passes or ends the script with a non-zero exit:
      12a's. Each run prints wall time, trial-steps/s and tokens/s or env
      frames/s and updates/s, occupancy, alpha beside ``expected_alpha``
      (HyperTrick's at r 0.25) and peak memory, beside 6a's or 7a's.
+ 13. the paper's simulator, the trace and the load generator: host code of
+     the search (numpy and sockets), in this process; every launch counter
+     must read 0 after each part. 13a: the paper's figures on
+     ``core/simulator.py`` at the JAX package's benchmark arguments
+     (``SIM_TOY``, ``SIM_TABLE3``, ``SIM_GAMES``): the toy problem (16
+     configurations, 6 nodes, Np 4, r 0.25, seeds 0-29) under HyperTrick,
+     dynamic and static Successive Halving and grid search, with grid's alpha
+     1.0, every occupancy at most 1, static SH's mean makespan not below
+     dynamic's and grid's above HyperTrick's; Table 3 (``paper_brackets``,
+     46 ``paper_rl_space`` configurations on 46 nodes, 27 phases, seeds 0-9,
+     pong and boxing), HyperTrick's mean makespan below Hyperband's and its
+     occupancy above. Prints each policy's means and grid / HyperTrick. 13b:
+     ``replay_trace`` of 1000 synthetic hosts (2 % failing) through the real
+     service and rung barrier (``TRACE_1000``), journaled to a file: the
+     first rung pooled 990 or more, demotions, requeues equal to lease reaps
+     and above 0, park, demote and stop verdicts, no trial left running,
+     completed and crashed trials; the journal replayed into a fresh service
+     gives every trial's status, reports and best metric. Prints the summary
+     and the host seconds of the trace and of the replay. 13c: ``run_load``
+     against ``MetaoptServer`` at 200 hosts x 1 slot x 2 phases (batched) and
+     2 x 64 x 3 (batched and per trial), each with no error, the exact report
+     and acquire counts and every trial completed with the load's metrics;
+     then ``run_sim_load(1000, 2000, 4)``: 8,000 reports, 2,000 trials.
+     Prints each row's reports/s, p50 and p99, and the batched / per-trial
+     ratio (not held: a wall-clock ratio).
 Seconds per phase are printed as each ends. The last two lines are the
 kernels' JSON line and the result line.
 
@@ -753,10 +778,12 @@ def trial_table(res):
 
 def no_launches(label, all_counts):
     """The launch counters, each of which must read 0: nothing on the GA3C
-    path goes through the port's four kernels."""
+    path, nor in phase 13's host code, goes through the port's four
+    kernels."""
     counts = all_counts()
     for c in counts:
-        assert not any(c.values()), (label, "a kernel launched on the GA3C path", counts)
+        assert not any(c.values()), (label, "a kernel launched on a path that runs none",
+                                     counts)
     return counts
 
 
@@ -2043,6 +2070,195 @@ def baselines_phase(dev, smi, zero_counts, all_counts, phase_done, table_6a, out
     phase_done("12c evolutionary HyperTrick, LM trials, 4 node threads")
     log("[baselines] summary " + json.dumps(out))
     return paths, out
+
+
+# phase 13: the paper's simulator, the trace and the load generator, host
+# code of the port's search (numpy and sockets: no device, no kernel).
+# 13a: the paper's figures at the arguments of the JAX package's benchmark,
+# benchmarks/metaopt_benches.py: the toy problem of Figs. 2/3/8/9 (:36-59)
+# and Table 3, HyperTrick against Hyperband (:95-123), on pong and boxing,
+# whose workload optima are its GAME_PARAMS (:18-26, paper Table 1)
+SIM_GAMES = {"pong": dict(lr_opt=6e-4, gamma_opt=0.995, t_opt=8, plateau=21),
+             "boxing": dict(lr_opt=3e-4, gamma_opt=0.95, t_opt=12, plateau=100)}
+SIM_TOY = dict(configs=16, nodes=6, phases=4, r=0.25, seeds=30, cost_spread=0.6)
+SIM_TABLE3 = dict(configs=46, nodes=46, phases=27, seeds=10)
+# 13b: the 1000-host acceptance trace of tests/test_telemetry.py:273-306
+TRACE_1000 = dict(w0=1000, phases=5, r=0.3, seed=0, hosts=1000, host_seed=7, fail_frac=0.02,
+                  fail_horizon=20.0, eta=3, lease_ttl=10.0)
+# 13c: run_load's shapes of tests/load/test_server_load.py:29-62 (hosts,
+# slots, phases, batched), then run_sim_load's 1000-host tier at its defaults
+LOAD_SHAPES = [(200, 1, 2, True), (2, 64, 3, True), (2, 64, 3, False)]
+SIM_LOAD = (1000, 2000, 4)
+
+
+def simulator_phase(smi, phase_done, zero_counts, all_counts):
+    """Phase 13: the paper's simulator (13a), the 1000-host trace replayed
+    through the real service and its journal replayed (13b), and the load
+    generator against the port's server and at the 1000-host tier (13c).
+    Nothing here runs on the card, so every launch counter must read 0
+    after it. Returns the phase's numbers."""
+    import tempfile
+    from repro_torch.core.completion import hyperband_alpha, paper_brackets, solve_r_for_alpha
+    from repro_torch.core.hypertrick import HyperTrick, RandomSearchPolicy
+    from repro_torch.core.search_space import LogUniform, SearchSpace, Uniform, paper_rl_space
+    from repro_torch.core.service import OptimizationService, TrialStatus
+    from repro_torch.core.simulator import (GA3CWorkload, ToyWorkload, replay_trace,
+                                            simulate_grid, simulate_hyperband,
+                                            simulate_hypertrick, simulate_successive_halving,
+                                            synthetic_trace)
+    from repro_torch.distributed.journal import Journal, replay_journal
+    from repro_torch.distributed.loadgen import run_load, run_sim_load
+    from repro_torch.distributed.server import MetaoptServer
+
+    zero_counts()
+    out = {}
+    mean = lambda xs: float(np.mean(xs))
+
+    # -- 13a: the toy problem and Table 3 --------------------------------------
+    t0 = time.perf_counter()
+    toy = SIM_TOY
+    cfgs = [{"id": i} for i in range(toy["configs"])]
+    agg = {k: {"makespan": [], "occupancy": [], "alpha": []}
+           for k in ("hypertrick", "sh_dynamic", "sh_static", "grid")}
+    for seed in range(toy["seeds"]):
+        wl = lambda: ToyWorkload(seed, cost_spread=toy["cost_spread"])
+        args = (cfgs, toy["nodes"], toy["phases"])
+        ht = simulate_hypertrick(wl(), *args, toy["r"], seed=seed)
+        assert {e.worker for e in ht.timeline} == set(range(toy["configs"])), seed
+        assert len(ht.db.trials) == toy["configs"], seed
+        for res in (ht, simulate_successive_halving(wl(), *args, toy["r"], seed=seed),
+                    simulate_successive_halving(wl(), *args, toy["r"], seed=seed, static=True),
+                    simulate_grid(wl(), *args, seed=seed)):
+            assert 0 < res.occupancy <= 1.0 + 1e-9, (res.name, seed, res.occupancy)
+            agg[res.name]["makespan"].append(res.makespan)
+            agg[res.name]["occupancy"].append(res.occupancy)
+            agg[res.name]["alpha"].append(res.completion_rate)
+    toy_out = {k: {m: mean(v) for m, v in a.items()} for k, a in agg.items()}
+    assert all(a == 1.0 for a in agg["grid"]["alpha"]), agg["grid"]["alpha"]
+    assert toy_out["sh_static"]["makespan"] >= toy_out["sh_dynamic"]["makespan"], toy_out
+    assert toy_out["grid"]["makespan"] > toy_out["hypertrick"]["makespan"], toy_out
+    toy_out["grid_over_hypertrick"] = (toy_out["grid"]["makespan"]
+                                       / toy_out["hypertrick"]["makespan"])
+    log(f"[sim] {smi}: 13a toy problem ({toy['configs']} configurations, {toy['nodes']} nodes, "
+        f"Np {toy['phases']}, r {toy['r']}, seeds 0-{toy['seeds'] - 1}): "
+        + json.dumps(toy_out) + " (the paper's grid / HyperTrick: 1.56)")
+
+    brackets = paper_brackets()
+    r = solve_r_for_alpha(hyperband_alpha(brackets), SIM_TABLE3["phases"])
+    space = paper_rl_space()
+    table3 = {}
+    for game, params in SIM_GAMES.items():
+        acc = {k: {"makespan": [], "occupancy": [], "time_to_best": [], "best": []}
+               for k in ("hypertrick", "hyperband")}
+        for seed in range(SIM_TABLE3["seeds"]):
+            cfgs = space.sample_n(SIM_TABLE3["configs"], seed=seed)
+            wl = GA3CWorkload(seed=seed, **params)
+            hb = simulate_hyperband(wl, cfgs, brackets, SIM_TABLE3["nodes"], seed=seed)
+            ht = simulate_hypertrick(wl, cfgs, SIM_TABLE3["nodes"], SIM_TABLE3["phases"], r,
+                                     seed=seed)
+            for k, res in (("hypertrick", ht), ("hyperband", hb)):
+                assert 0 < res.occupancy <= 1.0 + 1e-9, (game, k, seed, res.occupancy)
+                acc[k]["makespan"].append(res.makespan)
+                acc[k]["occupancy"].append(res.occupancy)
+                acc[k]["time_to_best"].append(res.time_to_best)
+                acc[k]["best"].append(res.best_metric)
+        table3[game] = {k: {m: mean(v) for m, v in a.items()} for k, a in acc.items()}
+        ht_m, hb_m = table3[game]["hypertrick"], table3[game]["hyperband"]
+        assert ht_m["makespan"] < hb_m["makespan"], (game, table3[game])
+        assert ht_m["occupancy"] > hb_m["occupancy"], (game, table3[game])
+        log(f"[sim] {smi}: 13a Table 3 {game} ({SIM_TABLE3['configs']} configurations, "
+            f"{SIM_TABLE3['nodes']} nodes, {SIM_TABLE3['phases']} phases at r {r:.4f}, seeds "
+            f"0-{SIM_TABLE3['seeds'] - 1}): " + json.dumps(table3[game]))
+    out["13a"] = {"toy": toy_out, "table3": table3, "r": r,
+                  "host_s": time.perf_counter() - t0}
+    no_launches("13a", all_counts)
+    phase_done("13a the paper's simulator: the toy problem and Table 3")
+
+    # -- 13b: the 1000-host trace and its journal -------------------------------
+    tr = TRACE_1000
+
+    def policy():
+        return HyperTrick(SearchSpace({"x": Uniform(0.0, 1.0)}), w0=tr["w0"],
+                          n_phases=tr["phases"], eviction_rate=tr["r"], seed=tr["seed"])
+
+    hosts = synthetic_trace(tr["hosts"], seed=tr["host_seed"], fail_frac=tr["fail_frac"],
+                            fail_horizon=tr["fail_horizon"])
+    with tempfile.TemporaryDirectory(prefix="smoke13b-") as tmp:
+        path = os.path.join(tmp, "trace.jsonl")
+        t0 = time.perf_counter()
+        with Journal(path) as j:
+            res = replay_trace(policy(), ToyWorkload(seed=0), hosts, bracket_eta=tr["eta"],
+                               lease_ttl=tr["lease_ttl"], seed=tr["seed"], journal=j)
+        trace_s = time.perf_counter() - t0
+        fresh = OptimizationService(policy(), bracket_eta=tr["eta"])
+        t0 = time.perf_counter()
+        n_events = replay_journal(path, fresh)
+        replay_s = time.perf_counter() - t0
+    c, h = res.metrics["counters"], res.metrics["histograms"]
+    statuses = collections.Counter(t.status.value for t in res.service.db.trials.values())
+    assert res.n_hosts == tr["hosts"] and res.n_trials >= tr["w0"], res.summary()
+    assert res.makespan > 0 and 0 < res.occupancy <= 1.0, res.summary()
+    assert res.rung_log and res.rung_log[0]["n"] >= 990, res.rung_log[:1]
+    assert sum(len(g["demoted"]) for g in res.rung_log) > 0, res.rung_log
+    assert c["service.requeues"] == c["server.lease_reaps"] > 0, c
+    for verdict in ("park", "demote", "stop"):
+        assert c[f"service.verdicts.{verdict}"] > 0, (verdict, c)
+    assert c["service.env_steps"] > 0, c
+    assert h["service.cohort_wait_s"]["p99"] >= h["service.cohort_wait_s"]["p50"] > 0, h
+    assert TrialStatus.RUNNING.value not in statuses, statuses
+    assert statuses["completed"] > 0 and statuses["crashed"] > 0, statuses
+    # the journal replayed in a fresh service gives the trace's final trials
+    want = {t: (rec.status, rec.reports, rec.best_metric)
+            for t, rec in res.service.db.trials.items()}
+    got = {t: (rec.status, rec.reports, rec.best_metric) for t, rec in fresh.db.trials.items()}
+    assert got == want, "13b: the replayed journal's trials differ from the trace's"
+    assert fresh.db.summary() == res.service.db.summary()
+    out["13b"] = {**res.summary(), "occupancy_exact": res.occupancy,
+                  "rung0_n": res.rung_log[0]["n"],
+                  "demoted": sum(len(g["demoted"]) for g in res.rung_log),
+                  "by_status": dict(sorted(statuses.items())),
+                  "verdicts": {k.rsplit(".", 1)[1]: v for k, v in c.items()
+                               if k.startswith("service.verdicts.")},
+                  "journal_events": n_events, "trace_host_s": trace_s,
+                  "journal_replay_host_s": replay_s}
+    log(f"[sim] {smi}: 13b 1000-host trace " + json.dumps(out["13b"]))
+    no_launches("13b", all_counts)
+    phase_done("13b the 1000-host trace, journaled and replayed")
+
+    # -- 13c: the load generator ------------------------------------------------
+    rows = []
+    for hosts_n, slots, phases, batched in LOAD_SHAPES:
+        svc = OptimizationService(RandomSearchPolicy(
+            SearchSpace({"x": LogUniform(0.01, 100.0)}), hosts_n * slots, phases, seed=0))
+        with MetaoptServer(svc, lease_ttl=60.0) as server:
+            stats = run_load(server.host, server.port, hosts=hosts_n, slots=slots,
+                             phases=phases, batched=batched)
+        row = stats.to_row()
+        assert stats.errors == 0, row
+        assert stats.reports == hosts_n * slots * phases, row
+        assert stats.acquired == hosts_n * slots, row
+        assert stats.p99_ms is not None, row
+        for tid, rec in svc.db.trials.items():
+            assert rec.status is TrialStatus.COMPLETED, (row, tid, rec.status)
+            assert [m for m, _ in rec.reports] == [float(p + tid % 7) for p in range(phases)], (
+                row, tid, rec.reports)
+        rows.append(row)
+        log(f"[sim] {smi}: 13c run_load " + json.dumps(row))
+    per_trial = next(r for r in rows if not r["batched"])
+    batched_64 = next(r for r in rows if r["batched"] and r["slots"] == per_trial["slots"])
+    ratio = batched_64["reports_per_s"] / per_trial["reports_per_s"]
+    log(f"[sim] {smi}: 13c batched / per-trial reports/s at {per_trial['hosts']} hosts x "
+        f"{per_trial['slots']} slots: {ratio:.2f} (printed, not held: a wall-clock ratio)")
+    sim = run_sim_load(*SIM_LOAD)
+    n_hosts, n_trials, n_phases = SIM_LOAD
+    assert sim.reports == n_trials * n_phases and sim.acquired == n_trials, sim.to_row()
+    assert sim.errors == 0 and sim.p99_ms is not None, sim.to_row()
+    log(f"[sim] {smi}: 13c run_sim_load{SIM_LOAD} " + json.dumps(sim.to_row()))
+    out["13c"] = {"run_load": rows, "batched_over_per_trial": ratio, "sim": sim.to_row()}
+    no_launches("13c", all_counts)
+    phase_done("13c the load generator: sockets and the 1000-host tier")
+    log("[sim] summary " + json.dumps(out))
+    return out
 
 
 def main() -> int:
@@ -3618,6 +3834,8 @@ def main() -> int:
                                     trial_table(res_4), searches["6a"], trial_table(res_7a),
                                     rl["7a"])
     paths.update(base_paths)
+    # -- 13. the paper's simulator, the trace and the load generator -----------
+    simulator_phase(smi, phase_done, zero_counts, all_counts)
 
     kernels = []
     for name, src, replaces, main_t, dec_t, more in [
@@ -3685,7 +3903,7 @@ def main() -> int:
         assert kernels[-1]["launches"] > 0, f"{name}: no launch on the main paths"
     serves = {k: {**p[7], **probes[k]} for k, p in paths.items() if k in probes}
     log("[serve] summary " + json.dumps(serves))
-    log(f"[phase] the smoke's total, phases 0-12 with the build: "
+    log(f"[phase] the smoke's total, phases 0-13 with the build: "
         f"{time.perf_counter() - clock['start']:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

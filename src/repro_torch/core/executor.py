@@ -26,10 +26,13 @@
   against the same service and policy; GA3C or LM trials (``objective``),
   with PBT's clones copied slot to slot on the device.
 
-Not ported yet, of the search's reference modules: the trace
-(``telemetry/trace.py``), the cluster simulator (``core/simulator.py``) and
-the load generator (``distributed/loadgen.py``); ROADMAP queue 1 item 7c,
-path 2.
+The search's other host modules sit beside these: the paper's cluster
+simulator (``core/simulator.py``), the trace replay of N hosts through the
+real service on a simulated clock (``telemetry/trace.py``) and the load
+generator (``distributed/loadgen.py``). Not ported yet: the tools that read
+a journal (``telemetry/`` ``export``, ``critical_path``, ``tailer``,
+``dashboard`` and the package's re-exports); ROADMAP queue 1 item 7c,
+path 3.
 
 Objectives have the signature  objective(hparams, phase, state) ->
 (metric, state)  where state carries the live trainer across phases.

@@ -17,9 +17,10 @@ lifecycle, park-wait and cohort spans from the acquire / park / report /
 status events the journal already carries.
 
 The population engine (``population/engine.py``) records its ``engine.*``
-spans through the recorder it is given. Not ported yet (ROADMAP queue 1
-item 7c, second part): the tools that read spans (``trace``, ``export``,
-``critical_path``, ``dashboard``, ``tailer``).
+spans through the recorder it is given, and ``telemetry/trace.py`` writes
+``trial.phase`` spans with simulated stamps into the journal it is given.
+Not ported yet (ROADMAP queue 1 item 7c, path 3): the tools that read spans
+(``export``, ``critical_path``, ``dashboard``, ``tailer``).
 """
 from __future__ import annotations
 
