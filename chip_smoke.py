@@ -335,6 +335,23 @@ Phases, each of which passes or ends the script with a non-zero exit:
      then ``run_sim_load(1000, 2000, 4)``: 8,000 reports, 2,000 trials.
      Prints each row's reports/s, p50 and p99, and the batched / per-trial
      ratio (not held: a wall-clock ratio).
+ 14. the journal's readers (``repro_torch.telemetry``: ``export``,
+     ``critical_path``, ``tailer``, ``dashboard``) over the journals this
+     run's searches wrote, in this process; host code, every launch counter
+     must read 0 after it. 14a: the journals of 10a, 10c, 11a and 13b, each
+     exported as a Chrome trace that validates, with one trial track a
+     trial and ``export.main --require-trials N`` at 0 for its N trials and
+     1 for N + 1; every trial's compile, step, rpc, park-wait and idle
+     within 1 % of its wall (``critical_path.attribute``); ``dashboard
+     --once`` showing the phase's trial count and best score and the
+     per-bracket table; in 10c and 13b, whose rungs park trials, a trial
+     with park-wait above 0. Prints each journal's per-bracket table and
+     its shares of the summed trial wall. 14b: 10a's journal, tailed by a
+     thread of this process (``JournalTailer``, 4096 bytes a poll, every 50
+     ms) while its search ran: the tailed events equal the finished
+     journal's, none skipped, and a ``SearchView`` fed live holds the same
+     trials, best score, reaps and cohort waits as one built from the
+     finished journal. Prints the polls and how many found a torn line.
 Seconds per phase are printed as each ends. The last two lines are the
 kernels' JSON line and the result line.
 
@@ -346,6 +363,7 @@ same weights and data there as in 8a and 9a.
 """
 from __future__ import annotations
 
+import atexit
 import ctypes
 import dataclasses
 import gc
@@ -354,8 +372,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1477,9 +1497,11 @@ def hold_trials(label, table, phases, w0=None, score=None):
             label, tid, ms)
 
 
-def control_plane_phase(smi, phase_done, out_6a, table_6a, rl):
+def control_plane_phase(smi, phase_done, out_6a, table_6a, rl, kept):
     """Phase 10: the control plane on the card (10a-10d above). Returns the
-    launch records of its searches, counted in the worker processes."""
+    launch records of its searches, counted in the worker processes, its
+    numbers and 10a's live tail (phase 14). 10a's and 10c's journals go
+    into ``kept``."""
     import signal
     import tempfile
 
@@ -1496,8 +1518,13 @@ def control_plane_phase(smi, phase_done, out_6a, table_6a, rl):
         # 10a: 6a's search on the server backend, 4 worker processes
         t0, spawned = time.perf_counter(), time.monotonic()
         proc, out_path, jpath = tune_process(CONTROL_LM_ARGV, tmp, "10a")
-        stdout = finish(proc, "10a")
+        tail = LiveTail(jpath)          # 14b: the journal tailed as it is written
+        try:
+            stdout = finish(proc, "10a")
+        finally:
+            tail.stop()
         run_s = time.perf_counter() - t0
+        tail.drain()
         summary = json.load(open(out_path))
         table, reports, busy = journal_trials(jpath)
         hold_trials("10a", table, SEARCH_PHASES, SEARCH_W0)
@@ -1531,6 +1558,7 @@ def control_plane_phase(smi, phase_done, out_6a, table_6a, rl):
                           "wall_s", "occupancy", "trial_steps_per_s", "tokens_per_s")}}
         log(f"[control] {smi}: " + json.dumps(out["10a"]))
         assert not unequal, ("10a: metrics differ from 6a's", unequal)
+        keep_journal(kept, "10a", jpath, len(table), summary["best_metric"], parks=False)
         phase_done("10a LM search, server backend, 4 worker processes")
 
         # 10b: the same search killed once CONTROL_KILL_AFTER reports are
@@ -1604,6 +1632,7 @@ def control_plane_phase(smi, phase_done, out_6a, table_6a, rl):
                       "trial_steps": steps, "launches": counts[0],
                       "start_up": start_up(jpath, spawned)}
         log(f"[control] {smi}: 10c " + json.dumps(out["10c"]))
+        keep_journal(kept, "10c", jpath, len(table), summary["best_metric"], parks=True)
         phase_done("10c Hyperband, process backend, 10 worker processes")
 
         # 10d: 7a's GA3C search on 4 worker processes; no kernel of the port
@@ -1636,7 +1665,7 @@ def control_plane_phase(smi, phase_done, out_6a, table_6a, rl):
         log(f"[control] {smi}: 10d " + json.dumps(out["10d"]))
         phase_done("10d GA3C search, process backend, 4 worker processes")
     log("[control] summary " + json.dumps(out))
-    return paths, out
+    return paths, out, tail
 
 
 # phase 11: the population worker. Each run is the tune CLI as a subprocess
@@ -1717,12 +1746,13 @@ def both_trained(table, ref):
             for ph in range(min(len(ms), len(ref[t][2])))]
 
 
-def population_worker_phase(smi, phase_done, beside, table_9a, table_8a):
+def population_worker_phase(smi, phase_done, beside, table_9a, table_8a, kept):
     """Phase 11: the population worker on the card (11a-11d above).
     ``beside``: 9a's, 8a's and 10a's rows of this run, printed beside each
     run's; ``table_9a`` / ``table_8a``: their trials, which 11a-11b and 11c
     are held against. Returns the launch records of the LM runs (counted in
-    the worker processes) and the phase's numbers."""
+    the worker processes) and the phase's numbers; 11a's journal goes into
+    ``kept`` (phase 14)."""
     import tempfile
 
     from repro_torch.configs.registry import get_config
@@ -1791,6 +1821,9 @@ def population_worker_phase(smi, phase_done, beside, table_9a, table_8a):
                                                         "start_up"))}
             log(f"[popworker] {smi}: {label} " + json.dumps(out[label]))
             assert not over, (label, "metrics outside the limit", over)
+            if label in READ_JOURNALS:
+                keep_journal(kept, label, jpath, len(table), summary["best_metric"],
+                             parks=False)
             phase_done(f"{label} LM search, {nodes} population worker(s) of {slots} slots")
 
         # 11c: 7a's GA3C search on two population workers of 6 slots, held
@@ -2090,13 +2123,73 @@ TRACE_1000 = dict(w0=1000, phases=5, r=0.3, seed=0, hosts=1000, host_seed=7, fai
 LOAD_SHAPES = [(200, 1, 2, True), (2, 64, 3, True), (2, 64, 3, False)]
 SIM_LOAD = (1000, 2000, 4)
 
+# phase 14: the journal's readers. 14a reads the journals of these phases
+# (kept past their phases' temporary directories); 14b tails 10a's journal
+# live, TAIL_MAX_BYTES a poll every TAIL_INTERVAL_S
+READ_JOURNALS = ("10a", "10c", "11a", "13b")
+TAIL_MAX_BYTES, TAIL_INTERVAL_S = 4096, 0.05
 
-def simulator_phase(smi, phase_done, zero_counts, all_counts):
+
+class LiveTail:
+    """A thread of this process that polls a journal with the port's
+    ``JournalTailer`` while a search writes it, and feeds each poll's
+    events to a ``SearchView`` stamped with their arrival
+    (``time.monotonic()``). A poll found a torn line when the journal ended
+    mid-line at the size the tailer measured (and that size lay within the
+    poll's budget)."""
+
+    def __init__(self, path):
+        import threading
+
+        from repro_torch.telemetry.dashboard import SearchView
+        from repro_torch.telemetry.tailer import JournalTailer
+        self.tailer = JournalTailer(path, max_bytes=TAIL_MAX_BYTES)
+        self.view = SearchView()
+        self.events, self.polls, self.torn = [], 0, 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _poll(self):
+        t, before = self.tailer, self.tailer.offset
+        batch = t.poll()
+        self.polls += 1
+        if t.size - before <= TAIL_MAX_BYTES and t.offset < t.size:
+            self.torn += 1
+        self.events.extend(batch)
+        self.view.apply_all(batch, mono=time.monotonic())
+        return batch
+
+    def _run(self):
+        while not self._stop.wait(TAIL_INTERVAL_S):
+            self._poll()
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join()
+
+    def drain(self):
+        """After ``stop``: poll until the finished journal is read."""
+        while self._poll():
+            pass
+
+
+def keep_journal(kept, label, path, trials, best, parks):
+    """Copy a phase's journal where phase 14 reads it, beside the trial
+    count and best score the phase printed and whether its rungs park
+    trials."""
+    dest = os.path.join(kept["dir"], f"{label}.jsonl")
+    shutil.copyfile(path, dest)
+    kept["journals"][label] = {"path": dest, "trials": trials, "best": best, "parks": parks}
+
+
+def simulator_phase(smi, phase_done, zero_counts, all_counts, kept):
     """Phase 13: the paper's simulator (13a), the 1000-host trace replayed
     through the real service and its journal replayed (13b), and the load
     generator against the port's server and at the 1000-host tier (13c).
     Nothing here runs on the card, so every launch counter must read 0
-    after it. Returns the phase's numbers."""
+    after it. 13b's journal goes into ``kept`` (phase 14). Returns the
+    phase's numbers."""
     import tempfile
     from repro_torch.core.completion import hyperband_alpha, paper_brackets, solve_r_for_alpha
     from repro_torch.core.hypertrick import HyperTrick, RandomSearchPolicy
@@ -2194,6 +2287,7 @@ def simulator_phase(smi, phase_done, zero_counts, all_counts):
         t0 = time.perf_counter()
         n_events = replay_journal(path, fresh)
         replay_s = time.perf_counter() - t0
+        keep_journal(kept, "13b", path, res.n_trials, res.best_metric, parks=True)
     c, h = res.metrics["counters"], res.metrics["histograms"]
     statuses = collections.Counter(t.status.value for t in res.service.db.trials.values())
     assert res.n_hosts == tr["hosts"] and res.n_trials >= tr["w0"], res.summary()
@@ -2258,6 +2352,101 @@ def simulator_phase(smi, phase_done, zero_counts, all_counts):
     no_launches("13c", all_counts)
     phase_done("13c the load generator: sockets and the 1000-host tier")
     log("[sim] summary " + json.dumps(out))
+    return out
+
+
+def readers_phase(smi, phase_done, zero_counts, all_counts, kept, tail):
+    """Phase 14: the port's journal readers over the journals this run's
+    searches wrote (14a) and 10a's journal as ``tail``, a ``LiveTail``,
+    read it live (14b).
+    Host code: every launch counter must read 0 after it. Returns the
+    phase's numbers."""
+    import contextlib
+    import io
+
+    from repro_torch.distributed.journal import read_events
+    from repro_torch.telemetry import critical_path, dashboard, export
+    from repro_torch.telemetry.dashboard import SearchView
+
+    zero_counts()
+    t_phase = time.perf_counter()
+    out = {}
+    # -- 14a: export, attribution and the dashboard over each journal ------------
+    log(f"[readers] {smi}: compile is engine.compile spans, the host seconds of a "
+        "bucket's first step with no device sync (host start-up, not device work); step "
+        "is the trials' trial.phase spans; shares are of the summed trial wall")
+    with tempfile.TemporaryDirectory(prefix="smoke14-") as tmp:
+        for label in READ_JOURNALS:
+            k = kept["journals"][label]
+            t0 = time.perf_counter()
+            path = k["path"]
+            table, _, _ = journal_trials(path)
+            n = len(table)
+            assert n == k["trials"], (label, "trials in the journal", n, k["trials"])
+            trace_path = os.path.join(tmp, f"{label}.json")
+            counts = export.export_journal(path, trace_path)
+            with open(trace_path, encoding="utf-8") as f:
+                assert export.validate_chrome_trace(json.load(f)) == counts, label
+            assert counts["trial_tracks"] == n, (label, counts, n)
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                codes = [export.main(["--journal", path, "--out", trace_path,
+                                      "--require-trials", str(need)]) for need in (n, n + 1)]
+            assert codes == [0, 1], (label, codes, printed.getvalue())
+            events = list(read_events(path))
+            per_trial = critical_path.attribute(events)
+            assert set(table) <= set(per_trial), (label, set(table) - set(per_trial))
+            walls = {t: r for t, r in per_trial.items() if r["wall"] > 0}
+            assert walls, label
+            off = [(t, r) for t, r in walls.items()
+                   if abs(sum(r[b] for b in critical_path.BUCKETS) - r["wall"]) > 0.01 * r["wall"]]
+            assert not off, (label, "buckets off the wall by more than 1 %", off[:3])
+            parked = sum(r["park_wait"] > 0 for r in walls.values())
+            assert parked or not k["parks"], (label, "no trial waited at a rung")
+            per_bracket = critical_path.aggregate(walls)
+            table_txt = critical_path.format_table(per_bracket)
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                assert dashboard.main(["--journal", path, "--once"]) == 0
+            panel = printed.getvalue()
+            assert f"trials: {n} acquired" in panel, (label, panel)
+            assert f"best score: {k['best']:.6g} (" in panel, (label, k["best"], panel)
+            assert table_txt and table_txt in panel, (label, panel)
+            wall = sum(r["wall"] for r in walls.values())
+            out[label] = {
+                "events": len(events), "trials": n, "trials_with_wall": len(walls),
+                "export": counts, "wall_sum_s": wall,
+                "shares": {b: sum(r[b] for r in walls.values()) / wall
+                           for b in critical_path.BUCKETS},
+                "by_bracket": {b: {**agg, "shares": {
+                    k_: agg[k_] / agg["wall"] for k_ in critical_path.BUCKETS}}
+                    for b, agg in per_bracket.items()},
+                "trials_parked": parked, "host_s": time.perf_counter() - t0}
+            log(f"[readers] {smi}: 14a {label} " + json.dumps(out[label]))
+            log(f"[readers] 14a {label}, from dashboard --once:\n{table_txt}")
+    no_launches("14a", all_counts)
+    phase_done("14a the readers over 10a's, 10c's, 11a's and 13b's journals")
+
+    # -- 14b: 10a's journal, tailed while its search ran ------------------------
+    events = list(read_events(kept["journals"]["10a"]["path"]))
+    assert tail.events == events, ("14b: tailed events differ from the journal's",
+                                   len(tail.events), len(events))
+    assert tail.tailer.skipped == 0, tail.tailer.skipped
+    post = SearchView()
+    post.apply_all(events)
+    for key in ("trials", "best", "reaps"):
+        assert getattr(tail.view, key) == getattr(post, key), ("14b", key)
+    assert list(tail.view.cohort_waits) == list(post.cohort_waits), "14b: cohort waits"
+    out["14b"] = {"events": len(events), "polls": tail.polls, "torn_polls": tail.torn,
+                  "skipped": tail.tailer.skipped, "trials": len(post.trials),
+                  "best": post.best, "reaps": post.reaps,
+                  "cohort_waits": len(post.cohort_waits),
+                  "max_bytes": TAIL_MAX_BYTES, "interval_s": TAIL_INTERVAL_S}
+    log(f"[readers] {smi}: 14b " + json.dumps(out["14b"]))
+    no_launches("14b", all_counts)
+    phase_done("14b 10a's journal tailed live")
+    log(f"[phase] 14 the journal's readers, in all: {time.perf_counter() - t_phase:.1f} s")
+    log("[readers] summary " + json.dumps(out))
     return out
 
 
@@ -3815,17 +4004,20 @@ def main() -> int:
                                                      phase_done)
     paths.update(lm_paths)
     # -- 10. the control plane: worker processes against the TCP server --------
+    # the journals phase 14 reads, kept until the script ends
+    kept = {"dir": tempfile.mkdtemp(prefix="smoke-journals-"), "journals": {}}
+    atexit.register(shutil.rmtree, kept["dir"], True)
     gc.collect()
     torch.cuda.empty_cache()
-    control_paths, control = control_plane_phase(smi, phase_done, searches["6a"],
-                                                 trial_table(res_4), rl)
+    control_paths, control, live = control_plane_phase(smi, phase_done, searches["6a"],
+                                                 trial_table(res_4), rl, kept)
     paths.update(control_paths)
     # -- 11. the population worker: a batch of trials a worker process -------
     gc.collect()
     torch.cuda.empty_cache()
     popw_paths, _ = population_worker_phase(
         smi, phase_done, {"9a": lm_out["9a"], "8a": pop["8a"], "10a": control["10a"],
-                          "10d": control["10d"]}, table_9a, table_8a)
+                          "10d": control["10d"]}, table_9a, table_8a, kept)
     paths.update(popw_paths)
     # -- 12. the paper's baselines: Successive Halving and evolution ----------
     gc.collect()
@@ -3835,7 +4027,9 @@ def main() -> int:
                                     rl["7a"])
     paths.update(base_paths)
     # -- 13. the paper's simulator, the trace and the load generator -----------
-    simulator_phase(smi, phase_done, zero_counts, all_counts)
+    simulator_phase(smi, phase_done, zero_counts, all_counts, kept)
+    # -- 14. the journal's readers over this run's journals --------------------
+    readers_phase(smi, phase_done, zero_counts, all_counts, kept, live)
 
     kernels = []
     for name, src, replaces, main_t, dec_t, more in [
@@ -3903,7 +4097,7 @@ def main() -> int:
         assert kernels[-1]["launches"] > 0, f"{name}: no launch on the main paths"
     serves = {k: {**p[7], **probes[k]} for k, p in paths.items() if k in probes}
     log("[serve] summary " + json.dumps(serves))
-    log(f"[phase] the smoke's total, phases 0-13 with the build: "
+    log(f"[phase] the smoke's total, phases 0-14 with the build: "
         f"{time.perf_counter() - clock['start']:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

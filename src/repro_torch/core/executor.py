@@ -29,10 +29,9 @@
 The search's other host modules sit beside these: the paper's cluster
 simulator (``core/simulator.py``), the trace replay of N hosts through the
 real service on a simulated clock (``telemetry/trace.py``) and the load
-generator (``distributed/loadgen.py``). Not ported yet: the tools that read
-a journal (``telemetry/`` ``export``, ``critical_path``, ``tailer``,
-``dashboard`` and the package's re-exports); ROADMAP queue 1 item 7c,
-path 3.
+generator (``distributed/loadgen.py``), and the tools that read a search's
+journal (``telemetry/`` ``export``, ``critical_path``, ``tailer`` and
+``dashboard``).
 
 Objectives have the signature  objective(hparams, phase, state) ->
 (metric, state)  where state carries the live trainer across phases.

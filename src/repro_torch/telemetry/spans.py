@@ -19,8 +19,11 @@ status events the journal already carries.
 The population engine (``population/engine.py``) records its ``engine.*``
 spans through the recorder it is given, and ``telemetry/trace.py`` writes
 ``trial.phase`` spans with simulated stamps into the journal it is given.
-Not ported yet (ROADMAP queue 1 item 7c, path 3): the tools that read spans
-(``export``, ``critical_path``, ``dashboard``, ``tailer``).
+Two tools read them: ``telemetry.export`` turns a journal into Chrome
+trace-event JSON with per-trial and rung-cohort tracks, and
+``telemetry.critical_path`` attributes each trial's wall-clock into
+compile / step / rpc / park-wait / idle (rendered by
+``telemetry.dashboard``).
 """
 from __future__ import annotations
 

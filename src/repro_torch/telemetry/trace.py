@@ -14,8 +14,8 @@ can run with processes, and emits the SAME
 ``telemetry.metrics.METRIC_SCHEMA`` metrics (``service.*`` from the service
 itself, ``server.lease_reaps`` from the simulated reaper) plus, optionally,
 the same journal events a live server writes (``distributed.journal``
-replays them; the journal's readers, ``export``, ``critical_path``,
-``tailer`` and ``dashboard``, are not ported yet).
+replays them, and ``export``, ``critical_path``, ``tailer`` and
+``dashboard`` read them).
 
 The workload is duck-typed (``unit_cost(wid, hparams, rng)`` /
 ``metric_at(wid, hparams, cum, rng)``) — any ``core.simulator`` workload

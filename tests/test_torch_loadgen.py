@@ -113,20 +113,23 @@ def test_load_stats_rows_and_quantiles_equal_the_reference():
 
 
 @pytest.mark.timeout(120)
-def test_smoke_phase_13_holds_on_the_cpu():
+def test_smoke_phase_13_holds_on_the_cpu(tmp_path):
     """``chip_smoke.py`` phase 13 is host code: its checks hold here, with
-    launch counters that read 0 throughout."""
+    launch counters that read 0 throughout, and it keeps 13b's journal for
+    phase 14."""
     import importlib.util
     import pathlib
     root = pathlib.Path(__file__).resolve().parents[1]
     spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    done = []
+    done, kept = [], {"dir": str(tmp_path), "journals": {}}
     out = smoke.simulator_phase("cpu", done.append, lambda: None,
-                                lambda: ({"rmsnorm": 0, "gmm": 0},))
+                                lambda: ({"rmsnorm": 0, "gmm": 0},), kept)
     assert [d.split()[0] for d in done] == ["13a", "13b", "13c"]
     assert out["13a"]["toy"]["grid"]["alpha"] == 1.0
     assert out["13b"]["rung0_n"] >= 990
     assert out["13c"]["sim"]["reports"] == 8000
     assert [r["reports"] for r in out["13c"]["run_load"]] == [400, 384, 384]
+    assert list(kept["journals"]) == ["13b"]
+    assert pathlib.Path(kept["journals"]["13b"]["path"]).is_file()
