@@ -59,7 +59,14 @@ Phases, each of which passes or ends the script with a non-zero exit:
      outputs in [4, 8), none at 8), held to 2e-2 (8e-3 where |ref| < 1)
      against the plain version run on f32 copies of the same bf16 inputs,
      with the count of outputs in [4, 8) and the distance from the bf16 plain
-     output printed. Plus a reduced gemma2-2b, a reduced hybrid (jamba's
+     output printed. The population engine's mamba and MoE buckets: the
+     scan's slot case (an A and a D a slot, ``rows_per_a``) at 12 slots x 2
+     x T of jamba reduced in f32, T = 16 (the sequential kernel), 32 and 64
+     (the prefill kernel), and at 3 slots x 2 in bf16 at d_inner 130 (a
+     slot's D rows not 16 bytes apart), each with the other kernel's slot
+     case held past the dispatch; the small gmm in f32 over 12 slots x 4
+     experts = 48 groups of grok-1 reduced (256 -> 256). Plus a reduced
+     gemma2-2b, a reduced hybrid (jamba's
      8-block pattern), reduced yi-9b, grok-1, starcoder2, phi3 and kimi (one
      layer and a 2-layer stack each) and phi3 and kimi reduced at their real
      head dims, served on the card (kernels) and on the CPU (plain path),
@@ -154,9 +161,10 @@ Phases, each of which passes or ends the script with a non-zero exit:
      (0, 1], and the launch counters at the steps taken times 3 RMSNorm
      (block kernel) and 1 flash (FMA kernel) a step. Prints wall time,
      occupancy, alpha, trial-steps/s, tokens/s and peak memory. 6b: the same
-     search on one node thread inside one CUDA-only profiler session (the
-     device's busy share): the same configurations by trial id, and every
-     (trial, phase) both runs trained within ``SEARCH_NODES_ATOL``. 6c: one
+     search cut to 3 phases on one node thread inside one CUDA-only profiler
+     session (the device's busy share): the same configurations by trial id,
+     and every (trial, phase) both runs trained within
+     ``SEARCH_NODES_ATOL``. 6c: one
      node, HyperTrick(w0 4, 3 phases, r 0.25, seed 0) at 4 steps a phase on
      the card and on the CPU, every trial's weights drawn on the CPU: the
      same trials, statuses and reports, metrics within TRAIN_ATOL +
@@ -172,7 +180,11 @@ Phases, each of which passes or ends the script with a non-zero exit:
      f32 and the latter in bf16, and the FMA flash kernel over 12 slots'
      sequences; phase 4 times the slot case at both shapes beside its
      plain version and the shared-scale block kernel on the same rows (no
-     single PyTorch call takes a scale a slot);
+     (no single PyTorch call takes a scale a slot). Phase 4 also times the
+     scan's slot case at the mamba bucket's call (12 slots x 2 x 32, jamba
+     reduced, the sequential kernel beside it) and the small gmm at the MoE
+     bucket's (1,536 rows over 48 groups, 256 -> 256 f32), beside their
+     plain versions and, for gmm, ``torch._grouped_mm`` where it takes f32;
   7. the GA3C search, the paper's own (``repro_torch.launch.tune
      --objective rl``, the CLI's default). No kernel of the port runs on it:
      every launch counter must read 0 after each part. 7a: the reference's
@@ -227,15 +239,27 @@ Phases, each of which passes or ends the script with a non-zero exit:
      against each alone in a bucket of one, 3 updates on the same draws,
      within its limits (``slot_faults``: each slot's summed AdamW second
      moments, its weights outside TRAIN_ATOL + TRAIN_RTOL * |alone|, its
-     largest |bucket - alone| over its lr, its summed -loss); then one
-     bucket step on the card against the CPU from one CPU draw of the
-     weights and data, each slot's loss within TRAIN_ATOL + TRAIN_RTOL *
-     |cpu|. 9d: ``--scheduler pbt`` on the engine for GA3C (4 workers, 3
+     largest |bucket - alone| over its lr, its summed -loss); then two
+     bucket steps on the card against the CPU from one CPU draw of the
+     weights and data, each slot's summed loss within TRAIN_ATOL +
+     TRAIN_RTOL * |cpu| (the second step's loss is taken after the first
+     update, so the backward is held too). 9d: ``--scheduler pbt`` on the engine for GA3C (4 workers, 3
      phases of 2 episodes, 2 envs) and LM (4 workers, 3 phases of 4 steps):
      every trial completed and at least one clone copied on the device (a
      run without one is repeated at the next seed, up to ``PBT_SEEDS``);
      then one clone on the card under ``set_sync_debug_mode("error")``: the
-     child's learner bit-equal to the parent's, its carry unchanged;
+     child's learner bit-equal to the parent's, its carry unchanged. 9e:
+     9a's search over jamba's reduced config (a mamba block: 5 slot RMSNorm,
+     1 FMA flash and 1 call of the scan's slot case on the prefill kernel a
+     step of the bucket) and grok-1's (a MoE block: 3 slot RMSNorm, 1 FMA
+     flash and 3 small gmm over the slots' 48 (slot, expert) groups), each
+     held as 9a with those counts exact; two
+     bucket steps of each on the card against the CPU within 9c's limits,
+     every token routed to the same experts on both in the first; jamba's bucket of 4
+     against the same trials alone within 9c's limits
+     (``population_checks.slot_rows`` with ``arch``); and jamba's search on
+     one population worker of 12 slots (a tune subprocess), equal to 9e's
+     trials as 11a is to 9a's;
  10. the control plane (``repro_torch.launch.tune --backend server /
      process``): the CLI as a subprocess, its trials in worker processes
      (``python -m repro_torch.distributed.worker``) against the TCP server
@@ -294,8 +318,8 @@ Phases, each of which passes or ends the script with a non-zero exit:
      killed at each, and ``EvolutionaryHyperTrick``, whose freed nodes
      restart from a mutated top-quartile configuration after a warmup of
      fresh draws. 12a: ``run_sh`` of 6a's 12 configurations (by trial id)
-     over 6a's LM objective on 4 node threads, 5 phases, evict 0.25: 12, 9,
-     7, 5 and 4 trials a phase, 9 killed and 3 completed, each record's
+     over 6a's LM objective on 4 node threads, cut to 3 phases, evict 0.25:
+     12, 9 and 7 trials a phase, 7 killed and 5 completed, each record's
      node its index among the phase's survivors mod 4, every
      (configuration, phase) both trained equal to 6a's, and the launches at
      the trial steps x (3 block RMSNorm + 1 FMA flash), no other kernel.
@@ -437,6 +461,9 @@ SEARCH_BATCH, SEARCH_SEQ = 8, 64
 # 6b: each (trial, phase) metric of the 4-thread search against the 1-thread
 # one; a trial's numbers depend on its hyperparameters alone
 SEARCH_NODES_ATOL = 0.0
+# 6b's search is cut to 3 of 6a's 5 phases: the (trial, phase) metrics both
+# trained are held as before, and its profiler session holds fewer events
+SEARCH_PROFILED_PHASES = 3
 # 6c: one node, HyperTrick(lm_space, w0 4, 3 phases, r 0.25, seed 0), 4 steps
 # a phase, on the card and on the CPU from one CPU draw of the weights; each
 # phase's metric within TRAIN_ATOL + TRAIN_RTOL * |cpu|
@@ -497,6 +524,11 @@ POP_LM_BATCH, POP_LM_SEQ = 2, 32
 # (SEARCH_BATCH x SEARCH_SEQ), a random search over the learning rate, 2
 # phases of 25 steps, profiled, beside the same search at one slot
 POP_LM_PHASES, POP_LM_STEPS = 2, 25
+# 9e: 9a's search over the reduced configs whose blocks run the scan's slot
+# case (jamba: a mamba block) and gmm over the slots' (slot, expert) groups
+# (grok-1: a MoE block of 4 experts, top-2); kimi-k2's reduced MoE block is
+# grok-1's in shape and is held on the CPU only
+BLOCK_ARCHS = (HYBRID, GROK)
 # 9c: ``repro_torch.launch.population_checks``' comparison at engine seed
 # 0: its trials in one bucket against each alone, its limits
 # (``slot_faults``). Twenty seeds of it on an H100 and its coupled controls
@@ -788,6 +820,12 @@ def routed_sizes(tokens, E, k, seed):
     pick = np.random.default_rng(seed)
     return np.bincount(np.concatenate([pick.choice(E, k, replace=False)
                                        for _ in range(tokens)]), minlength=E).tolist()
+
+
+def slot_routed_sizes(slots, tokens, E, k, seed):
+    """A MoE bucket's group sizes over its (slot, expert) groups, slot-major:
+    each slot's ``routed_sizes`` of ``tokens`` tokens, drawn in turn."""
+    return [g for s in range(slots) for g in routed_sizes(tokens, E, k, seed + s)]
 
 
 def trial_table(res):
@@ -1114,13 +1152,26 @@ def population_phase(dev, smi, zero_counts, all_counts, phase_done, rl, res_7a):
     return paths, pop, t8
 
 
-def lm_expect(rcfg):
-    """Launches of one step of a bucket of the LM objective (any number of
-    slots): each RMSNorm a slot call of the block kernel, each attention
-    block one FMA flash call."""
-    fwd = per_forward(rcfg)
-    assert fwd["gmm"] == fwd["selective_scan"] == 0, fwd
-    return fwd
+def hold_bucket_counts(label, counts, steps, expect, seq):
+    """The launches of ``steps`` steps of LM buckets (``counts`` as
+    ``all_counts`` gives them) at ``expect`` a step (``per_forward`` of the
+    reduced config: a bucket of any number of slots launches what one
+    trial's forward does): every RMSNorm the slot case of the block kernel,
+    every flash call the FMA kernel, every scan the slot case of
+    ``kernel_for``'s kernel at ``seq`` steps, every gmm the small kernel
+    over the slots' (slot, expert) groups."""
+    from repro_torch.kernels.selective_scan.selective_scan import PREFILL_MIN_STEPS
+    launches, fa_by, gmm_by, rms_by, scan_by = counts
+    for name, n in expect.items():
+        assert launches[name] == n * steps, (label, name, launches[name], n * steps)
+    assert fa_by == {"split_kv": 0, "tensor_core": 0, "fma": expect["flash_attention"] * steps}, (
+        label, fa_by)
+    n_rms, n_scan = expect["rmsnorm"] * steps, expect["selective_scan"] * steps
+    assert rms_by == {"warp": 0, "block": n_rms, "slots": n_rms}, (label, rms_by)
+    prefill = seq >= PREFILL_MIN_STEPS
+    assert scan_by == {"prefill": n_scan * prefill, "sequential": n_scan * (not prefill),
+                       "slots": n_scan}, (label, scan_by)
+    assert gmm_by == {"tiled": 0, "decode": 0, "small": expect["gmm"] * steps}, (label, gmm_by)
 
 
 def population_lm_phase(dev, smi, zero_counts, all_counts, phase_done):
@@ -1145,15 +1196,18 @@ def population_lm_phase(dev, smi, zero_counts, all_counts, phase_done):
     from repro_torch.population.objectives.lm import LMObjective
 
     rcfg = get_config(YI).reduced()
-    expect = lm_expect(rcfg)
+    expect = per_forward(rcfg)
     paths, out = {}, {}
 
-    def lm_search(label, run, w0, phases, steps, batch, seq, profiled=False, bar=True):
+    def lm_search(label, run, w0, phases, steps, batch, seq, profiled=False, bar=True,
+                  arch=YI):
         """``run()`` on the card: no trial crashed, 1 to ``phases`` reports
         a trial (all of them when it completed), every metric finite, with
         ``bar`` the best above -ln(vocab), alpha in (0, 1], one bucket, and the launch
-        counters at the bucket's steps x ``expect``: every RMSNorm a slot
-        call of the block kernel, every flash call the FMA kernel."""
+        counters at the bucket's steps x ``per_forward`` of ``arch``'s reduced
+        config (``hold_bucket_counts``)."""
+        rc = get_config(arch).reduced()
+        ex = per_forward(rc)
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1175,7 +1229,7 @@ def population_lm_phase(dev, smi, zero_counts, all_counts, phase_done):
         assert "crashed" not in summary["by_status"], (label, summary["by_status"])
         hold_trials(label, tab, phases, w0)
         if bar:
-            assert summary["best_metric"] > -math.log(rcfg.vocab_size), (label, summary)
+            assert summary["best_metric"] > -math.log(rc.vocab_size), (label, summary)
         alpha = res.service.db.completion_rate(phases)
         assert 0 < alpha <= 1, (label, alpha)
         buckets = {min(hp.get("loss_chunk", 1024), seq) for hp, _, _ in tab.values()}
@@ -1183,16 +1237,12 @@ def population_lm_phase(dev, smi, zero_counts, all_counts, phase_done):
         iterations = res.service.metrics.histogram("engine.step_s").count
         log(f"[population-lm] {label}: {iterations} steps of the bucket, {res.updates} "
             f"trial-steps, launches {launches}, flash by kernel {fa_by}, rmsnorm by kernel "
-            f"{rms_by}; per step of the bucket {expect}")
-        for name, n in expect.items():
-            assert launches[name] == n * iterations, (label, name, launches[name], n * iterations)
-        assert fa_by == {"split_kv": 0, "tensor_core": 0,
-                         "fma": expect["flash_attention"] * iterations}, (label, fa_by)
-        n_rms = expect["rmsnorm"] * iterations
-        assert rms_by == {"warp": 0, "block": n_rms, "slots": n_rms}, (label, rms_by)
-        assert not any(gmm_by.values()) and not any(scan_by.values()), (label, gmm_by, scan_by)
+            f"{rms_by}, gmm by kernel {gmm_by}, scan by kernel {scan_by}; per step of the "
+            f"bucket {ex}")
+        hold_bucket_counts(label, (launches, fa_by, gmm_by, rms_by, scan_by), iterations, ex,
+                           seq)
         wall = res.wall_time
-        row = {"search": label, "arch": rcfg.name, "trials": w0, "slots": res.n_nodes,
+        row = {"search": label, "arch": rc.name, "trials": w0, "slots": res.n_nodes,
                "buckets": len(buckets), "phases": phases, "steps_per_phase": steps,
                "batch": batch, "seq": seq, "wall_s": wall, "run_s": run_s,
                "bucket_steps": iterations, "trial_steps": res.updates,
@@ -1202,7 +1252,7 @@ def population_lm_phase(dev, smi, zero_counts, all_counts, phase_done):
                "expected_alpha": expected_alpha(SEARCH_R, phases),
                "by_status": summary["by_status"], "best_metric": summary["best_metric"],
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-               "launches_per_bucket_step": expect}
+               "launches_per_bucket_step": ex}
         if profiled:
             kern = device_kernels(prof, skip_lead_in=True)
             busy_ms = sum(a.self_device_time_total for a in kern) / 1e3
@@ -1215,7 +1265,7 @@ def population_lm_phase(dev, smi, zero_counts, all_counts, phase_done):
                 log(f"[profile]   {a.self_device_time_total / 1e3:9.3f} ms {a.count:7d}x "
                     f"{a.key[:90]}")
         log(f"[population-lm] {smi}: " + json.dumps(row))
-        return (launches, expect, iterations, fa_by, gmm_by, rms_by, scan_by), row, res
+        return (launches, ex, iterations, fa_by, gmm_by, rms_by, scan_by), row, res
 
     # 9a: the CLI's vectorized LM search at its defaults
     path, out["9a"], res_9a = lm_search(
@@ -1263,10 +1313,63 @@ def population_lm_phase(dev, smi, zero_counts, all_counts, phase_done):
     # slot's generator is seeded by trial_seed, in this process)
     hps = pc.SLOT_HPARAMS
 
-    def lm_engine(n, device, init_device=None):
+    def lm_engine(n, device, init_device=None, arch=YI):
         return PopulationEngine(
-            LMObjective(YI, device=device, init_device=init_device), max_slots=n,
+            LMObjective(arch, device=device, init_device=init_device), max_slots=n,
             episodes_per_phase=10 ** 9, max_updates=10 ** 9, seed=0, device=device)
+
+    def card_against_cpu(label, arch):
+        """Two steps of a bucket of ``hps`` on the card and on the CPU from
+        one CPU draw of the weights and of the data: each slot's summed loss
+        within TRAIN_ATOL + TRAIN_RTOL |cpu|. The second step's loss is
+        taken on the weights the first update made, so it holds the
+        backward on the card (the aux gradient, the scan's and gmm's
+        recomputed backwards) against the CPU's. A ``TorchFunctionMode``
+        sees each router's ``topk`` in the first step (no module is
+        patched): where the model has MoE layers, every token must pick the
+        same experts on both devices; a token that does not is printed with
+        its margin between the k-th and (k+1)-th probability."""
+        from torch.overrides import TorchFunctionMode
+        rc = get_config(arch).reduced()
+        k, n_routers = rc.top_k, sum(f == "moe" for _, f in rc.pattern) * rc.n_repeat
+        sums, routed = {}, {}
+
+        class Watch(TorchFunctionMode):
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                if func is torch.topk:
+                    top = torch.topk(args[0].detach(), k + 1, dim=-1).values
+                    routed[key].append((out.indices.cpu(), (top[..., -2] - top[..., -1]).cpu()))
+                return out
+
+        for d in ("cpu", dev):
+            key = str(d)
+            routed[key] = []
+            e = lm_engine(len(hps), d, init_device="cpu", arch=arch)
+            e._admit_grouped([TrialLease(i, hp) for i, hp in enumerate(hps)], now=0.0)
+            with Watch():
+                e.buckets[POP_LM_SEQ].step()
+            e.buckets[POP_LM_SEQ].step()
+            sums[key] = e.buckets[POP_LM_SEQ].carry[1].cpu()
+        assert len(routed["cpu"]) == len(routed[str(dev)]) == n_routers, (
+            label, arch, len(routed["cpu"]), len(routed[str(dev)]), n_routers)
+        flips = []
+        for (ci, cm), (gi, _) in zip(routed["cpu"], routed[str(dev)]):
+            apart = (ci != gi).any(-1)
+            flips += cm[apart].tolist()
+        card, cpu = sums[str(dev)], sums["cpu"]
+        dev_diff = float((card - cpu).abs().max())
+        row = {"arch": arch, "slots": len(hps), "loss_max_abs_diff": dev_diff,
+               "card": card.tolist(), "cpu": cpu.tolist(), "moe_layers": len(routed["cpu"]),
+               "tokens_routed_apart": len(flips), "their_margins": flips}
+        log(f"[population-lm] {label} two bucket steps of {arch}, card against CPU: summed losses "
+            f"{(-card).tolist()} and {(-cpu).tolist()}, max |card - cpu| {dev_diff:.3e} (limit "
+            f"{TRAIN_ATOL:g} + {TRAIN_RTOL:g} |cpu|); {len(routed['cpu'])} routers, tokens "
+            f"routed apart {len(flips)} (margins {flips})")
+        assert not flips, (label, arch, "tokens routed apart", flips)
+        assert bool(((card - cpu).abs() - TRAIN_RTOL * cpu.abs() <= TRAIN_ATOL).all()), (
+            label, arch, card, cpu)
+        return row
 
     zero_counts()
     slots = pc.slot_rows(0, dev)
@@ -1288,23 +1391,9 @@ def population_lm_phase(dev, smi, zero_counts, all_counts, phase_done):
         f"(limit {pc.MAX_OVER_LR:g}); summed -loss "
         f"{max(r['loss_sum_abs_diff'] for r in slots):.3e}; limits broken {faults}")
     assert not any(faults), ("9c", faults, slots)
-    # one bucket step on the card against the CPU, one CPU draw of the
+    # two bucket steps on the card against the CPU, one CPU draw of the
     # weights and of the data
-    sums = {}
-    for d in ("cpu", dev):
-        e = lm_engine(len(hps), d, init_device="cpu")
-        e._admit_grouped([TrialLease(i, hp) for i, hp in enumerate(hps)], now=0.0)
-        e.buckets[POP_LM_SEQ].step()
-        sums[str(d)] = e.buckets[POP_LM_SEQ].carry[1].cpu()
-    card, cpu = sums[str(dev)], sums["cpu"]
-    dev_diff = float((card - cpu).abs().max())
-    out["9c card vs cpu"] = {"slots": len(hps), "loss_max_abs_diff": dev_diff,
-                             "card": card.tolist(), "cpu": cpu.tolist()}
-    log(f"[population-lm] 9c one bucket step, card against CPU: losses {(-card).tolist()} and "
-        f"{(-cpu).tolist()}, max |card - cpu| {dev_diff:.3e} (limit {TRAIN_ATOL:g} + "
-        f"{TRAIN_RTOL:g} |cpu|)")
-    assert bool(((card - cpu).abs() - TRAIN_RTOL * cpu.abs() <= TRAIN_ATOL).all()), ("9c", card,
-                                                                                    cpu)
+    out["9c card vs cpu"] = card_against_cpu("9c", YI)
     phase_done("9c LM bucket against lone trials, and card against CPU")
 
     # 9d: PBT on the engine through the CLI, GA3C and LM
@@ -1356,6 +1445,72 @@ def population_lm_phase(dev, smi, zero_counts, all_counts, phase_done):
     log(f"[population-lm] 9d one clone on the card under set_sync_debug_mode('error'): "
         f"{len(learner)} learner leaves bit-equal to the parent's, the child's carry kept")
     phase_done("9d PBT on the engine, GA3C and LM, and a clone under the sync check")
+
+    # 9e: 9a's search over jamba's reduced config (a mamba block: the scan's
+    # slot case) and grok-1's (a MoE block: gmm over the slots' (slot,
+    # expert) groups), each held as 9a, then one bucket step on the card
+    # against the CPU
+    tables = {}
+    for arch in BLOCK_ARCHS:
+        label = f"9e {arch}"
+        path, out[label], res = lm_search(
+            f"{label}, vectorized", lambda a=arch: tune.main([*POP_LM_ARGV, "--arch", a]),
+            SEARCH_W0, SEARCH_PHASES, SEARCH_STEPS, POP_LM_BATCH, POP_LM_SEQ, arch=arch)
+        paths[f"search {arch} vectorized"] = path
+        tables[arch] = trial_table(res)
+        out[f"{label} card vs cpu"] = card_against_cpu(label, arch)
+    # jamba's bucket of 4 against the same trials alone (9c's comparison and
+    # limits)
+    zero_counts()
+    slots = pc.slot_rows(0, dev, arch=HYBRID)
+    torch.cuda.synchronize()
+    steps = pc.UPDATES * (1 + len(hps))
+    jexpect = per_forward(get_config(HYBRID).reduced())
+    counts = all_counts()
+    hold_bucket_counts(f"9e {HYBRID} slots", counts, steps, jexpect, POP_LM_SEQ)
+    paths[f"{HYBRID} bucket of {len(hps)} and alone"] = (counts[0], jexpect, steps, *counts[1:])
+    faults = [pc.slot_faults(r) for r in slots]
+    out[f"9e {HYBRID} slots"] = {"slots": len(hps), "updates": pc.UPDATES, "by_slot": slots,
+                                  "faults": faults}
+    v_rel = [f"{r['v_sum_rel_diff']:.1e}" for r in slots]
+    log(f"[population-lm] 9e {HYBRID}: a bucket of {len(hps)} against the same trials alone: "
+        f"summed second moments {v_rel} apart; weights outside "
+        f"{[r['outside_limit'] for r in slots]} of {slots[0]['weights']}, max |bucket - alone| "
+        f"/ lr "
+        f"{[round(r['over_lr'], 4) for r in slots]}; summed -loss "
+        f"{max(r['loss_sum_abs_diff'] for r in slots):.3e}; limits broken {faults}")
+    assert not any(faults), ("9e", HYBRID, faults, slots)
+    # jamba's search on one population worker of 12 slots (a tune
+    # subprocess, as 11a), held to 9e's trials as 11a is held to 9a's
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [*POPW_LM_ARGV, "--arch", HYBRID, "--nodes", "1", "--slots", str(POP_SLOTS)]
+        t0 = time.perf_counter()
+        proc, out_path, jpath = tune_process(argv, tmp, "9e-worker")
+        stdout = finish(proc, "9e worker")
+        run_s = time.perf_counter() - t0
+        summary = json.load(open(out_path))
+        table, _, _ = journal_trials(jpath)
+    label = f"9e {HYBRID}, 1 population worker of {POP_SLOTS} slots"
+    hold_trials(label, table, SEARCH_PHASES, SEARCH_W0)
+    same_configs(label, table, tables[HYBRID])
+    assert summary["by_status"] == out[f"9e {HYBRID}"]["by_status"], (
+        label, summary["by_status"], out[f"9e {HYBRID}"]["by_status"])
+    pairs = both_trained(table, tables[HYBRID])
+    unequal = [(t, ph, a, b) for t, ph, a, b in pairs if a != b]
+    for t, ph, a, b in unequal:
+        log(f"[population-lm] {label} trial {t} phase {ph}: {a!r} against 9e's {b!r}")
+    lines = population_workers(stdout, label, 1, jexpect)
+    wsteps = sum(c["engine_steps"] for c in lines.values())
+    wcounts, _ = worker_counts(stdout, label, 1)
+    paths[f"population worker lm {HYBRID} 1 x {POP_SLOTS}"] = (wcounts[0], jexpect, wsteps,
+                                                              *wcounts[1:])
+    out[label] = {"argv": argv, "wall_s": summary["wall_time"], "run_s": run_s,
+                  "by_status": summary["by_status"], "bucket_steps": wsteps,
+                  "compared_with_9e": len(pairs), "unequal": len(unequal)}
+    log(f"[population-lm] {smi}: {label} " + json.dumps(out[label]))
+    assert not unequal, (label, unequal)
+    phase_done("9e LM searches of jamba and grok-1 on the engine, card against CPU, slots "
+               "against lone trials, and a population worker")
     log("[population-lm] summary " + json.dumps(out))
     return paths, out, trial_table(res_9a)
 
@@ -1459,7 +1614,7 @@ def worker_counts(stdout, label, n_workers):
     by = lambda op, names: {n: tot[(op, f"launches_{n}")] for n in names}  # noqa: E731
     counts = (launches, by("flash_attention", ("split_kv", "tensor_core", "fma")),
               by("gmm", ("tiled", "decode", "small")), by("rmsnorm", ("warp", "block", "slots")),
-              by("selective_scan", ("prefill", "sequential")))
+              by("selective_scan", ("prefill", "sequential", "slots")))
     return counts, (sum(c.get("env_steps", 0) for c in lines),
                     sum(c.get("updates", 0) for c in lines))
 
@@ -1476,8 +1631,8 @@ def hold_lm_counts(label, counts, steps, expect):
         label, fa_by)
     assert rms_by == {"warp": 0, "block": expect["rmsnorm"] * steps, "slots": 0}, (label, rms_by)
     assert gmm_by == {"tiled": 0, "decode": 0, "small": expect["gmm"] * steps}, (label, gmm_by)
-    assert scan_by == {"prefill": expect["selective_scan"] * steps, "sequential": 0}, (
-        label, scan_by)
+    assert scan_by == {"prefill": expect["selective_scan"] * steps, "sequential": 0,
+                       "slots": 0}, (label, scan_by)
     return (launches, expect, steps, fa_by, gmm_by, rms_by, scan_by)
 
 
@@ -1687,15 +1842,15 @@ POPW_BRACKET = dict(spec={"kind": "rl", "game": "pong", "episodes_per_phase": 2,
                     eta=3)
 
 # phase 12: the paper's baselines through the port's Python API. 12a:
-# SyncCluster.run_sh of 6a's configurations over 6a's objective, SH_PHASES
-# phases at SH_EVICT; 12b: of 7a's over 7a's GA3C objective, cut to
+# SyncCluster.run_sh of 6a's configurations over 6a's objective, cut to
+# SH_PHASES phases at SH_EVICT; 12b: of 7a's over 7a's GA3C objective, cut to
 # SH_RL_PHASES phases (5 would add two phases of the slowest survivors to
-# the smoke's time); 12c: EvolutionaryHyperTrick over 6a's objective on 4
+# the smoke's time, each); 12c: EvolutionaryHyperTrick over 6a's objective on 4
 # node threads, its warmup (warmup_frac 0.5: 6 fresh draws) HyperTrick's
 # first draws at seed 0. The counts a run_sh must give, from Python's round
 # (12 at 0.25 keep 9; 9 keep 7; 7 keep 5; 5 keep 4; 4 keep 3), as the
 # reference gives them on the CPU
-SH_PHASES, SH_RL_PHASES, SH_EVICT = 5, 3, 0.25
+SH_PHASES, SH_RL_PHASES, SH_EVICT = 3, 3, 0.25
 SH_PER_PHASE = {5: [12, 9, 7, 5, 4], 3: [12, 9, 7]}
 SH_BY_STATUS = {5: {"killed": 9, "completed": 3}, 3: {"killed": 7, "completed": 5}}
 EVO_PHASES, EVO_WARMUP = 3, 6
@@ -1705,9 +1860,8 @@ PERTURB_FACTORS = (0.5, 0.8, 1.25, 2.0)
 def population_workers(stdout, label, n_workers, slots_expect=None):
     """Each population worker's closing line (``parse_closing_line``), by
     node; with ``slots_expect`` (launches a step of the LM bucket) each
-    worker's counters held at its steps of the bucket x that: every
-    RMSNorm the slot case of the block kernel, every flash call the FMA
-    kernel, no gmm or scan."""
+    worker's counters held at its steps of the bucket x that
+    (``hold_bucket_counts`` at the LM objective's sequence length)."""
     from repro_torch.distributed.worker import parse_closing_line
     lines = {c["node"]: c for c in map(parse_closing_line, stdout.splitlines())
              if c is not None and "reports" in c}
@@ -1717,14 +1871,13 @@ def population_workers(stdout, label, n_workers, slots_expect=None):
         if slots_expect is None:
             assert not any(v for op in la.values() for v in op.values()), (label, node, la)
             continue
-        rms, fa = slots_expect["rmsnorm"] * steps, slots_expect["flash_attention"] * steps
-        assert la["rmsnorm"] == {"launches": rms, "launches_block": rms, "launches_slots": rms,
-                                 "launches_warp": 0}, (label, node, steps, la["rmsnorm"])
-        assert la["flash_attention"] == {"launches": fa, "launches_fma": fa,
-                                         "launches_split_kv": 0, "launches_tensor_core": 0}, (
-            label, node, steps, la["flash_attention"])
-        assert not any(la["gmm"].values()) and not any(la["selective_scan"].values()), (
-            label, node, la)
+        by = lambda op, names: {n: la[op][f"launches_{n}"] for n in names}  # noqa: E731
+        counts = ({op: la[op]["launches"] for op in la},
+                  by("flash_attention", ("split_kv", "tensor_core", "fma")),
+                  by("gmm", ("tiled", "decode", "small")),
+                  by("rmsnorm", ("warp", "block", "slots")),
+                  by("selective_scan", ("prefill", "sequential", "slots")))
+        hold_bucket_counts(f"{label} node {node}", counts, steps, slots_expect, POP_LM_SEQ)
     return lines
 
 
@@ -1761,7 +1914,7 @@ def population_worker_phase(smi, phase_done, beside, table_9a, table_8a, kept):
     from repro_torch.core.search_space import Categorical, LogUniform, SearchSpace
     from repro_torch.launch import population_checks as pc
 
-    expect = lm_expect(get_config(YI).reduced())
+    expect = per_forward(get_config(YI).reduced())
     paths, out = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         # 11a / 11b: 9a's search, held against 9a's trials
@@ -2474,8 +2627,8 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm.rmsnorm import kernel_for as rms_kernel_for
     from repro_torch.kernels.rmsnorm.rmsnorm import launch as rms_launch
     from repro_torch.kernels.rmsnorm.rmsnorm import row_stride
-    from repro_torch.kernels.selective_scan.ops import selective_scan
-    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+    from repro_torch.kernels.selective_scan.ops import selective_scan, selective_scan_slots
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref, selective_scan_slots_ref
     from repro_torch.kernels.selective_scan.selective_scan import kernel_for as scan_kernel_for
     from repro_torch.kernels.selective_scan.selective_scan import launch as scan_launch
     from repro_torch.models.model import init_cache
@@ -2500,6 +2653,7 @@ def main() -> int:
         gmm.launches_tiled = gmm.launches_decode = gmm.launches_small = 0
         rmsnorm.launches_warp = rmsnorm.launches_block = rmsnorm.launches_slots = 0
         selective_scan.launches_prefill = selective_scan.launches_sequential = 0
+        selective_scan.launches_slots = 0
 
     # -- 0. device -----------------------------------------------------------
     smi = subprocess.run(
@@ -2944,7 +3098,8 @@ def main() -> int:
 
     def scan_counts():
         return {"prefill": selective_scan.launches_prefill,
-                "sequential": selective_scan.launches_sequential}
+                "sequential": selective_scan.launches_sequential,
+                "slots": selective_scan.launches_slots}
 
     def scan_case(label, B, S, di, st, dt, model_like=False, strided=False, beside=True):
         """One scan through the dispatch, which must move the counter of
@@ -3087,6 +3242,60 @@ def main() -> int:
                POP_SLOTS * POP_LM_BATCH,
                trial_cfg.n_heads, trial_cfg.n_kv_heads, POP_LM_SEQ, POP_LM_SEQ,
                trial_cfg.head_dim, True, 0, 0.0, torch.float32, 0, want="fma")
+    # the mamba and MoE buckets (phase 9e): the scan's slot case, each
+    # slot's own A and D, at both kernels, and the grouped matmul over the
+    # slots' (slot, expert) groups
+    jrc, grc = get_config(HYBRID).reduced(), get_config(GROK).reduced()
+
+    def scan_slots_inputs(S, B, T, di, st, dt):
+        """The JAX test's distributions, an A and a D a slot; b and c
+        sliced out of one x_proj output, as the mamba block slices them."""
+        a = -td(S, di, st).abs() - 0.05
+        dtv = (td(S * B, T, di).abs() * 0.1 + 0.01).to(dt)
+        bcd = td(S * B, T, jrc.dt_rank + 2 * st, dtype=dt)
+        b, c = bcd[..., jrc.dt_rank:jrc.dt_rank + st], bcd[..., jrc.dt_rank + st:]
+        return (td(S * B, T, di, dtype=dt), dtv, a, b, c, (td(S, di) + 1.0).to(dt),
+                td(S * B, di, st, scale=0.2))
+
+    def scan_slots_case(label, S, B, T, di, st, dt):
+        """The slot case through the dispatch, which must move the counter
+        of ``kernel_for``'s kernel and the slot counter alone; the other
+        kernel's slot case held beside, past the dispatch. Yardsticks as
+        ``scan_case``'s: the f64 plain version for the prefill kernel, the
+        f32 one for the sequential kernel."""
+        args = scan_slots_inputs(S, B, T, di, st, dt)
+        kind, before = scan_kernel_for(args[0]), scan_counts()
+        y, hT = selective_scan_slots(*args)
+        moved = {n: c - before[n] for n, c in scan_counts().items()}
+        assert moved == {n: int(n in (kind, "slots")) for n in moved}, (label, kind, moved)
+        yardstick = {"sequential": selective_scan_slots_ref(*args),
+                     "prefill": selective_scan_slots_ref(*(x.double() for x in args))}
+        other = "sequential" if kind == "prefill" else "prefill"
+        yo, ho = torch.full_like(y, math.nan), torch.full_like(hT, math.nan)
+        scan_launch(other, *args, yo, ho, rows_per_a=B)
+        for name, yk, hk in ((kind, y, hT), (other, yo, ho)):
+            k = (name if name == kind else f"{name}, past the dispatch") + ", a slot's A and D"
+            ry, rh = yardstick[name]
+            e = max(check("selective_scan", f"[{k}] {label} {dt} y", yk, ry, *scan_tol[dt]),
+                    check("selective_scan", f"[{k}] {label} {dt} hT", hk, rh,
+                          *scan_tol[torch.float32]))
+            scan_err_by_kernel[name] = max(scan_err_by_kernel[name], e)
+            scan_err_by_kernel["slots"] = max(scan_err_by_kernel["slots"], e)
+
+    scan_err_by_kernel["slots"] = 0.0
+    jdi, jst = jrc.ssm_d_inner, jrc.ssm_d_state
+    for T in (16, POP_LM_SEQ, 64):      # the sequential kernel, then the prefill kernel
+        scan_slots_case(f"the mamba bucket's {POP_SLOTS} slots x B{POP_LM_BATCH} T{T} di{jdi} "
+                        f"st{jst}", POP_SLOTS, POP_LM_BATCH, T, jdi, jst, torch.float32)
+    # bf16 and a width whose D rows are not 16-byte apart (each kernel
+    # copies a slot's A, h0 and D element by element there)
+    for T in (16, 64):
+        scan_slots_case(f"3 slots x B2 T{T} di130 st{jst}", 3, 2, T, 130, jst, torch.bfloat16)
+    gsizes = slot_routed_sizes(POP_SLOTS, POP_LM_BATCH * POP_LM_SEQ, grc.n_experts, grc.top_k,
+                               seed=3)
+    gmm_case(f"the MoE bucket's {POP_SLOTS} slots x {grc.n_experts} experts, "
+             f"{len(gsizes)} groups, T{sum(gsizes)} {grc.d_model}->{grc.expert_d_ff}", gsizes,
+             grc.d_model, grc.expert_d_ff, torch.float32, grc.d_model ** -0.5, want="small")
 
     phase_done("2 kernels vs plain")
 
@@ -3144,7 +3353,8 @@ def main() -> int:
         # the scan: the prefill kernel at prefill, the sequential one at decode
         n_scan = expect["selective_scan"]
         assert scan_by_kernel == {"prefill": n_scan * steps["prefill"],
-                                  "sequential": n_scan * steps["decode"]}, (scan_by_kernel, steps)
+                                  "sequential": n_scan * steps["decode"], "slots": 0}, (
+            scan_by_kernel, steps)
         log(f"[serve] selective_scan per forward: {n_scan} prefill calls per prefill, "
             f"{n_scan} sequential calls per decode step")
         # bf16 attention: the tensor-core kernel at prefill, split-KV at decode
@@ -3621,6 +3831,67 @@ def main() -> int:
     assert fa_slots["kernel"] == "fma", fa_slots["kernel"]
     log(f"[times] the LM bucket's shapes: rmsnorm slots {json.dumps(rms_slots)}; flash "
         f"{json.dumps(fa_slots)}")
+
+    def scan_slots_times():
+        """The scan's slot case at the mamba bucket's call (phase 9e: 12
+        slots x 2 x 32 steps of jamba reduced, f32, b and c sliced as the
+        block slices them), the other kernel's slot case beside it."""
+        S, B, T = POP_SLOTS, POP_LM_BATCH, POP_LM_SEQ
+        args = scan_slots_inputs(S, B, T, jdi, jst, torch.float32)
+        n = S * B * T * jdi
+        # u, dt, y; the b, c slices; A and D a slot; h0, hT
+        nbytes = 4 * (3 * n + 2 * S * B * T * jst + S * jdi * jst + S * jdi
+                      + 2 * S * B * jdi * jst)
+        b_ms, b_by, b_unit = bound(nbytes, n * (7 * jst + 3), "float32", exps=n * jst)
+        kind = scan_kernel_for(args[0])
+        other = "sequential" if kind == "prefill" else "prefill"
+        y, hT = torch.empty_like(args[0]), torch.empty_like(args[-1])
+        return {"shape": f"{S} slots x B{B} S{T} di{jdi} st{jst} f32, A ({S}, {jdi}, {jst}), "
+                         f"D ({S}, {jdi})", "kernel": f"{kind} (an A and a D a slot)",
+                "ms": device_ms(lambda: selective_scan_slots(*args), flush),
+                "event_ms": cuda_ms(lambda: selective_scan_slots(*args)),
+                f"{other}_kernel_ms": device_ms(
+                    lambda: scan_launch(other, *args, y, hT, rows_per_a=B), flush),
+                "plain_ms": device_ms(lambda: selective_scan_slots_ref(*args), flush,
+                                      iters=5, warmup=1),
+                "library_ms": None, "library_note": "no PyTorch call computes the scan",
+                "bound_ms": b_ms, "bound_by": b_by, "bound_unit": b_unit}
+
+    def gmm_slots_times():
+        """The grouped matmul at the MoE bucket's call (phase 9e: 12 slots x
+        64 tokens x top-2 of grok-1 reduced, f32, over the slots' 48 (slot,
+        expert) groups), with ``torch._grouped_mm`` timed on the same
+        inputs where it takes f32."""
+        x = td(sum(gsizes), grc.d_model)
+        w = td(len(gsizes), grc.d_model, grc.expert_d_ff, scale=grc.d_model ** -0.5)
+        gs = torch.tensor(gsizes, dtype=torch.int32, device=dev)
+        T, D, Fo = x.shape[0], grc.d_model, grc.expert_d_ff
+        active = sum(1 for g in gsizes if g)
+        nbytes = 4 * (T * D + active * D * Fo + T * Fo + len(gsizes))
+        b_ms, b_by, _ = bound(nbytes, 2 * T * D * Fo, "float32")
+        res = {"shape": f"T{T} D{D} F{Fo} E{len(gsizes)} ({POP_SLOTS} slots x "
+                        f"{grc.n_experts} experts, {active} groups with rows) f32",
+               "kernel": gmm_kernel_for(x, w),
+               "ms": device_ms(lambda: gmm(x, w, gs), flush),
+               "event_ms": cuda_ms(lambda: gmm(x, w, gs)),
+               "plain_ms": device_ms(lambda: gmm_ref(x, w, gs), flush, iters=5, warmup=1),
+               "bound_ms": b_ms, "bound_by": b_by}
+        # torch._grouped_mm, a yardstick only: it may refuse f32
+        offs = torch.cumsum(gs, 0, dtype=torch.int32)
+        try:
+            torch._grouped_mm(x, w, offs=offs)
+        except RuntimeError as exc:
+            res.update(library_ms=None, library_note=f"none: f32 ({str(exc)[:160]})")
+        else:
+            res["library_ms"] = device_ms(lambda: torch._grouped_mm(x, w, offs=offs), flush)
+        return res
+
+    scan_slots = scan_slots_times()
+    gmm_slots = gmm_slots_times()
+    assert scan_slots["kernel"].startswith("prefill") and gmm_slots["kernel"] == "small", (
+        scan_slots["kernel"], gmm_slots["kernel"])
+    log(f"[times] the mamba and MoE buckets' shapes: scan slots {json.dumps(scan_slots)}; gmm "
+        f"over slot x expert groups {json.dumps(gmm_slots)}")
     log(f"[profile] phase 4's profiler sessions: {SESSIONS}")
     phase_done("4 times")
 
@@ -3762,7 +4033,8 @@ def main() -> int:
                          "fma": 0}
         assert by[1] == {"tiled": expect["gmm"] * TRAIN_STEPS, "decode": 0, "small": 0}
         assert by[2] == {"warp": expect["rmsnorm"] * TRAIN_STEPS, "block": 0, "slots": 0}
-        assert by[3] == {"prefill": expect["selective_scan"] * TRAIN_STEPS, "sequential": 0}
+        assert by[3] == {"prefill": expect["selective_scan"] * TRAIN_STEPS, "sequential": 0,
+                         "slots": 0}
         log(f"[train] {tcfg.name} per step: {expect} kernel launches, all in the forward")
         step_ms = [s.elapsed_time(e) for s, e in events]
         med = float(np.median(step_ms[2:]))
@@ -3904,8 +4176,9 @@ def main() -> int:
     # same configurations by trial id (one numpy stream), and every (trial,
     # phase) both trained within SEARCH_NODES_ATOL
     path, searches["6b"], res_1 = search(
-        f"6b {YI}, 1 node", ["--objective", "lm", "--nodes", "1"], YI, SEARCH_W0, SEARCH_PHASES,
-        SEARCH_STEPS, profiled=True, bar=True)
+        f"6b {YI}, 1 node", ["--objective", "lm", "--nodes", "1", "--phases",
+                             str(SEARCH_PROFILED_PHASES)], YI, SEARCH_W0,
+        SEARCH_PROFILED_PHASES, SEARCH_STEPS, profiled=True, bar=True)
     paths[f"search {YI} 1 node"] = path
     t4, t1 = trial_table(res_4), trial_table(res_1)
     assert [t4[i][0] for i in sorted(t4)] == [t1[i][0] for i in sorted(t1)], "configs differ"
@@ -4043,10 +4316,11 @@ def main() -> int:
             ("gmm", "src/repro_torch/kernels/csrc/gmm_prefill.cu",
              "src/repro/kernels/gmm/gmm.py:28", gmm_prefill, gmm_more["decode"],
              {**{k: v for k, v in gmm_more.items() if k != "decode"}, "grok": gmm_grok,
-              "kimi": gmm_kimi}),
+              "kimi": gmm_kimi, "slots": gmm_slots}),
             ("selective_scan", "src/repro_torch/kernels/csrc/scan_prefill.cu",
              "src/repro/kernels/selective_scan/selective_scan.py:51", scan_prefill,
-             scan_decode, {"edge": scan_edge, "jax_draws": scan_jax_draws})]:
+             scan_decode, {"edge": scan_edge, "jax_draws": scan_jax_draws,
+                           "slots": scan_slots})]:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(p[0][name] for p in paths.values()),
@@ -4065,7 +4339,7 @@ def main() -> int:
         if name == "selective_scan":
             kernels[-1]["sources"] = ["src/repro_torch/kernels/csrc/scan_prefill.cu",
                                       "src/repro_torch/kernels/csrc/selective_scan.cu"]
-            for served in ("prefill", "sequential"):
+            for served in ("prefill", "sequential", "slots"):
                 kernels[-1][f"launches_{served}"] = sum(p[6][served] for p in paths.values())
                 kernels[-1][f"launches_{served}_by_path"] = {k: p[6][served]
                                                              for k, p in paths.items()}

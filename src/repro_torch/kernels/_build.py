@@ -81,9 +81,10 @@ SIGNATURES = {
         _P, _P,                             # y, hT
         _I, _I, _I, _I,                     # B, S, di, st
         _LL, _LL, _LL, _LL,                 # b strides (batch, seq), c strides
+        _LL,                                # batch rows a row of A and d_skip (0: one)
         _I, _P],                            # dtype, stream
     "selective_scan_prefill_launch": [      # as selective_scan_launch
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _I, _P],
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _I, _P],
     "selective_scan_prefill_attrs": [_I, _IP],   # dtype, int[4] as flash_prefill_attrs
     "gmm_launch": [_P, _P, _P, _P,          # x, w, group_sizes, out
                    _I, _I, _I, _I, _I, _P],  # T, D, F, E, dtype, stream

@@ -57,7 +57,10 @@
 // Layouts as csrc/selective_scan.cu: u, dt, y (B, S, di) contiguous; A (di,
 // st) f32 contiguous; b, c (B, S, st) with any batch/seq strides and the last
 // dim contiguous; d_skip (di,); h0, hT (B, di, st) f32 contiguous. u, dt, b,
-// c, d_skip and y share one dtype; 1 <= st <= 16.
+// c, d_skip and y share one dtype; 1 <= st <= 16. The slot case (rows_per_a
+// > 0) as csrc/selective_scan.cu's: A (B / rows_per_a, di, st) and d_skip
+// (B / rows_per_a, di), batch row b reading row b / rows_per_a of each; an
+// item loads its batch row's trial's rows at its first tile.
 #include <atomic>
 
 #include "common.cuh"
@@ -155,6 +158,7 @@ struct Args {
   float* hT;
   int B, S, di, st, lr;
   long long b_sb, b_ss, c_sb, c_ss;
+  long long rows_per_a;   // 0: one A and D; else batch rows a row of A and D
   bool vec_u;       // u, dt, y rows copied 16 bytes at a time
   bool vec_bc;      // b, c rows copied 16 bytes at a time
   bool vec_state;   // h0, A and D copied 16 bytes at a time
@@ -217,9 +221,10 @@ __device__ void load_tile(unsigned char* stage, const Args& p, int bat, int d0, 
   }
   if (t0 != 0) return;
   const int nch = min(kChannels, p.di - d0), nf = nch * p.st;
+  const long long slot = p.rows_per_a ? bat / p.rows_per_a : 0;   // the row's trial
   const float* h0 = p.h0 + ((long long)bat * p.di + d0) * p.st;
-  const float* A = p.A + (long long)d0 * p.st;
-  const T* dsk = static_cast<const T*>(p.dskip) + d0;
+  const float* A = p.A + (slot * p.di + d0) * p.st;
+  const T* dsk = static_cast<const T*>(p.dskip) + slot * p.di + d0;
   float* sh0 = reinterpret_cast<float*>(stage + St::kH0Off);
   float* sA = reinterpret_cast<float*>(stage + St::kAOff);
   T* sD = reinterpret_cast<T*>(stage + St::kDOff);
@@ -456,8 +461,10 @@ cudaError_t launch(Args p, cudaStream_t stream) {
   p.vec_bc = p.st % V == 0 && (p.b_sb * E) % 16 == 0 && (p.b_ss * E) % 16 == 0 &&
              (p.c_sb * E) % 16 == 0 && (p.c_ss * E) % 16 == 0 && aligned16(p.b) &&
              aligned16(p.c);
+  // a trial's A rows start di * st floats apart and its D row di elements
+  // apart: 16-byte pieces need both to keep the base's alignment
   p.vec_state = (long long)p.di * p.st % 4 == 0 && aligned16(p.h0) && aligned16(p.A) &&
-                aligned16(p.dskip);
+                aligned16(p.dskip) && (p.rows_per_a == 0 || p.di * E % 16 == 0);
   auto kern = scan_prefill_kernel<T>;
   constexpr int smem = (int)smem_bytes<T>();
   // blocks one wave holds, read once a device (0: not yet)
@@ -490,11 +497,12 @@ extern "C" int selective_scan_prefill_launch(
     const void* u, const void* dt, const void* A, const void* b, const void* c,
     const void* dskip, const void* h0, void* y, void* hT, int B, int S, int di,
     int st, long long b_sb, long long b_ss, long long c_sb, long long c_ss,
-    int dtype, void* stream) {
+    long long rows_per_a, int dtype, void* stream) {
   if (st < 1 || st > kMaxState || S < 1) return cudaErrorInvalidValue;
+  if (rows_per_a < 0 || (rows_per_a && B % rows_per_a)) return cudaErrorInvalidValue;
   if (B == 0 || di == 0) return 0;
   Args p{u, dt, static_cast<const float*>(A), b, c, dskip, static_cast<const float*>(h0),
-         y, static_cast<float*>(hT), B, S, di, st, 0, b_sb, b_ss, c_sb, c_ss,
+         y, static_cast<float*>(hT), B, S, di, st, 0, b_sb, b_ss, c_sb, c_ss, rows_per_a,
          false, false, false};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32) return launch<float>(p, s);

@@ -24,6 +24,12 @@
 // d_skip (di,); h0, hT (B, di, st) f32 contiguous. u, dt, b, c, d_skip and y
 // share one dtype. st <= 16: states past st are padded with zeros (A = 0,
 // b = c = h = 0), which keeps them zero and out of y.
+//
+// The slot case (rows_per_a > 0), the population engine's: A is (B /
+// rows_per_a, di, st) and d_skip (B / rows_per_a, di), contiguous, and batch
+// row b reads row b / rows_per_a of each (its trial's own), as the TPU
+// kernel does under jax.vmap over a population's slots. rows_per_a = 0 is
+// the one (di, st) A and (di,) d_skip above.
 #include "common.cuh"
 
 namespace {
@@ -38,7 +44,8 @@ scan_kernel(const T* __restrict__ u, const T* __restrict__ dt,
             const T* __restrict__ cm, const T* __restrict__ dskip,
             const float* __restrict__ h0, T* __restrict__ y,
             float* __restrict__ hT, int S, int di, int st,
-            long long b_sb, long long b_ss, long long c_sb, long long c_ss) {
+            long long b_sb, long long b_ss, long long c_sb, long long c_ss,
+            long long rows_per_a) {
   __shared__ float us[kChunk][kThreads];
   __shared__ float dts[kChunk][kThreads];
   __shared__ float bs[kChunk][ST];
@@ -49,6 +56,11 @@ scan_kernel(const T* __restrict__ u, const T* __restrict__ dt,
   const int d = blockIdx.x * kThreads + tid;
   const bool active = d < di;
 
+  if (rows_per_a) {               // this row's trial's A and D
+    const long long slot = b / rows_per_a;
+    A += slot * di * st;
+    dskip += slot * di;
+  }
   float a[ST], h[ST];
   const long long hoff = ((long long)b * di + d) * st;
 #pragma unroll
@@ -106,14 +118,14 @@ template <typename T, int ST>
 cudaError_t launch(const void* u, const void* dt, const float* A, const void* b,
                    const void* c, const void* dskip, const float* h0, void* y,
                    float* hT, int B, int S, int di, int st, long long b_sb,
-                   long long b_ss, long long c_sb, long long c_ss,
+                   long long b_ss, long long c_sb, long long c_ss, long long rpa,
                    cudaStream_t stream) {
   dim3 grid((di + kThreads - 1) / kThreads, B);
   scan_kernel<T, ST><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(u), static_cast<const T*>(dt), A,
       static_cast<const T*>(b), static_cast<const T*>(c),
       static_cast<const T*>(dskip), h0, static_cast<T*>(y), hT, S, di, st,
-      b_sb, b_ss, c_sb, c_ss);
+      b_sb, b_ss, c_sb, c_ss, rpa);
   return cudaGetLastError();
 }
 
@@ -121,33 +133,41 @@ template <typename T>
 cudaError_t launch_st(const void* u, const void* dt, const float* A, const void* b,
                       const void* c, const void* dskip, const float* h0, void* y,
                       float* hT, int B, int S, int di, int st, long long b_sb,
-                      long long b_ss, long long c_sb, long long c_ss,
+                      long long b_ss, long long c_sb, long long c_ss, long long rpa,
                       cudaStream_t s) {
   if (st <= 4)
-    return launch<T, 4>(u, dt, A, b, c, dskip, h0, y, hT, B, S, di, st, b_sb, b_ss, c_sb, c_ss, s);
+    return launch<T, 4>(u, dt, A, b, c, dskip, h0, y, hT, B, S, di, st, b_sb, b_ss, c_sb, c_ss,
+                        rpa, s);
   if (st <= 8)
-    return launch<T, 8>(u, dt, A, b, c, dskip, h0, y, hT, B, S, di, st, b_sb, b_ss, c_sb, c_ss, s);
-  return launch<T, 16>(u, dt, A, b, c, dskip, h0, y, hT, B, S, di, st, b_sb, b_ss, c_sb, c_ss, s);
+    return launch<T, 8>(u, dt, A, b, c, dskip, h0, y, hT, B, S, di, st, b_sb, b_ss, c_sb, c_ss,
+                        rpa, s);
+  return launch<T, 16>(u, dt, A, b, c, dskip, h0, y, hT, B, S, di, st, b_sb, b_ss, c_sb, c_ss,
+                       rpa, s);
 }
 
 }  // namespace
 
-// Strides of b and c are in elements. dtype: ReproDtype of u, dt, b, c,
-// d_skip and y. 1 <= st <= 16.
+// Strides of b and c are in elements. rows_per_a: 0, or the batch rows
+// that share each row of a (B / rows_per_a, di, st) A and (B / rows_per_a,
+// di) d_skip (B a multiple of it). dtype: ReproDtype of u, dt, b, c, d_skip
+// and y. 1 <= st <= 16.
 extern "C" int selective_scan_launch(
     const void* u, const void* dt, const void* A, const void* b, const void* c,
     const void* dskip, const void* h0, void* y, void* hT, int B, int S, int di,
     int st, long long b_sb, long long b_ss, long long c_sb, long long c_ss,
-    int dtype, void* stream) {
+    long long rows_per_a, int dtype, void* stream) {
   if (st < 1 || st > 16) return cudaErrorInvalidValue;
+  if (rows_per_a < 0 || (rows_per_a && B % rows_per_a)) return cudaErrorInvalidValue;
   if (B == 0 || di == 0) return 0;
   const float* Af = static_cast<const float*>(A);
   const float* h0f = static_cast<const float*>(h0);
   float* hTf = static_cast<float*>(hT);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return launch_st<float>(u, dt, Af, b, c, dskip, h0f, y, hTf, B, S, di, st, b_sb, b_ss, c_sb, c_ss, s);
+    return launch_st<float>(u, dt, Af, b, c, dskip, h0f, y, hTf, B, S, di, st, b_sb, b_ss,
+                            c_sb, c_ss, rows_per_a, s);
   if (dtype == kBFloat16)
-    return launch_st<__nv_bfloat16>(u, dt, Af, b, c, dskip, h0f, y, hTf, B, S, di, st, b_sb, b_ss, c_sb, c_ss, s);
+    return launch_st<__nv_bfloat16>(u, dt, Af, b, c, dskip, h0f, y, hTf, B, S, di, st, b_sb,
+                                    b_ss, c_sb, c_ss, rows_per_a, s);
   return cudaErrorInvalidValue;
 }

@@ -10,6 +10,23 @@ def selective_scan_ref(u, dt, a, b, c, d_skip, h0):
     that ``chip_smoke.py`` and the card's tests hold the prefill kernel to);
     returns y (B, S, di) in u's dtype and hT (B, di, st) in the state's.
     """
+    return _scan(u, dt, a, b, c, d_skip, h0)
+
+
+def selective_scan_slots_ref(u, dt, a, b, c, d_skip, h0):
+    """``selective_scan_ref`` of S trials at once, the reference's scan under
+    ``jax.vmap`` over a population's slots: u, dt (S*B, T, di), b, c (S*B, T,
+    st), h0 (S*B, di, st), each group of B consecutive rows one slot's; a
+    (S, di, st) f32 and d_skip (S, di), one row a slot. Returns y (S*B, T,
+    di) and hT (S*B, di, st), as ``selective_scan_ref``."""
+    rows = u.shape[0] // a.shape[0]
+    return _scan(u, dt, a.repeat_interleave(rows, 0), b, c,
+                 d_skip.repeat_interleave(rows, 0)[:, None], h0)
+
+
+def _scan(u, dt, a, b, c, d_skip, h0):
+    """The recurrence, with ``a`` broadcasting against (B, di, st) and
+    ``d_skip`` against (B, S, di)."""
     ct = torch.float64 if u.dtype == torch.float64 else torch.float32
     uf, dtf, bf, cf = u.to(ct), dt.to(ct), b.to(ct), c.to(ct)
     a, h = a.to(ct), h0.to(ct)

@@ -6,6 +6,10 @@
   # the same with the slots coupled on purpose: what a fault reads
   PYTHONPATH=src python -m repro_torch.launch.population_checks slots --seeds 5 \\
       --control global_clip
+  # the same comparison over another model's reduced config (default yi-9b):
+  # a mamba block's scan or a MoE block's grouped matmuls on the slot axis
+  PYTHONPATH=src python -m repro_torch.launch.population_checks slots --seeds 3 \\
+      --arch jamba-v0.1-52b
 
   # PBT runs of the vectorized CLI at seeds 0-11: how many CLONE verdicts
   # each issued and how many it copied slot to slot on the device
@@ -37,9 +41,10 @@ import json
 # moves a weight by lr m / (sqrt(v) + 1e-8), so a gradient within a few
 # 1e-8 of 0 carries its rounding (cuBLAS picks its kernels by the batch of
 # slots) into a step of up to about lr. So at most OUTLIERS of a slot's
-# 852,736 weights may lie outside ATOL + RTOL |alone| (the smoke's training
-# limits) and none farther than MAX_OVER_LR x its lr; each slot's summed
-# -loss within RTOL |alone| + UPDATES x ATOL (UPDATES steps' limits).
+# weights (852,736 in yi-9b's reduced config, 1,663,744 in jamba's) may lie
+# outside ATOL + RTOL |alone| (the smoke's training limits) and none
+# farther than MAX_OVER_LR x its lr; each slot's summed -loss within RTOL
+# |alone| + UPDATES x ATOL (UPDATES steps' limits).
 # ``slots --control`` couples the bucket's slots on purpose, to read what a
 # fault shows beside the limits (PERF.md)
 SLOT_HPARAMS = [dict(learning_rate=lr, loss_chunk=1024, grad_clip=c, warmup_steps=w)
@@ -85,16 +90,16 @@ def coupled(control):
         lm.apply_updates_slots = update
 
 
-def slot_rows(seed: int, device, control=None) -> list:
-    """Engine seed ``seed``: the SLOT_HPARAMS trials in one bucket and each
-    alone, UPDATES updates; a row a slot with its readings beside 9c's
-    limits."""
+def slot_rows(seed: int, device, control=None, arch: str = "yi-9b") -> list:
+    """Engine seed ``seed``: the SLOT_HPARAMS trials of ``arch``'s reduced
+    LM in one bucket and each alone, UPDATES updates; a row a slot with its
+    readings beside 9c's limits."""
     import torch
     from repro_torch.population.engine import PopulationEngine, TrialLease
     from repro_torch.population.objectives.lm import LMObjective
 
     def bucket(hps):
-        engine = PopulationEngine(LMObjective("yi-9b", device=device), max_slots=len(hps),
+        engine = PopulationEngine(LMObjective(arch, device=device), max_slots=len(hps),
                                   episodes_per_phase=10 ** 9, max_updates=10 ** 9, seed=seed,
                                   device=device)
         engine._admit_grouped([TrialLease(i, hp) for i, hp in hps], now=0.0)
@@ -118,7 +123,7 @@ def slot_rows(seed: int, device, control=None) -> list:
         v_alone = sum(float(a.double().sum()) for a in b.learner[1].acc2.values())
         x, y = float(together.carry[1][i]), float(b.carry[1][0])
         lr = SLOT_HPARAMS[i]["learning_rate"]
-        rows.append({"seed": seed, "slot": i, "control": control, "lr": lr,
+        rows.append({"seed": seed, "slot": i, "arch": arch, "control": control, "lr": lr,
                      "weights": diff.numel(), "over_lr": float(diff.max()) / lr,
                      "outside_limit": int((diff > ATOL + RTOL * mag).sum()),
                      "v_sum_rel_diff": abs(v - v_alone) / v_alone,
@@ -155,12 +160,14 @@ def main(argv=None):
     ap.add_argument("--objective", choices=["rl", "lm"], default="rl")
     ap.add_argument("--seeds", type=int, default=10)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--arch", default="yi-9b",
+                    help="slots: the reduced LM whose trials the bucket trains")
     ap.add_argument("--control", choices=["global_clip", "slot_mean"], default=None,
                     help="slots: couple the bucket's slots on purpose")
     args = ap.parse_args(argv)
     rows = []
     for seed in range(args.seeds):
-        new = (slot_rows(seed, args.device, args.control) if args.check == "slots"
+        new = (slot_rows(seed, args.device, args.control, args.arch) if args.check == "slots"
                else [pbt_row(args.objective, seed, args.device)])
         for row in new:
             print(json.dumps(row), flush=True)
@@ -168,7 +175,7 @@ def main(argv=None):
     if args.check == "slots":
         by_seed = [[r for r in rows if r["seed"] == seed] for seed in range(args.seeds)]
         worst = [{k: max(r[k] for r in seed_rows) for k in READINGS} for seed_rows in by_seed]
-        last = {"control": args.control,
+        last = {"arch": args.arch, "control": args.control,
                 "max": {k: max(w[k] for w in worst) for k in READINGS},
                 "least_seed_max": {k: min(w[k] for w in worst) for k in READINGS},
                 "seeds_failing": sum(any(map(slot_faults, seed_rows)) for seed_rows in by_seed),

@@ -10,7 +10,7 @@ the cache), 'decode' (one token against the cache).
 ``forward_slots`` is the train forward of S trials at once, each with its
 own weights on a leading slot axis: the reference's ``forward`` under
 ``jax.vmap`` over a population's slots (``population/objectives/lm.py``),
-for the attention and MLP blocks.
+for the attention, mamba, MLP and MoE blocks, with each slot's aux loss.
 """
 from __future__ import annotations
 
@@ -25,8 +25,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import (attn_block, attn_block_slots, mlp_block,
                                       mlp_block_slots, norm)
-from repro_torch.models.moe import moe_block
-from repro_torch.models.ssm import mamba_block
+from repro_torch.models.moe import moe_block, moe_block_slots
+from repro_torch.models.ssm import mamba_block, mamba_block_slots
 
 INVALID_POS = 2 ** 30       # kpos of a cache slot that holds no key
 
@@ -122,25 +122,20 @@ def forward(cfg: ModelConfig, params, batch: dict, *, mode: str = "train",
             x, auxes = checkpoint(body, x, use_reentrant=False,
                                   context_fn=partial(create_selective_checkpoint_contexts,
                                                      _save_dots))
-        if aux is not None and auxes:
-            part = auxes[0]         # a repetition's sum, then the total: the reference's order
-            for a in auxes[1:]:
-                part = part + a
-            aux = aux + part
+        if aux is not None:
+            aux = _add_aux(aux, auxes)
     return x, cache, aux
 
 
-SLOTS_ITEM = ("ROADMAP queue 1 item 7a-1, third part: MoE and mamba blocks on the slot "
-              "axis")
-
-
-def check_slot_blocks(cfg: ModelConfig) -> None:
-    """Raise unless every block of ``cfg`` has a slot form: attention
-    mixers and MLP ffns."""
-    for mixer, ffn in cfg.pattern:
-        if not mixer.startswith("attn") or ffn not in ("mlp", None):
-            raise NotImplementedError(
-                f"{cfg.name}: block ({mixer}, {ffn}) has no slot form: {SLOTS_ITEM}")
+def _add_aux(aux, auxes):
+    """``aux`` plus one repetition's MoE aux losses: the repetition's sum
+    first, then the total (the reference's order)."""
+    if not auxes:
+        return aux
+    part = auxes[0]
+    for a in auxes[1:]:
+        part = part + a
+    return aux + part
 
 
 def nest_params(named: dict) -> dict:
@@ -171,19 +166,32 @@ def embed_tokens_slots(cfg: ModelConfig, params, tokens):
 def forward_slots(cfg: ModelConfig, params, tokens):
     """The train forward of S trials: ``params`` nested as ``forward``'s,
     every weight with a leading slot axis; tokens (S, B, T). Returns the
-    hidden (S, B*T, D) before the final norm. Dense blocks only: a mamba or
-    MoE block raises (``check_slot_blocks``)."""
-    check_slot_blocks(cfg)
+    hidden (S, B*T, D) before the final norm and each slot's aux loss (S,)
+    f32: the sum of its MoE layers' load-balance losses in ``forward``'s
+    order, zeros without MoE layers."""
     batch = tokens.shape[1]
     x = embed_tokens_slots(cfg, params, tokens)
     dec = params["dec"]
+    aux = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
     for r in range(cfg.n_repeat):
+        auxes = []
         for i, (mixer, ffn) in enumerate(cfg.pattern):
             p = {n: t[:, r] for n, t in dec[f"b{i}_{mixer}"].items()}
-            x = attn_block_slots(cfg, p, x, batch=batch, window=_mixer_window(cfg, mixer))
+            if mixer.startswith("attn"):
+                x = attn_block_slots(cfg, p, x, batch=batch, window=_mixer_window(cfg, mixer))
+            elif mixer == "mamba":
+                x = mamba_block_slots(cfg, p, x, batch=batch)
+            else:
+                raise NotImplementedError(f"mixer {mixer!r} is not ported")
             if ffn == "mlp":
                 x = mlp_block_slots(cfg, {n: t[:, r] for n, t in dec[f"b{i}_mlp"].items()}, x)
-    return x
+            elif ffn == "moe":
+                x, a = moe_block_slots(cfg, {n: t[:, r] for n, t in dec[f"b{i}_moe"].items()}, x)
+                auxes.append(a)
+            elif ffn:
+                raise NotImplementedError(f"ffn {ffn!r} is not ported")
+        aux = _add_aux(aux, auxes)
+    return x, aux
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *,

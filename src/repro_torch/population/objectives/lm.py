@@ -7,9 +7,14 @@ as ``(S,)`` tensors into one AdamW update of every slot of a bucket over a
 (``models.model.forward_slots``), one loss (``train.steps.lm_loss_slots``:
 each slot's own mean, summed, so each slot gets its own gradient) and one
 ``optim.apply_updates_slots`` (each slot clipped by its own norm, warmed up
-and bias-corrected at its own step). On the card the slots' RMSNorms are
-the kernel's slot case (one scale row a slot) and their attention one
-flash call over every slot's sequences.
+and bias-corrected at its own step). Each slot's gradient is that of its
+loss plus its MoE aux loss (zero without MoE layers), as the reference's
+``loss_fn`` returns ``loss + aux``; its metric stays ``-loss``. On the card
+the slots' RMSNorms are the kernel's slot case (one scale row a slot),
+their attention one flash call over every slot's sequences, a mamba
+block's scan one call of the scan kernel's slot case (each slot's own A and
+D) and a MoE block's three expert products one grouped matmul each over
+the slots' (slot, expert) groups.
 
 * traced:      ``learning_rate``, ``grad_clip``, ``warmup_steps``;
 * structural:  ``loss_chunk``: the bucket key is the *effective* chunk
@@ -44,7 +49,7 @@ import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.model import check_slot_blocks, forward_slots, nest_params
+from repro_torch.models.model import forward_slots, nest_params
 from repro_torch.models.schema import init_params
 from repro_torch.optim.optimizers import apply_updates_slots, init_opt_state
 from repro_torch.population.objectives import LM_SPEC, HparamSpec, PopulationObjective
@@ -90,7 +95,6 @@ class LMObjective(PopulationObjective):
         self.device = resolve_device(device)
         self.init_device = self.device if init_device is None else resolve_device(init_device)
         self.cfg = get_config(arch).reduced()
-        check_slot_blocks(self.cfg)
         # lr / clip / warmup are each slot's own inside the step; the config
         # values are only the (unused) defaults
         self.tc = TrainConfig(optimizer="adamw")
@@ -128,9 +132,9 @@ class LMObjective(PopulationObjective):
             # update writes them in place
             trainable = {k: v.detach().requires_grad_() for k, v in params.items()}
             tree = nest_params(trainable)
-            hidden = forward_slots(cfg, tree, chain[..., :-1])
+            hidden, aux = forward_slots(cfg, tree, chain[..., :-1])
             loss = lm_loss_slots(cfg, tree, hidden, chain[..., 1:], chunk)
-            grads = torch.autograd.grad(loss.sum(), list(trainable.values()))
+            grads = torch.autograd.grad((loss + aux).sum(), list(trainable.values()))
             _, opt, _ = apply_updates_slots(tc, trainable, dict(zip(trainable, grads)), opt, lr,
                                             grad_clip=grad_clip, warmup_steps=warmup_steps)
             return (params, opt), (n + 1, loss_sum - loss.detach(), gens)

@@ -17,9 +17,9 @@ strictly-local effect as a whole-worker death in the scalar protocol.
 
 The device (``--device``, default ``cuda``) and the objective are built
 before the worker connects: a worker asked for ``cuda`` on a host without
-a card exits 1 having leased nothing, and an architecture with no slot
-form (MoE or mamba blocks) raises ``models.model.check_slot_blocks``'s
-error. The closing line keeps the reference's words and adds, as one JSON
+a card exits 1 having leased nothing. ``--objective lm`` takes the
+registry's language models: their attention, mamba, MLP and MoE blocks all
+have a slot form (``models.model.forward_slots``). The closing line keeps the reference's words and adds, as one JSON
 object, this process's kernel launch counters and the engine's env steps,
 updates and loop steps (``closing_line``; read back by
 ``distributed.worker.parse_closing_line``).

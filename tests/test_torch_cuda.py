@@ -965,3 +965,77 @@ def test_lm_bucket_step_on_card_matches_cpu(cuda):
         assert moved == ((0, 0, 0) if dev == "cpu" else (6, 6, 2)), (dev, moved)
         sums[dev] = bucket.carry[1].cpu().numpy()
     np.testing.assert_allclose(sums["cuda"], sums["cpu"], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("T", [16, 64])
+@pytest.mark.parametrize("dtype,di", [(torch.float32, 512), (torch.bfloat16, 130)])
+def test_selective_scan_slots_kernels_match_plain(cuda, T, dtype, di):
+    """The scan's slot case (an A and a D a slot, ``rows_per_a``) through
+    the dispatch (the sequential kernel below 32 steps, the prefill kernel
+    from them) and the other kernel past it, against
+    ``selective_scan_slots_ref`` (in f64 for the prefill kernel, whose sums
+    run in the associative form's order); d_inner 130 in bf16 puts a slot's
+    D rows off 16 bytes."""
+    from repro_torch.kernels.selective_scan.ops import selective_scan_slots
+    from repro_torch.kernels.selective_scan.ref import selective_scan_slots_ref
+    from repro_torch.kernels.selective_scan.selective_scan import kernel_for, launch
+    rng = np.random.default_rng(16)
+    S, B, st = 3, 2, 8
+    a = -_t(rng, (S, di, st), torch.float32, cuda).abs() - 0.05
+    dt = (_t(rng, (S * B, T, di), torch.float32, cuda).abs() * 0.1 + 0.01).to(dtype)
+    bc = _t(rng, (S * B, T, 2 * st + 8), dtype, cuda)
+    args = (_t(rng, (S * B, T, di), dtype, cuda), dt, a, bc[..., 8:8 + st], bc[..., 8 + st:],
+            (_t(rng, (S, di), torch.float32, cuda) + 1.0).to(dtype),
+            _t(rng, (S * B, di, st), torch.float32, cuda) * 0.2)
+    kind = kernel_for(args[0])
+    before = (selective_scan.launches_slots, getattr(selective_scan, f"launches_{kind}"))
+    y, hT = selective_scan_slots(*args)
+    torch.cuda.synchronize()
+    assert (selective_scan.launches_slots, getattr(selective_scan, f"launches_{kind}")) == (
+        before[0] + 1, before[1] + 1)
+    want = {"sequential": selective_scan_slots_ref(*args),
+            "prefill": selective_scan_slots_ref(*(x.double() for x in args))}
+    other = "sequential" if kind == "prefill" else "prefill"
+    yo, ho = torch.full_like(y, float("nan")), torch.full_like(hT, float("nan"))
+    launch(other, *args, yo, ho, rows_per_a=B)
+    torch.cuda.synchronize()
+    for name, (yk, hk) in ((kind, (y, hT)), (other, (yo, ho))):
+        ry, rh = want[name]
+        atol, rtol = SCAN_TOL[dtype]
+        np.testing.assert_allclose(yk.double().cpu().numpy(), ry.double().cpu().numpy(),
+                                   atol=atol, rtol=rtol, err_msg=name)
+        np.testing.assert_allclose(hk.double().cpu().numpy(), rh.double().cpu().numpy(),
+                                   atol=SCAN_TOL[torch.float32][0], err_msg=name)
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "grok-1-314b"])
+def test_mamba_and_moe_bucket_step_on_card_matches_cpu(cuda, arch):
+    """``test_lm_bucket_step_on_card_matches_cpu`` over jamba's reduced
+    config (a mamba block: one call of the scan's slot case a step) and
+    grok-1's (a MoE block: three small gmm calls over the slots' (slot,
+    expert) groups a step)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.population.engine import PopulationEngine, TrialLease
+    from repro_torch.population.objectives.lm import LMObjective
+    hps = [dict(learning_rate=lr, loss_chunk=1024, grad_clip=c, warmup_steps=w)
+           for lr, c, w in ((1e-3, 1.0, 1), (3e-4, 0.5, 4), (2e-3, 2.0, 2))]
+    rc = get_config(arch).reduced()
+    n_scan = sum(m == "mamba" for m, _ in rc.pattern)
+    n_gmm = 3 * sum(f == "moe" for _, f in rc.pattern)
+    sums = {}
+    for dev in ("cpu", "cuda"):
+        engine = PopulationEngine(LMObjective(arch, device=dev, init_device="cpu"),
+                                  max_slots=3, episodes_per_phase=10 ** 9, max_updates=10 ** 9,
+                                  seed=0, device=dev)
+        engine._admit_grouped([TrialLease(i, dict(hp)) for i, hp in enumerate(hps)], now=0.0)
+        bucket = engine.buckets[32]
+        counts = (selective_scan.launches_slots, selective_scan.launches_prefill,
+                  gmm.launches_small)
+        for _ in range(2):
+            bucket.step()
+        moved = (selective_scan.launches_slots - counts[0],
+                 selective_scan.launches_prefill - counts[1], gmm.launches_small - counts[2])
+        assert moved == ((0, 0, 0) if dev == "cpu" else (2 * n_scan, 2 * n_scan, 2 * n_gmm)), (
+            dev, moved)
+        sums[dev] = bucket.carry[1].cpu().numpy()
+    np.testing.assert_allclose(sums["cuda"], sums["cpu"], rtol=1e-5, atol=1e-5)

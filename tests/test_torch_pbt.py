@@ -330,6 +330,20 @@ def test_population_checks_cli_runs_on_the_cpu():
     assert last["seeds_failing"] == 0 and last["faults"] == [], last
 
 
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "grok-1-314b"])
+def test_population_checks_slots_take_a_mamba_or_moe_arch(arch, capsys):
+    """``population_checks slots --arch``: 9c's bucket against lone trials
+    over a reduced config with a mamba block (the scan's slot case) or a
+    MoE block (gmm over slot x expert groups), within 9c's limits on the
+    CPU."""
+    from repro_torch.launch import population_checks
+    rows = population_checks.main(["slots", "--seeds", "1", "--device", "cpu", "--arch", arch])
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert len(rows) == len(population_checks.SLOT_HPARAMS)
+    assert {r["arch"] for r in rows} == {arch} and last["arch"] == arch
+    assert last["seeds_failing"] == 0 and last["faults"] == [], last
+
+
 @pytest.mark.parametrize("control", ["global_clip", "slot_mean"])
 def test_slot_limits_fail_a_coupled_bucket(control):
     """9c's limits catch a bucket whose slots are tied together: a clip by

@@ -48,13 +48,17 @@ RMS_ATOL = 2e-5
 # one optimizer update of O(1) values in f32 (tests/test_torch_train.py)
 OPT_ATOL = 1e-6
 BATCH, SEQ = 2, 16
-ARCHS = ("yi-9b", "gemma2-2b", "starcoder2-3b")
-# three AdamW steps of the reduced models: the zoo's limits for yi-9b and
-# starcoder2-3b (tests/test_torch_zoo.py), tests/test_torch_train.py's for
-# gemma2-2b; (metrics, weights)
-BUCKET_ATOL = {"yi-9b": (STEP_METRIC_ATOL, STEP_PARAM_ATOL["yi-9b", "reduced"]),
-               "starcoder2-3b": (STEP_METRIC_ATOL, STEP_PARAM_ATOL["starcoder2-3b", "reduced"]),
-               "gemma2-2b": STEP_ATOL["gemma2-2b", "adamw"]}
+# the dense models, jamba's mamba block (pattern (mamba, mlp), (attn, mlp))
+# and the MoE blocks of grok-1 and kimi-k2 (attn, moe: 4 experts, top-2)
+ARCHS = ("yi-9b", "gemma2-2b", "starcoder2-3b", "jamba-v0.1-52b", "grok-1-314b",
+         "kimi-k2-1t-a32b")
+MOE_ARCHS = ("grok-1-314b", "kimi-k2-1t-a32b")
+# three AdamW steps of the reduced models: the zoo's limits for yi-9b,
+# starcoder2-3b, grok-1 and kimi-k2 (tests/test_torch_zoo.py),
+# tests/test_torch_train.py's for gemma2-2b and jamba; (metrics, weights)
+BUCKET_ATOL = {arch: (STEP_METRIC_ATOL, STEP_PARAM_ATOL[arch, "reduced"])
+               for arch in ("yi-9b", "starcoder2-3b", "grok-1-314b", "kimi-k2-1t-a32b")}
+BUCKET_ATOL.update({arch: STEP_ATOL[arch, "adamw"] for arch in ("gemma2-2b", "jamba-v0.1-52b")})
 # two trials of one bucket, every traced value its own
 SLOT_HP = [dict(learning_rate=1e-3, loss_chunk=1024, grad_clip=1.0, warmup_steps=1),
            dict(learning_rate=3e-3, loss_chunk=512, grad_clip=2.0, warmup_steps=3)]
@@ -204,18 +208,9 @@ def _ref_side(arch, clip, masked):
     return obj, hps, learner, carry, lambda lrn, car: bstep(lrn, car, *hyper, active)
 
 
-@pytest.mark.parametrize("case", ["plain", "clipped", "masked"])
-@pytest.mark.parametrize("arch", ARCHS)
-def test_bucket_step_matches_reference(arch, case, monkeypatch):
-    """Three updates of a two-slot bucket (each slot its own lr, clip and
-    warmup) on both sides from the same weights, on the reference's draws:
-    weights, each slot's AdamW moments summed, ``(n, loss_sum)``. Clipped:
-    each slot's clip engages, so its moments carry its own clip scale (a
-    clip by the stack's norm gives others)."""
-    clip, masked = case == "clipped", case == "masked"
-    metric_atol, param_atol = BUCKET_ATOL[arch]
-    ref_obj, hps, learner, carry, ref_step = _ref_side(arch, clip, masked)
-
+def _port_bucket(arch, hps, learner):
+    """The port's two-slot bucket of ``hps`` on the CPU, each slot's weights
+    the reference's ``learner``'s and a fresh AdamW state."""
     obj = lm_objective.LMObjective(arch, batch=BATCH, seq=SEQ, device="cpu")
     engine = PopulationEngine(obj, max_slots=2, episodes_per_phase=10 ** 9,
                               max_updates=10 ** 9, seed=0, device="cpu")
@@ -230,6 +225,23 @@ def test_bucket_step_matches_reference(arch, case, monkeypatch):
         zero = torch.zeros(())
         bucket.write_slot(s, bucket.meta[s], (named, init_opt_state(obj.tc, named)),
                           (zero, zero.clone(), gens[s]), obj.traced_values(hp))
+    return obj, bucket
+
+
+@pytest.mark.parametrize("case", ["plain", "clipped", "masked"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bucket_step_matches_reference(arch, case, monkeypatch):
+    """Three updates of a two-slot bucket (each slot its own lr, clip and
+    warmup) on both sides from the same weights, on the reference's draws:
+    weights, each slot's AdamW moments summed, ``(n, loss_sum)``. Clipped:
+    each slot's clip engages, so its moments carry its own clip scale (a
+    clip by the stack's norm gives others)."""
+    clip, masked = case == "clipped", case == "masked"
+    metric_atol, param_atol = BUCKET_ATOL[arch]
+    ref_obj, hps, learner, carry, ref_step = _ref_side(arch, clip, masked)
+
+    obj, bucket = _port_bucket(arch, hps, learner)
+    gens = bucket.carry[2]
     if masked:
         bucket.park(0)
     frozen = [t[0].clone() if isinstance(t, torch.Tensor) else None for t in bucket.leaves]
@@ -276,6 +288,56 @@ def test_bucket_step_matches_reference(arch, case, monkeypatch):
                 assert torch.equal(after[0], before)
         assert torch.equal(gens[0].get_state(), frozen_gen)
         assert bucket.carry[2][0] is gens[0]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_bucket_routes_as_the_reference_on_the_first_step(arch, monkeypatch):
+    """Every slot's experts (``top_i``) in the first update of a two-slot
+    bucket against the reference's ``forward`` of that slot alone on the same
+    weights and tokens, run eagerly with its router's choices recorded. A
+    token whose choice differs is reported with its margin between the k-th
+    and (k+1)-th probability."""
+    from repro.models import moe as ref_moe
+    from repro.models.model import forward as ref_forward
+    from repro_torch.models import moe
+    _, hps, learner, carry, _ = _ref_side(arch, False, False)
+    obj, bucket = _port_bucket(arch, hps, learner)
+    routed, chains = [], []
+    real_router, real_chain = moe._router, lm_objective.bigram_chain
+
+    def router(cfg, p, x):
+        out = real_router(cfg, p, x)
+        probs = torch.softmax(x.float() @ p["router"].float(), -1)
+        routed.append((out[1], torch.topk(probs, cfg.top_k + 1, dim=-1).values))
+        return out
+
+    def chain(*a):
+        chains.append(real_chain(*a))
+        return chains[-1]
+    draws = [_ref_draws(carry["rng"][s], BATCH, SEQ, obj.cfg.vocab_size)[1:3] for s in range(2)]
+    monkeypatch.setattr(moe, "_router", router)
+    monkeypatch.setattr(lm_objective, "bigram_chain", chain)
+    monkeypatch.setattr(lm_objective, "lm_draws", lambda gen, *a: tuple(
+        torch.from_numpy(x.astype(np.int64)) for x in draws[
+            [id(g) for g in bucket.carry[2]].index(id(gen))]))
+    bucket.step()
+    (top_i, top), = routed
+    ref_routed = []
+    real_ref_router = ref_moe._router
+
+    def ref_router(cfg, p, x):
+        out = real_ref_router(cfg, p, x)
+        ref_routed.append(np.asarray(out[1]))
+        return out
+    monkeypatch.setattr(ref_moe, "_router", ref_router)
+    for s in range(2):
+        params = jax.tree.map(lambda x: x[s], learner[0])
+        with jax.disable_jit():
+            ref_forward(ref_lm.LMObjective(arch).cfg, params,
+                        {"tokens": jnp.asarray(chains[0][s, :, :-1].numpy())}, mode="train")
+        flips = top_i[s].numpy() != ref_routed[-1]
+        margin = (top[s, :, -2] - top[s, :, -1])[torch.from_numpy(flips.any(-1))]
+        assert not flips.any(), (arch, s, margin.tolist())
 
 
 def test_slot_matches_the_same_trial_trained_alone(monkeypatch):
@@ -366,15 +428,6 @@ def test_lm_objective_per_trial_hparams_on_slot_axis():
     assert torch.isfinite(loss_sum).all()
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "grok-1-314b"])
-def test_mamba_and_moe_blocks_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="7a-1, third part"):
-        lm_objective.LMObjective(arch, device="cpu")
-    with pytest.raises(NotImplementedError, match="7a-1, third part"):
-        tune.main(["--backend", "vectorized", "--objective", "lm", "--arch", arch,
-                   "--device", "cpu"])
-
-
 def test_get_objective_builds_the_lm_objective():
     obj = objectives.get_objective("lm", arch="starcoder2-3b", batch=3, seq=8, device="cpu")
     assert isinstance(obj, lm_objective.LMObjective)
@@ -398,6 +451,24 @@ def test_vectorized_lm_hypertrick_end_to_end():
     assert res.updates == 2 * len(res.records)
     assert res.env_steps == res.updates * 2 * 8
     assert all(np.isfinite(r.metric) and r.metric < 0 for r in res.records)
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "grok-1-314b"])
+def test_tune_cli_vectorized_lm_runs_mamba_and_moe_archs_on_the_cpu(arch, monkeypatch, capsys):
+    """The vectorized LM search over a mamba and a MoE model's reduced
+    config: the reference CLI's summary schema, no trial crashed, every
+    metric a finite -loss. (HyperTrick may kill one of the 3: each trial's
+    draws follow the interpreter's salted ``hash``.)"""
+    keys = _reference_summary_keys(monkeypatch, capsys) | {"devices"}
+    res = tune.main(["--backend", "vectorized", "--objective", "lm", "--arch", arch,
+                     "--device", "cpu", "--workers", "3", "--phases", "2",
+                     "--steps-per-phase", "2"])
+    printed = json.loads(capsys.readouterr().out)
+    assert set(printed) == keys
+    assert printed["n_trials"] == 3 and "crashed" not in printed["by_status"]
+    assert sum(printed["by_status"].values()) == 3
+    assert all(np.isfinite(r.metric) and r.metric < 0 for r in res.records)
+    assert res.updates >= 2 * 3 and res.env_steps == res.updates * 2 * 32
 
 
 def test_tune_cli_vectorized_lm_runs_on_the_cpu(monkeypatch, capsys):

@@ -12,6 +12,7 @@ reference's ``RemoteDriver``'s for the same calls. Every wait is bounded:
 a hung worker fails its test instead of stalling the suite."""
 import collections
 import json
+import math
 import socket
 import threading
 import time
@@ -59,6 +60,9 @@ def _lm_space():
     return SearchSpace({"learning_rate": LogUniform(1e-4, 1e-3),
                         "loss_chunk": Categorical((32,)), "grad_clip": Categorical((1.0,)),
                         "warmup_steps": Categorical((1,))})
+
+
+LM_LEASE_TTL = 120.0
 
 
 def _server(policy, lease_ttl=10.0):
@@ -163,6 +167,54 @@ def test_lm_population_worker_drains_search_over_tcp(lose):
     assert len(done) == 3 and sum(t.requeued for t in done) == 1
     (again,) = [t for t in done if t.requeued]
     assert again.hparams == trials[0].hparams and len(again.reports) == 2
+
+
+@pytest.mark.timeout(240)
+def test_moe_lm_population_worker_drains_search_as_the_reference():
+    """tests/test_population.py:265 with grok-1's reduced config (attention
+    and a MoE block of 4 experts, top-2) on both sides: the port's worker
+    agent and engine over the port's server, the reference's over the
+    reference's, the same random search. Both deliver every phase report
+    and complete every trial with the same configurations; each side's
+    metrics are finite -losses (their weights are drawn apart)."""
+    from repro.distributed.server import MetaoptServer as RefServer
+    from repro.population.objectives import get_objective as ref_get_objective
+    from repro.population.worker import PopulationWorkerAgent as RefAgent
+
+    def trials(svc):
+        return sorted((t.trial_id, t.status.value, tuple(sorted(t.hparams.items())),
+                       len(t.reports)) for t in svc.db.trials.values())
+
+    def metrics(svc):       # a report is (metric, time)
+        return [r[0] for t in svc.db.trials.values() for r in t.reports]
+
+    space = ref_space.SearchSpace({
+        "learning_rate": ref_space.LogUniform(1e-4, 1e-3),
+        "loss_chunk": ref_space.Categorical((32,)), "grad_clip": ref_space.Categorical((1.0,)),
+        "warmup_steps": ref_space.Categorical((1,))})
+    ref_svc = ref_service.OptimizationService(ref_hypertrick.RandomSearchPolicy(space, 3, 2,
+                                                                                seed=0))
+    # a lease long enough for either engine's first compile or step of the
+    # MoE model on a loaded host, so that no trial is reissued
+    with RefServer(ref_svc, lease_ttl=LM_LEASE_TTL) as server:
+        engine = ref_engine.PopulationEngine(
+            ref_get_objective("lm", arch="grok-1-314b", batch=2, seq=16), max_slots=3,
+            episodes_per_phase=2, max_updates=10, seed=0)
+        with ref_client.ServiceClient(server.host, server.port) as client:
+            ref_reports = RefAgent(client, engine, heartbeat_interval=0.5).run()
+    server, svc = _server(RandomSearchPolicy(_lm_space(), 3, 2, seed=0), lease_ttl=LM_LEASE_TTL)
+    with server:
+        engine = PopulationEngine(LMObjective("grok-1-314b", batch=2, seq=16, device="cpu"),
+                                  max_slots=3, episodes_per_phase=2, max_updates=10, seed=0,
+                                  device="cpu")
+        with ServiceClient(server.host, server.port) as client:
+            n_reports = PopulationWorkerAgent(client, engine, heartbeat_interval=0.5).run()
+    assert n_reports == ref_reports == 6           # 3 trials x 2 phases
+    assert trials(svc) == trials(ref_svc)
+    assert {t.status.value for t in svc.db.trials.values()} == {"completed"}
+    got = metrics(svc)
+    assert len(got) == 6 and all(math.isfinite(m) and m < 0 for m in got)
+    assert all(math.isfinite(m) and m < 0 for m in metrics(ref_svc))
 
 
 @pytest.mark.timeout(300)
@@ -479,9 +531,10 @@ def test_population_worker_refuses_before_it_connects(monkeypatch, capsys):
     assert pop_worker.main(["--port", str(port), "--slots", "4"]) == 1
     out = capsys.readouterr()
     assert "device 'cuda' requested" in out.err and "cannot reach" not in out.out
-    with pytest.raises(NotImplementedError, match="7a-1, third part"):
-        pop_worker.main(["--port", str(port), "--objective", "lm", "--arch", "grok-1-314b",
-                         "--device", "cpu"])
+    # a MoE arch builds its engine and connects: no server there
+    assert pop_worker.main(["--port", str(port), "--objective", "lm", "--arch", "grok-1-314b",
+                            "--device", "cpu"]) == 1
+    assert "cannot reach server" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="not owed on one card"):
         pop_worker.main(["--port", str(port), "--devices", "2", "--device", "cpu"])
     # a CPU worker does build its engine and connect: no server there
