@@ -9,7 +9,8 @@ Phases, each of which passes or ends the script with a non-zero exit:
      bound);
   1. build: compiles the port's CUDA kernels from the repository's sources;
      prints the registers, local memory (spills) and shared memory of every
-     flash-attention kernel, of the tiled and decode grouped-matmul kernels,
+     flash-attention kernel (3h prints whisper's hd-64 ones again), of
+     the tiled and decode grouped-matmul kernels,
      of the warp-per-row RMSNorm kernel at each width it is built for and
      of the prefill scan kernel, as ``cudaFuncGetAttributes`` reports them
      for the loaded library;
@@ -54,9 +55,17 @@ Phases, each of which passes or ends the script with a non-zero exit:
      f32), RMSNorm in bf16 at 3072 and 7168 on the block kernel, gmm at
      kimi's 384 experts of 7168 -> 2048 and back, at prefill on the tiled
      kernel and at a decode step's 32 rows (most groups empty) on the decode
-     kernel. Where |out| reaches 4: flash at gemma2's, phi3's and kimi's
-     prefill shapes with v ~ N(0, 2^2) clipped to |v| <= 7.9 (hundreds of
-     outputs in [4, 8), none at 8), held to 2e-2 (8e-3 where |ref| < 1)
+     kernel. whisper-large-v3's flash calls (MHA, 20 heads at hd 64), not
+     causal: 1500 x 1500, 224 x 1500 and 100 x 1500 on the tensor-core
+     kernel (q rows and keys off the 64-row tile), 1 x 1500 with no kv_pos
+     on split-KV, and 1500 x 1500 in f32 at the reduced config's heads on
+     the FMA kernel; and the decoder's causal ring of 448 slots at a decode
+     step on split-KV. Where |out| reaches 4: flash at gemma2's, phi3's
+     and kimi's prefill shapes, whisper's prefill of 224 and its cross
+     attention onto 1,500 frames at prefill and at a decode step (split-KV;
+     q x 30, so one key carries most of each row), with v ~ N(0, 2^2)
+     clipped to |v| <= 7.9 (hundreds of outputs in [4, 8), none at 8),
+     held to 2e-2 (8e-3 where |ref| < 1)
      against the plain version run on f32 copies of the same bf16 inputs,
      with the count of outputs in [4, 8) and the distance from the bf16 plain
      output printed. The population engine's mamba and MoE buckets: the
@@ -108,6 +117,25 @@ Phases, each of which passes or ends the script with a non-zero exit:
      experts at top-8, tiled at prefill and decode at decode; its routing as
      grok's, with the experts that get no row counted); the same timings,
      profiles, sync check and |attention output|;
+  3h. serve whisper-large-v3 whole (32 encoder and 32 decoder layers, 1.601B
+     weights, bf16, seed-0 weights): 8 requests in groups of 4, prompts of
+     224 tokens, 16 new tokens, a decoder cache of 448 (the v3 card's
+     max_target_positions), each group's encoder frames (4, 1500, 1280) bf16
+     drawn from seed 0; a prefill step of {"tokens", "enc_embeds"} and 16
+     decode steps, greedy. Launches exact: 96 tensor-core flash calls a
+     prefill (32 encoder, 32 self, 32 cross, none causal but the self), 64
+     split-KV calls a decode step, no RMSNorm (LayerNorm). Prints prefill
+     ms with the encoder's share apart, decode ms a step, tokens/s, peak
+     GB, the greedy tokens, profiles of a prefill, of the encoder and of a
+     decode step, the sync check and the largest |attention output| of
+     each kind (encoder, self, cross, as each multiplies its ``wo`` or
+     ``c_wo``). Then ``python -m repro_torch.launch.serve --arch
+     whisper-large-v3`` at the same shapes in this process, which feeds
+     prompts only, as the reference's engine: 64 tensor-core calls a
+     prefill, and its tokens equal the steps' run with zero ck / cv; and the
+     reduced config at enc_seq 1,500 in f32 on the card against the CPU
+     from one CPU draw (the FMA kernel): prefill and 6 decode steps' logits
+     within 1e-4, the greedy tokens equal;
   4. times at the serving shapes, after warm-up: each kernel's, its plain
      version's and the library call's device time per call (the summed
      kernel time under the profiler, with a 256 MB scratch buffer read
@@ -132,7 +160,11 @@ Phases, each of which passes or ends the script with a non-zero exit:
      and down, prefill and decode (drawn after grok-6 is freed); flash at
      phi3's and kimi's prefill and decode, RMSNorm at (2048, 3072), (4,
      3072), (2048, 7168) and (4, 7168) on the block kernel, gmm at kimi's
-     served routing, up and down, prefill and decode;
+     served routing, up and down, prefill and decode; flash at whisper's
+     five calls (encoder 1500 x 1500, cross 224 x 1500 and 1 x 1500, all
+     three not causal and beside SDPA with is_causal False; the decoder's
+     224 x 224 and its ring of 448 at a decode step). The flash bound counts
+     an exponential a visible score on the SFU beside the FLOPs;
   5. train: the reduced gemma2-2b and a reduced hybrid with a MoE layer
      take 3 AdamW steps on the card and on the CPU from the same seed, whose
      losses, aux losses and grad norms must agree. Then full-width gemma2-2b
@@ -161,7 +193,7 @@ Phases, each of which passes or ends the script with a non-zero exit:
      (0, 1], and the launch counters at the steps taken times 3 RMSNorm
      (block kernel) and 1 flash (FMA kernel) a step. Prints wall time,
      occupancy, alpha, trial-steps/s, tokens/s and peak memory. 6b: the same
-     search cut to 3 phases on one node thread inside one CUDA-only profiler
+     search cut to 2 phases on one node thread inside one CUDA-only profiler
      session (the device's busy share): the same configurations by trial id,
      and every (trial, phase) both runs trained within
      ``SEARCH_NODES_ATOL``. 6c: one
@@ -318,13 +350,13 @@ Phases, each of which passes or ends the script with a non-zero exit:
      killed at each, and ``EvolutionaryHyperTrick``, whose freed nodes
      restart from a mutated top-quartile configuration after a warmup of
      fresh draws. 12a: ``run_sh`` of 6a's 12 configurations (by trial id)
-     over 6a's LM objective on 4 node threads, cut to 3 phases, evict 0.25:
-     12, 9 and 7 trials a phase, 7 killed and 5 completed, each record's
+     over 6a's LM objective on 4 node threads, cut to 2 phases, evict 0.25:
+     12 and 9 trials a phase, 5 killed and 7 completed, each record's
      node its index among the phase's survivors mod 4, every
      (configuration, phase) both trained equal to 6a's, and the launches at
      the trial steps x (3 block RMSNorm + 1 FMA flash), no other kernel.
      12b: ``run_sh`` of 7a's 12 configurations over 7a's GA3C objective, 4
-     node threads, 3 phases, evict 0.25: 12, 9 and 7 trials, 7 killed and 5
+     node threads, 2 phases, evict 0.25: 12 and 9 trials, 5 killed and 7
      completed, equal to 7a's, every counter 0. 12c:
      ``EvolutionaryHyperTrick(lm_space, w0 12, 3 phases, r 0.25, seed 0)``
      on ``ThreadCluster`` over 12a's objective: trials 0-5 carry 6a's
@@ -415,6 +447,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 FLUSH_BYTES = 256 << 20     # scratch read between timed calls: over 2 x the 50 MB L2
 
 ARCH, N_REQ, BATCH, PROMPT, NEW, MAX_SEQ = "gemma2-2b", 8, 4, 512, 16, 1024
+# whisper-large-v3 (1.601B parameters, 3.2 GB in bf16) is served whole with
+# the same requests at the v3 card's limits: prompts of 224 tokens into a
+# decoder cache of max_target_positions 448, the encoder over
+# max_source_positions 1,500 frames
+WHISPER, WHISPER_PROMPT, WHISPER_MAX_SEQ = "whisper-large-v3", 224, 448
 # jamba at full width, one period of its 8-layer block: the 32 published
 # layers (51.6B parameters, 103 GB in bf16) do not fit one 80 GB card
 HYBRID, HYBRID_LAYERS = "jamba-v0.1-52b", 8
@@ -461,9 +498,10 @@ SEARCH_BATCH, SEARCH_SEQ = 8, 64
 # 6b: each (trial, phase) metric of the 4-thread search against the 1-thread
 # one; a trial's numbers depend on its hyperparameters alone
 SEARCH_NODES_ATOL = 0.0
-# 6b's search is cut to 3 of 6a's 5 phases: the (trial, phase) metrics both
-# trained are held as before, and its profiler session holds fewer events
-SEARCH_PROFILED_PHASES = 3
+# 6b's search is cut to 2 of 6a's 5 phases (3 before whisper's phase 3h):
+# the (trial, phase) metrics both trained are held as before, and its
+# profiler session holds fewer events
+SEARCH_PROFILED_PHASES = 2
 # 6c: one node, HyperTrick(lm_space, w0 4, 3 phases, r 0.25, seed 0), 4 steps
 # a phase, on the card and on the CPU from one CPU draw of the weights; each
 # phase's metric within TRAIN_ATOL + TRAIN_RTOL * |cpu|
@@ -766,15 +804,22 @@ def matmul_bound_ms(cfg, tokens):
     return 6 * n * tokens / PEAK_FLOPS["bfloat16"] * 1e3, n
 
 
-def per_forward(cfg):
+def per_forward(cfg, encoder=False):
     """Kernel launches in one forward, from the config's block pattern and
     norm: a norm per mixer and per FFN plus the final norm (RMSNorm's kernel;
     LayerNorm is plain PyTorch), a flash call per attention layer, a scan per
-    mamba layer, three grouped matmuls per MoE."""
+    mamba layer, three grouped matmuls per MoE. An encoder-decoder's
+    attention layer adds its cross attention's flash call, and with
+    ``encoder`` (a forward given the encoder's input) each encoder layer
+    one more; its norms, LayerNorms, are not counted."""
     R, pat = cfg.n_repeat, cfg.pattern
+    attn = R * sum(m.startswith("attn") for m, _ in pat)
+    if cfg.is_encdec:
+        assert cfg.norm != "rmsnorm", ("an encoder-decoder's RMSNorms are not counted", cfg.name)
+        attn = 2 * attn + (cfg.n_enc_layers if encoder else 0)
     norms = R * sum(1 + bool(ffn) for _, ffn in pat) + 1
     return {"rmsnorm": norms if cfg.norm == "rmsnorm" else 0,
-            "flash_attention": R * sum(m.startswith("attn") for m, _ in pat),
+            "flash_attention": attn,
             "selective_scan": R * sum(m == "mamba" for m, _ in pat),
             "gmm": 3 * R * sum(ffn == "moe" for _, ffn in pat)}
 
@@ -1842,17 +1887,16 @@ POPW_BRACKET = dict(spec={"kind": "rl", "game": "pong", "episodes_per_phase": 2,
                     eta=3)
 
 # phase 12: the paper's baselines through the port's Python API. 12a:
-# SyncCluster.run_sh of 6a's configurations over 6a's objective, cut to
-# SH_PHASES phases at SH_EVICT; 12b: of 7a's over 7a's GA3C objective, cut to
-# SH_RL_PHASES phases (5 would add two phases of the slowest survivors to
-# the smoke's time, each); 12c: EvolutionaryHyperTrick over 6a's objective on 4
-# node threads, its warmup (warmup_frac 0.5: 6 fresh draws) HyperTrick's
-# first draws at seed 0. The counts a run_sh must give, from Python's round
-# (12 at 0.25 keep 9; 9 keep 7; 7 keep 5; 5 keep 4; 4 keep 3), as the
-# reference gives them on the CPU
-SH_PHASES, SH_RL_PHASES, SH_EVICT = 3, 3, 0.25
-SH_PER_PHASE = {5: [12, 9, 7, 5, 4], 3: [12, 9, 7]}
-SH_BY_STATUS = {5: {"killed": 9, "completed": 3}, 3: {"killed": 7, "completed": 5}}
+# SyncCluster.run_sh of 6a's configurations over 6a's objective; 12b: of
+# 7a's over 7a's GA3C objective; both at SH_EVICT, cut to SH_PHASES phases
+# (one eviction between phases and one at the end: each further phase adds
+# a round of the slowest survivors to the smoke's time); 12c:
+# EvolutionaryHyperTrick over 6a's objective on 4 node threads, its warmup
+# (warmup_frac 0.5: 6 fresh draws) HyperTrick's first draws at seed 0. The
+# counts a run_sh must give, from Python's round (12 at 0.25 keep 9; 9 keep
+# 7), as the reference gives them on the CPU
+SH_PHASES, SH_EVICT = 2, 0.25
+SH_PER_PHASE, SH_BY_STATUS = [12, 9], {"killed": 5, "completed": 7}
 EVO_PHASES, EVO_WARMUP = 3, 6
 PERTURB_FACTORS = (0.5, 0.8, 1.25, 2.0)
 
@@ -2116,16 +2160,16 @@ def baselines_phase(dev, smi, zero_counts, all_counts, phase_done, table_6a, out
                 log(f"[baselines] {label} trial {t} phase {ph}: {a!r} against {b!r}")
         return pairs, unequal
 
-    def sh_checks(label, res, n_phases):
-        per_phase = [[r for r in res.records if r.phase == p] for p in range(n_phases)]
-        assert [len(rs) for rs in per_phase] == SH_PER_PHASE[n_phases], (
+    def sh_checks(label, res):
+        per_phase = [[r for r in res.records if r.phase == p] for p in range(SH_PHASES)]
+        assert [len(rs) for rs in per_phase] == SH_PER_PHASE, (
             label, [len(rs) for rs in per_phase])
         assert all(r.node == i % res.n_nodes for rs in per_phase for i, r in enumerate(rs)), (
             label, [(r.trial_id, r.phase, r.node) for r in res.records])
         summary = res.summary()
-        assert summary["by_status"] == SH_BY_STATUS[n_phases], (label, summary["by_status"])
-        alpha = res.service.db.completion_rate(n_phases)
-        assert alpha == sum(SH_PER_PHASE[n_phases]) / (n_phases * 12), (label, alpha)
+        assert summary["by_status"] == SH_BY_STATUS, (label, summary["by_status"])
+        alpha = res.service.db.completion_rate(SH_PHASES)
+        assert alpha == sum(SH_PER_PHASE) / (SH_PHASES * 12), (label, alpha)
         return summary, alpha
 
     def lm_row(label, res, run_s, n_phases, counts, pairs, unequal):
@@ -2152,7 +2196,7 @@ def baselines_phase(dev, smi, zero_counts, all_counts, phase_done, table_6a, out
     res, run_s, counts = timed(lambda: SyncCluster(SEARCH_NODES, lm_objective()).run_sh(
         configs, SH_PHASES, SH_EVICT))
     label = "12a"
-    _, alpha = sh_checks(label, res, SH_PHASES)
+    _, alpha = sh_checks(label, res)
     table = trial_table(res)
     hold_trials(label, table, SH_PHASES, SEARCH_W0)
     same_configs(label, table, table_6a)
@@ -2168,23 +2212,23 @@ def baselines_phase(dev, smi, zero_counts, all_counts, phase_done, table_6a, out
     configs = [table_7a[i][0] for i in sorted(table_7a)]
     objective = make_rl_objective(RL_GAME, RL_EPISODES, n_envs=RL_ENVS, seed=0, device=dev)
     res, run_s, counts = timed(lambda: SyncCluster(RL_NODES, objective).run_sh(
-        configs, SH_RL_PHASES, SH_EVICT))
+        configs, SH_PHASES, SH_EVICT))
     label = "12b"
-    summary, alpha = sh_checks(label, res, SH_RL_PHASES)
+    summary, alpha = sh_checks(label, res)
     no_launches(label, lambda: counts)
     table = trial_table(res)
-    hold_trials(label, table, SH_RL_PHASES, RL_W0, score=RL_SCORE)
+    hold_trials(label, table, SH_PHASES, RL_W0, score=RL_SCORE)
     same_configs(label, table, table_7a)
     pairs, unequal = held(label, table, table_7a, RL_NODES_ATOL)
     env_steps = sum(tr.env_steps for tr in objective.trainers)
     updates = sum(tr.updates for tr in objective.trainers)
     wall = res.wall_time
-    out[label] = {"game": RL_GAME, "nodes": res.n_nodes, "phases": SH_RL_PHASES,
+    out[label] = {"game": RL_GAME, "nodes": res.n_nodes, "phases": SH_PHASES,
                   "episodes_per_phase": RL_EPISODES, "n_envs": RL_ENVS, "wall_s": wall,
                   "run_s": run_s, "trial_phases": len(res.records), "updates": updates,
                   "env_frames": env_steps, "env_frames_per_s": env_steps / wall,
                   "updates_per_s": updates / wall, "occupancy": res.occupancy,
-                  "alpha": alpha, "expected_alpha": expected_alpha(RL_R, SH_RL_PHASES),
+                  "alpha": alpha, "expected_alpha": expected_alpha(RL_R, SH_PHASES),
                   "by_status": summary["by_status"], "best_metric": summary["best_metric"],
                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                   "compared_with_7a": len(pairs), "unequal": len(unequal),
@@ -2631,7 +2675,8 @@ def main() -> int:
     from repro_torch.kernels.selective_scan.ref import selective_scan_ref, selective_scan_slots_ref
     from repro_torch.kernels.selective_scan.selective_scan import kernel_for as scan_kernel_for
     from repro_torch.kernels.selective_scan.selective_scan import launch as scan_launch
-    from repro_torch.models.model import init_cache
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.model import encode, init_cache
     from repro_torch.models.schema import count_params, init_params
     from repro_torch.serving.engine import Request, ServingEngine
     from repro_torch.train.steps import make_prefill_step, make_serve_step
@@ -2837,43 +2882,48 @@ def main() -> int:
 
     flash_large_out = {}
 
-    def flash_large_out_case(zname, window):
-        """``zname``'s prefill (batch 4, prompt 512) where |out| reaches 4: q,
-        k ~ N(0, 1), v ~ N(0, 2^2) clipped to |v| <= 7.9, so rows that see
-        few keys give outputs in [4, 8) and none reaches 8. The kernel's bf16
-        output is held to the plain version run on f32 copies of the same
-        bf16 inputs (an f32 p times an f32 v, the reference's arithmetic): its
-        own rounding costs up to half an ulp there, 1.5625e-2, within 2e-2,
-        and the bulk is held to 4e-3 (``FLASH_LARGE_OUT_BULK``). Its distance
-        from the bf16 plain output is printed as a record only: two bf16
-        results may sit one ulp (3.1e-2) apart there when both are right."""
+    def flash_large_out_case(zname, window, Sq=PROMPT, Skv=PROMPT, causal=True, q_scale=1.0):
+        """``zname``'s heads at Sq x Skv (batch 4; the prefill of 512 by
+        default) where |out| reaches 4: q, k ~ N(0, 1) (q times
+        ``q_scale``), v ~ N(0, 2^2) clipped to |v| <= 7.9, so rows that see
+        few keys give outputs in [4, 8) and none reaches 8; not causal, no
+        row sees few keys, and ``q_scale`` sharpens the scores so that a few
+        keys carry each row. The kernel's bf16 output is held to the plain
+        version run on f32 copies of the same bf16 inputs (an f32 p times an
+        f32 v, the reference's arithmetic): its own rounding costs up to
+        half an ulp there, 1.5625e-2, within 2e-2, and the bulk is held to
+        4e-3 (``FLASH_LARGE_OUT_BULK``). Its distance from the bf16 plain
+        output is printed as a record only: two bf16 results may sit one ulp
+        (3.1e-2) apart there when both are right."""
         zc = get_config(zname)
         B, Hq, Hkv, hd, cap = BATCH, zc.n_heads, zc.n_kv_heads, zc.head_dim, zc.attn_softcap
-        q = td(B, PROMPT, Hq, hd, dtype=torch.bfloat16)
-        k = td(B, PROMPT, Hkv, hd, dtype=torch.bfloat16)
-        v = td(B, PROMPT, Hkv, hd, scale=2.0).clamp_(-7.9, 7.9).to(torch.bfloat16)
-        kw = dict(causal=True, window=window, softcap=cap)
-        kind, before = kernel_for(q.dtype, PROMPT, Hq, Hkv), flash_counts()
-        assert kind == "tensor_core", (zname, kind)
+        q = (td(B, Sq, Hq, hd) * q_scale).to(torch.bfloat16)
+        k = td(B, Skv, Hkv, hd, dtype=torch.bfloat16)
+        v = td(B, Skv, Hkv, hd, scale=2.0).clamp_(-7.9, 7.9).to(torch.bfloat16)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        kind, before = kernel_for(q.dtype, Sq, Hq, Hkv), flash_counts()
+        assert kind == ("split_kv" if Sq == 1 else "tensor_core"), (zname, kind)
         out = flash_attention(q, k, v, **kw)
         moved = {n: c - before[n] for n, c in flash_counts().items()}
-        assert moved == {"split_kv": 0, "tensor_core": 1, "fma": 0}, (zname, moved)
+        assert moved == {n: int(n == kind) for n in moved}, (zname, moved)
         ref = chunked_attention(q.float(), k.float(), v.float(), **kw)
         mag = ref.abs()
         band = (mag >= 4) & (mag < 8)
         n4 = int(band.sum().item())
         assert n4 >= 100 and mag.max().item() < 8, (zname, n4, mag.max().item())
-        label = (f"{zname} prefill B{B} S{PROMPT} Hq{Hq} Hkv{Hkv} hd{hd} w{window} cap{cap}, "
-                 "v ~ N(0, 2^2) clipped to 7.9")
+        label = (f"{zname} B{B} {Sq}x{Skv} Hq{Hq} Hkv{Hkv} hd{hd} w{window} cap{cap}"
+                 + ("" if causal else " not causal")
+                 + (f", q x {q_scale:g}" if q_scale != 1 else "")
+                 + ", v ~ N(0, 2^2) clipped to 7.9")
         e = check("flash_attention", f"[{kind}] {label}, against f32", out, ref, 2e-2,
                   bulk=FLASH_LARGE_OUT_BULK)
         flash_by_magnitude(out, ref)
         e4 = (out.float() - ref)[band].abs().max().item()
         d_bf = (out.float() - chunked_attention(q, k, v, **kw).float()).abs().max().item()
-        log(f"[kernel] flash_attention [{kind}] {zname}: {n4} outputs in [4, 8), max error "
+        log(f"[kernel] flash_attention [{kind}] {label}: {n4} outputs in [4, 8), max error "
             f"there {e4:.3e} (half an ulp 1.5625e-2, limit 2e-2); {d_bf:.3e} from the bf16 "
             "plain output (a record)")
-        flash_large_out[zname] = {"shape": label, "n_in_4_8": n4, "max_abs_err_in_4_8": e4,
+        flash_large_out[label] = {"shape": label, "n_in_4_8": n4, "max_abs_err_in_4_8": e4,
                                   "max_abs_err": e, "max_abs_diff_from_bf16_plain": d_bf}
 
     def ring_pos(L, pos, written=None):
@@ -2943,7 +2993,7 @@ def main() -> int:
         flash_case(f"{tag} decode Sq1 L1024 half-invalid f32", 4, Hq, Hkv, 1, 1024, hd, True,
                    0, 0.0, torch.float32, 511, half, want="fma")
     # where |out| reaches 4: gemma2's local layer (window 4096, softcap 50),
-    # phi3's and kimi's prefill
+    # phi3's and kimi's prefill (whisper's below)
     flash_large_out_case(ARCH, cfg0.window)
     flash_large_out_case(PHI3, 0)
     flash_large_out_case(KIMI, 0)
@@ -2967,6 +3017,36 @@ def main() -> int:
                bf16, 120, ring_pos(256, 127))
     flash_case("Sq17 x G1 = 17 ring L256 w32 bf16", 1, 1, 1, 17, 256, 64, True, 32, 30.0,
                bf16, 120, ring_pos(256, 136))
+    # whisper-large-v3's calls (MHA, 20 heads at hd 64, no softcap), none
+    # causal but the decoder's own: the encoder's self attention over 1,500
+    # frames and cross attention at prefill on the tensor-core kernel (1500 =
+    # 23 x 64 + 28: a tile of q rows and of keys partly past the end), 100
+    # query rows (a warp's 16 rows partly past Sq); cross attention's decode
+    # step with no kv_pos on split-KV (24 tiles in 4 splits); the decoder's
+    # ring of 448 slots at a decode step; the FMA kernel not causal at the
+    # reduced config's heads (4 over 2), as the card-against-CPU check of 3h
+    # runs it
+    wc = get_config(WHISPER)
+    WH, whd, wS = wc.n_heads, wc.head_dim, wc.enc_seq
+    for Sq in (wS, WHISPER_PROMPT, 100):
+        flash_case(f"whisper not causal B{BATCH} Hq{WH} Hkv{WH} hd{whd} {Sq}x{wS} bf16", BATCH,
+                   WH, WH, Sq, wS, whd, False, 0, 0.0, bf16, 0, want="tensor_core")
+    flash_case(f"whisper cross decode not causal, no kv_pos, B{BATCH} Hq{WH} Sq1 Skv{wS} bf16",
+               BATCH, WH, WH, 1, wS, whd, False, 0, 0.0, bf16, 0, want="split_kv")
+    w_pos = WHISPER_PROMPT + NEW // 2 - 1
+    flash_case(f"whisper self decode ring L{WHISPER_MAX_SEQ} {w_pos + 1} written B{BATCH} "
+               f"Hq{WH} bf16", BATCH, WH, WH, 1, WHISPER_MAX_SEQ, whd, True, 0, 0.0, bf16, w_pos,
+               ring_pos(WHISPER_MAX_SEQ, w_pos, w_pos + 1), want="split_kv")
+    wr = wc.reduced()
+    flash_case(f"whisper reduced not causal B2 Hq{wr.n_heads} Hkv{wr.n_kv_heads} hd{wr.head_dim} "
+               f"{wS}x{wS} f32", 2, wr.n_heads, wr.n_kv_heads, wS, wS, wr.head_dim, False, 0,
+               0.0, torch.float32, 0, want="fma")
+    # whisper's outputs reach 4 too (3h's probe): the decoder's causal
+    # prefill of 224, and cross attention onto 1,500 frames at prefill
+    # (tensor-core) and at a decode step (split-KV), scores sharpened
+    flash_large_out_case(WHISPER, 0, WHISPER_PROMPT, WHISPER_PROMPT)
+    for Sq in (WHISPER_PROMPT, 1):
+        flash_large_out_case(WHISPER, 0, Sq, wS, causal=False, q_scale=30.0)
 
     log(f"[kernel] flash_attention bf16 max_abs_err by |ref|: {json.dumps(flash_bf16_by_mag)}")
     log(f"[kernel] flash_attention where |ref| reaches 4: {json.dumps(flash_large_out)}")
@@ -3300,6 +3380,91 @@ def main() -> int:
     phase_done("2 kernels vs plain")
 
     # -- 3. serve ------------------------------------------------------------
+    # where a step's time goes: device busy share and the top kernels
+    def profiled(label, fn, iters=3):
+        """``iters`` calls of ``fn`` under the profiler, per call: the
+        device's events in a session that is retaken, as phase 4's are,
+        when it lost kernel events (``profiled_session``: the port's
+        kernels as many as the launch counters read in one call before
+        it, a split-KV call launching its combine too), then the host's
+        in another."""
+        zero_counts()
+        fn()
+        torch.cuda.synchronize()
+        ours = (sum(op.launches for op in kernel_ops.values())
+                + flash_attention.launches_split_kv)
+        kern, wall_ms = profiled_session(fn, iters, ours=ours)
+        busy_ms = sum(a.self_device_time_total for a in kern) / 1e3 / iters
+        log(f"[profile] {label}: wall {wall_ms:.3f} ms under the profiler, "
+            f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+            f"{sum(a.count for a in kern) // iters} kernels ({ours} the port's); "
+            f"per call, mean of {iters}")
+        for a in sorted(kern, key=lambda a: -a.self_device_time_total)[:10]:
+            log(f"[profile]   {a.self_device_time_total / 1e3 / iters:9.3f} ms "
+                f"{a.count // iters:5d}x {a.key[:90]}")
+        # where the host's time goes (the profiler's own cost included),
+        # from a session of its own: the device's events are read above
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        host = [a for a in prof.key_averages() if a.device_type == DeviceType.CPU]
+        log(f"[profile]   host: {sum(a.self_cpu_time_total for a in host) / 1e3 / iters:.3f} "
+            f"ms self CPU time in {sum(a.count for a in host) // iters} events, the most:")
+        for a in sorted(host, key=lambda a: -a.self_cpu_time_total)[:6]:
+            log(f"[profile]   host {a.self_cpu_time_total / 1e3 / iters:9.3f} ms "
+                f"{a.count // iters:5d}x {a.key[:90]}")
+        return busy_ms
+
+    def counted(run):
+        """``run()`` from launch counters set to 0, the card synchronised on
+        both sides: its result, its wall s, the launches by op and the
+        flash, gmm, RMSNorm and scan launches by kernel."""
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        return (res, time.perf_counter() - t0,
+                {name: op.launches for name, op in kernel_ops.items()}, flash_counts(),
+                gmm_counts(), rms_counts(), scan_counts())
+
+    def steady_steps(cfg, params, batch, prompt, max_seq, label="prefill"):
+        """A prefill step of ``batch`` (BATCH rows of ``prompt`` tokens) into
+        a fresh cache of ``max_seq`` and the decode steps after it, at steady
+        state: the ms of each (CUDA events), then its device busy ms under
+        the profiler (from position ``prompt`` again), then one decode step
+        under ``set_sync_debug_mode("error")``, where any host sync (a
+        ``.item()``, a boolean index, a bincount, ...) raises."""
+        prefill, decode = make_prefill_step(cfg), make_serve_step(cfg)
+        cache = init_cache(cfg, BATCH, max_seq, device=dev)
+        prefill_ms = cuda_ms(lambda: prefill(params, batch, cache), iters=5, warmup=1)
+        tok = batch["tokens"][:, -1:]
+        step = [prompt]
+
+        def one_decode():
+            decode(params, cache, tok, step[0])
+            step[0] += 1
+
+        decode_ms = cuda_ms(one_decode, iters=NEW, warmup=2)
+        step[0] = prompt
+        times = {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+                 "prefill_busy_ms": profiled(f"{cfg.name} {label}",
+                                             lambda: prefill(params, batch, cache)),
+                 "decode_busy_ms": profiled(f"{cfg.name} decode step", one_decode)}
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            one_decode()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        log(f"[sync] {cfg.name}: one decode step ran with no host sync "
+            "(set_sync_debug_mode('error'))")
+        return times
+
     def serve_model(cfg, params):
         def requests():
             r = np.random.default_rng(0)
@@ -3321,15 +3486,8 @@ def main() -> int:
         engine._decode = recorded(engine._decode, "decode")
         for r in requests():
             engine.submit(r)
-        zero_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        done = engine.run_batch()
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        launches = {name: op.launches for name, op in kernel_ops.items()}
-        by_kernel, gmm_by_kernel, rms_by_kernel = flash_counts(), gmm_counts(), rms_counts()
-        scan_by_kernel = scan_counts()
+        (done, first_s, launches, by_kernel, gmm_by_kernel, rms_by_kernel,
+         scan_by_kernel) = counted(engine.run_batch)
         forwards = len(finite)
         expect = per_forward(cfg)
         log(f"[serve] {len(done)} requests, {forwards} forwards ({steps}), launches "
@@ -3378,85 +3536,16 @@ def main() -> int:
         engine.done.clear()
         for r in requests():
             engine.submit(r)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        engine.run_batch()
-        torch.cuda.synchronize()
-        serve_s = time.perf_counter() - t0
-        prefill, decode = make_prefill_step(cfg), make_serve_step(cfg)
+        _, serve_s, *_ = counted(engine.run_batch)
         tokens = torch.from_numpy(np.random.default_rng(1).integers(
             0, cfg.vocab_size, size=(BATCH, PROMPT))).to(dev)
-        cache = init_cache(cfg, BATCH, MAX_SEQ, device=dev)
-        prefill_ms = cuda_ms(lambda: prefill(params, {"tokens": tokens}, cache),
-                             iters=5, warmup=1)
-        tok = tokens[:, -1:]
-        step = [PROMPT]
-
-        def one_decode():
-            decode(params, cache, tok, step[0])
-            step[0] += 1
-
-        decode_ms = cuda_ms(one_decode, iters=NEW, warmup=2)
         serve = {"arch": cfg.name, "n_layers": cfg.n_layers,
-                 "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+                 **steady_steps(cfg, params, {"tokens": tokens}, PROMPT, MAX_SEQ),
                  "tokens_per_s": N_REQ * NEW / serve_s, "serve_s": serve_s,
                  "first_run_s": first_s, "batch": BATCH, "prompt_len": PROMPT,
                  "max_new": NEW, "requests": N_REQ,
                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
         log("[serve] " + json.dumps(serve))
-
-        # where a step's time goes: device busy share and the top kernels
-        def profiled(label, fn, iters=3):
-            """``iters`` calls of ``fn`` under the profiler, per call: the
-            device's events in a session that is retaken, as phase 4's are,
-            when it lost kernel events (``profiled_session``: the port's
-            kernels as many as the launch counters read in one call before
-            it, a split-KV call launching its combine too), then the host's
-            in another."""
-            zero_counts()
-            fn()
-            torch.cuda.synchronize()
-            ours = (sum(op.launches for op in kernel_ops.values())
-                    + flash_attention.launches_split_kv)
-            kern, wall_ms = profiled_session(fn, iters, ours=ours)
-            busy_ms = sum(a.self_device_time_total for a in kern) / 1e3 / iters
-            log(f"[profile] {label}: wall {wall_ms:.3f} ms under the profiler, "
-                f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
-                f"{sum(a.count for a in kern) // iters} kernels ({ours} the port's); "
-                f"per call, mean of {iters}")
-            for a in sorted(kern, key=lambda a: -a.self_device_time_total)[:10]:
-                log(f"[profile]   {a.self_device_time_total / 1e3 / iters:9.3f} ms "
-                    f"{a.count // iters:5d}x {a.key[:90]}")
-            # where the host's time goes (the profiler's own cost included),
-            # from a session of its own: the device's events are read above
-            from torch.autograd import DeviceType
-            from torch.profiler import ProfilerActivity, profile
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(iters):
-                    fn()
-                torch.cuda.synchronize()
-            host = [a for a in prof.key_averages() if a.device_type == DeviceType.CPU]
-            log(f"[profile]   host: {sum(a.self_cpu_time_total for a in host) / 1e3 / iters:.3f} "
-                f"ms self CPU time in {sum(a.count for a in host) // iters} events, the most:")
-            for a in sorted(host, key=lambda a: -a.self_cpu_time_total)[:6]:
-                log(f"[profile]   host {a.self_cpu_time_total / 1e3 / iters:9.3f} ms "
-                    f"{a.count // iters:5d}x {a.key[:90]}")
-            return busy_ms
-
-        serve["prefill_busy_ms"] = profiled(
-            f"{cfg.name} prefill", lambda: prefill(params, {"tokens": tokens}, cache))
-        serve["decode_busy_ms"] = profiled(f"{cfg.name} decode step", one_decode)
-        # any host sync in a decode step (a .item(), a boolean index, a
-        # bincount, ...) raises in this mode
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            one_decode()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        log(f"[sync] {cfg.name}: one decode step ran with no host sync "
-            "(set_sync_debug_mode('error'))")
         return (launches, expect, forwards, by_kernel, gmm_by_kernel, rms_by_kernel,
                 scan_by_kernel, serve)
 
@@ -3475,28 +3564,36 @@ def main() -> int:
             f"allocated on the card before){note}")
         return params
 
-    def probe(cfg, params):
+    def probe(cfg, params, enc_embeds=None, prompt=PROMPT, max_seq=MAX_SEQ):
         """One prefill of the first batch of prompts and the decode step after
         it, run after the counted serve: the largest |attention output| of
         each (the flash kernels' outputs, as each attention layer multiplies
-        them by its ``wo``; from |ref| >= 4 one bf16 ulp, 3.1e-2, exceeds
-        phase 2's 2e-2 limit, and ``flash_large_out_case`` holds the kernel
-        there against the f32 plain version) and, for a model with MoE
-        layers, the group sizes each routes (its router's top-k experts,
-        counted as ``moe_local`` counts them), the traffic phase 4 times gmm
-        at, and how many experts get no row. A ``TorchFunctionMode`` sees
-        both calls; no module is patched."""
+        them by its ``wo``, each cross attention by its ``c_wo``; from |ref|
+        >= 4 one bf16 ulp, 3.1e-2, exceeds phase 2's 2e-2 limit, and
+        ``flash_large_out_case`` holds the kernel there against the f32 plain
+        version) and, for a model with MoE layers, the group sizes each
+        routes (its router's top-k experts, counted as ``moe_local`` counts
+        them), the traffic phase 4 times gmm at, and how many experts get no
+        row. With ``enc_embeds`` (an encoder-decoder) the prefill runs the
+        encoder, and the largest output of each kind of attention (encoder,
+        self, cross) is printed too. A ``TorchFunctionMode`` sees both calls;
+        no module is patched."""
         from torch.overrides import TorchFunctionMode
-        wo = {t.untyped_storage().data_ptr() for n, t in params.named_parameters()
-              if n.endswith(".wo")}
+        kinds = {}      # the storage of each output projection: the attention it ends
+        for n, t in params.named_parameters():
+            if n.endswith((".wo", ".c_wo")):
+                kinds[t.untyped_storage().data_ptr()] = (
+                    "cross" if n.endswith(".c_wo") else "encoder" if n.startswith("enc.")
+                    else "self")
         routed, amax = [], []
 
         class Watch(TorchFunctionMode):
             def __torch_function__(self, func, types, args=(), kwargs=None):
                 out = func(*args, **(kwargs or {}))
                 if (func is torch.Tensor.matmul      # ``a @ b`` reaches the mode so
-                        and args[1].untyped_storage().data_ptr() in wo):
-                    amax.append(args[0].abs().amax())
+                        and args[1].untyped_storage().data_ptr() in kinds):
+                    amax.append((kinds[args[1].untyped_storage().data_ptr()],
+                                 args[0].abs().amax()))
                 elif func is torch.topk:
                     routed.append(torch.bincount(out.indices.reshape(-1),
                                                  minlength=cfg.n_experts))
@@ -3504,22 +3601,34 @@ def main() -> int:
 
         prefill, decode = make_prefill_step(cfg), make_serve_step(cfg)
         r = np.random.default_rng(0)
-        tokens = torch.from_numpy(np.stack([r.integers(0, cfg.vocab_size, size=PROMPT)
+        tokens = torch.from_numpy(np.stack([r.integers(0, cfg.vocab_size, size=prompt)
                                             for _ in range(BATCH)])).to(dev)
-        cache = init_cache(cfg, BATCH, MAX_SEQ, device=dev)
+        batch = {"tokens": tokens}
+        if enc_embeds is not None:
+            batch["enc_embeds"] = enc_embeds
+        cache = init_cache(cfg, BATCH, max_seq, device=dev)
         with Watch():
-            logits, cache = prefill(params, {"tokens": tokens}, cache)
+            logits, cache = prefill(params, batch, cache)
             n_moe, n_attn = len(routed), len(amax)
-            decode(params, cache, logits.argmax(-1)[:, None], PROMPT)
-        assert n_attn == per_forward(cfg)["flash_attention"], (n_attn, per_forward(cfg))
+            decode(params, cache, logits.argmax(-1)[:, None], prompt)
+        want = per_forward(cfg, encoder=enc_embeds is not None)["flash_attention"]
+        assert n_attn == want, (n_attn, want)
+        assert len(amax) - n_attn == per_forward(cfg)["flash_attention"], (len(amax), n_attn)
         assert 3 * n_moe == per_forward(cfg)["gmm"], (n_moe, per_forward(cfg))
-        attn = {"prefill": max(a.item() for a in amax[:n_attn]),
-                "decode": max(a.item() for a in amax[n_attn:])}
+        attn = {"prefill": max(a.item() for _, a in amax[:n_attn]),
+                "decode": max(a.item() for _, a in amax[n_attn:])}
         over = max(attn.values()) >= 4.0
         log(f"[attn] {cfg.name}: largest |attention output| {json.dumps(attn)}"
             + (": reaches 4, where phase 2 holds the kernel to the f32 plain version"
                if over else ": below 4"))
         found = {"attn_abs_max": attn}
+        if cfg.is_encdec:
+            by_kind = {}
+            for i, (kind, a) in enumerate(amax):
+                key = f"{'prefill' if i < n_attn else 'decode'} {kind}"
+                by_kind[key] = max(by_kind.get(key, 0.0), a.item())
+            found["attn_abs_max_by_kind"] = by_kind
+            log(f"[attn] {cfg.name}: largest |attention output| by kind {json.dumps(by_kind)}")
         if routed:
             sizes = {"prefill": [s.tolist() for s in routed[:n_moe]],
                      "decode": [s.tolist() for s in routed[n_moe:]]}
@@ -3590,9 +3699,151 @@ def main() -> int:
         f"width as published (2 layers are {kimi_2:.1f} GB in bf16, all {kfull.n_layers} "
         f"{count_params(kfull) / 1e12:.2f}T params)"))
     routed_kimi = probes[kimi_key]["routed"]
+    phase_done("3g serve kimi-1")
+
+    # -- 3h. serve whisper-large-v3 whole, the encoder over 1,500 frames -------
+    def serve_whisper(cfg):
+        """Serve whisper-large-v3 whole from seed-0 weights drawn on the card:
+        N_REQ prompts of WHISPER_PROMPT tokens in groups of BATCH, each group
+        its encoder frames (BATCH, enc_seq, d_model) bf16 drawn from seed 0,
+        one prefill step of {"tokens", "enc_embeds"} and NEW decode steps,
+        greedy; launches held exactly. Then timings, profiles and the sync
+        check; the serve CLI as the reference's engine runs it (no encoder
+        input), its tokens against the same steps with zero ck / cv; the
+        reduced config at enc_seq 1,500 in f32 on the card against the CPU.
+        Returns the path's record (as ``serve_model``'s), the CLI's and the
+        probe's findings."""
+        params = init_on_card(cfg, f"; {cfg.n_enc_layers} encoder layers over "
+                                   f"{cfg.enc_seq} frames; nothing cut")
+        P, L = WHISPER_PROMPT, WHISPER_MAX_SEQ
+        prefill, decode = make_prefill_step(cfg), make_serve_step(cfg)
+        r = np.random.default_rng(0)
+        prompts = np.stack([r.integers(0, cfg.vocab_size, size=P) for _ in range(N_REQ)])
+        wgen = torch.Generator(device=dev).manual_seed(0)
+        groups = [(torch.from_numpy(prompts[i:i + BATCH]).to(dev),
+                   torch.randn((BATCH, cfg.enc_seq, cfg.d_model), generator=wgen,
+                               device=dev).to(torch.bfloat16))
+                  for i in range(0, N_REQ, BATCH)]
+
+        def greedy(tokens, frames):
+            """One prefill (the encoder's too where ``frames`` is given) and
+            NEW decode steps on a fresh cache, as the engine's ``_generate``:
+            the tokens (BATCH, NEW) on the card, and whether every logit of
+            the steps was finite (a tensor: no host sync)."""
+            cache = init_cache(cfg, BATCH, L, device=dev)
+            batch = {"tokens": tokens} if frames is None else {"tokens": tokens,
+                                                               "enc_embeds": frames}
+            logits, cache = prefill(params, batch, cache)
+            finite = torch.isfinite(logits).all()
+            tok, out = logits.argmax(-1, keepdim=True), []
+            for i in range(NEW):
+                out.append(tok)
+                logits, cache = decode(params, cache, tok, P + i)
+                finite = finite & torch.isfinite(logits).all()
+                tok = logits.argmax(-1, keepdim=True)
+            return torch.cat(out, 1), finite
+
+        n_groups = N_REQ // BATCH
+        with_enc, zero_ck = per_forward(cfg, encoder=True), per_forward(cfg)
+        runs, first_s, launches, by_kernel, gmm_by, rms_by, scan_by = counted(
+            lambda: [greedy(tk, fr) for tk, fr in groups])
+        tokens = [row for out, _ in runs for row in out.tolist()]
+        log(f"[whisper] {N_REQ} requests, {n_groups * (1 + NEW)} forwards, launches {launches}, "
+            f"flash by kernel {by_kernel}")
+        assert all(bool(f) for _, f in runs), "non-finite logits"
+        assert all(len(t) == NEW and all(0 <= x < cfg.vocab_size for x in t) for t in tokens)
+        # a prefill: 32 encoder, 32 self and 32 cross calls on the tensor-core
+        # kernel; a decode step: 32 self and 32 cross calls on split-KV
+        n_pre, n_dec = with_enc["flash_attention"], zero_ck["flash_attention"]
+        assert (n_pre, n_dec) == (cfg.n_enc_layers + 2 * cfg.n_layers, 2 * cfg.n_layers)
+        assert by_kernel == {"split_kv": n_groups * NEW * n_dec, "tensor_core": n_groups * n_pre,
+                             "fma": 0}, by_kernel
+        assert launches == {"rmsnorm": 0, "flash_attention": n_groups * (n_pre + NEW * n_dec),
+                            "selective_scan": 0, "gmm": 0}, launches
+        log(f"[whisper] flash per forward: {n_pre} tensor-core calls a prefill ("
+            f"{cfg.n_enc_layers} encoder, {cfg.n_layers} self, {cfg.n_layers} cross), {n_dec} "
+            f"split-KV calls a decode step; 0 RMSNorm (LayerNorm is plain PyTorch)")
+        log(f"[whisper] tokens of the greedy run: {json.dumps(tokens)}")
+        hd64 = {k: flash_res[k] for k in ("flash_prefill_kernel<64>", "flash_split_kernel<64>")}
+        log(f"[whisper] the hd-64 flash kernels (phase 1): {json.dumps(hd64)}")
+
+        # steady state: a second, uncounted run of the same requests
+        _, serve_s, *_ = counted(lambda: [greedy(tk, fr) for tk, fr in groups])
+        tk0, fr0 = groups[0]
+        out = {"arch": cfg.name, "n_layers": cfg.n_layers, "n_enc_layers": cfg.n_enc_layers,
+               "enc_seq": cfg.enc_seq, "params": count_params(cfg),
+               **steady_steps(cfg, params, {"tokens": tk0, "enc_embeds": fr0}, P, L,
+                              "prefill with the encoder")}
+        with torch.inference_mode():
+            out["encoder_ms"] = cuda_ms(lambda: encode(cfg, params, fr0), iters=5, warmup=1)
+            out["encoder_busy_ms"] = profiled(f"{cfg.name} encoder",
+                                              lambda: encode(cfg, params, fr0))
+        out.update(decoder_prefill_ms=out["prefill_ms"] - out["encoder_ms"],
+                   tokens_per_s=N_REQ * NEW / serve_s, serve_s=serve_s, first_run_s=first_s,
+                   batch=BATCH, prompt_len=P, max_seq=L, max_new=NEW, requests=N_REQ,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        log("[whisper] " + json.dumps(out))
+        found = probe(cfg, params, enc_embeds=fr0, prompt=P, max_seq=L)
+        record = (launches, with_enc, n_groups * (1 + NEW), by_kernel, gmm_by, rms_by, scan_by,
+                  out)
+
+        # the serve CLI, as the reference's engine serves whisper: prompts
+        # only, so no encoder runs and cross attention reads the cache's zeros
+        argv = ["--arch", cfg.name, "--requests", str(N_REQ), "--batch", str(BATCH),
+                "--prompt-len", str(P), "--max-new", str(NEW), "--max-seq", str(L)]
+        done, cli_s, cli_launches, cli_by, cli_gmm, cli_rms, cli_scan = counted(
+            lambda: serve_cli.main(argv))
+        cli_tokens = [req.output for req in sorted(done, key=lambda req: req.request_id)]
+        assert cli_by == {"split_kv": n_groups * NEW * n_dec, "tensor_core": n_groups * n_dec,
+                          "fma": 0}, cli_by
+        zero_tokens = [row for tk, _ in groups for row in greedy(tk, None)[0].tolist()]
+        same = "equal" if cli_tokens == zero_tokens else "DIFFER from"
+        log(f"[whisper] serve CLI ({' '.join(argv)}): {cli_s:.2f} s with its weights' draw, "
+            f"launches {cli_launches}, flash by kernel {cli_by} ({n_dec} tensor-core calls a "
+            f"prefill: no encoder); its tokens {same} the steps' with zero ck / cv; "
+            f"{sum(a != b for a, b in zip(cli_tokens, tokens))} of {N_REQ} requests differ "
+            "from the run with the encoder")
+        assert cli_tokens == zero_tokens, (cli_tokens, zero_tokens)
+        cli_record = (cli_launches, zero_ck, n_groups * (1 + NEW), cli_by, cli_gmm, cli_rms,
+                      cli_scan, {"arch": cfg.name, "serve_cli_s": cli_s, "tokens": cli_tokens})
+        del params, groups
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the reduced config at the encoder's 1,500 frames in f32, card
+        # against CPU on one CPU draw of the weights, frames and prompts: the
+        # FMA flash kernel (encoder 1500 x 1500, cross 12 x 1500 and 1 x 1500)
+        rc = dataclasses.replace(cfg.reduced(), enc_seq=cfg.enc_seq)
+        rparams = init_params(rc, torch.Generator().manual_seed(0), device="cpu")
+        r1 = np.random.default_rng(1)
+        rtk = torch.from_numpy(r1.integers(0, rc.vocab_size, size=(2, 12)))
+        rfr = torch.from_numpy(r1.standard_normal((2, rc.enc_seq, rc.d_model)).astype(np.float32))
+        got = {}
+        for d in ("cpu", "cuda"):
+            p_d = rparams.to(d)
+            c = init_cache(rc, 2, 32, device=d)
+            lg, c = make_prefill_step(rc)(p_d, {"tokens": rtk.to(d), "enc_embeds": rfr.to(d)}, c)
+            logits_d, toks = [lg.cpu()], []
+            for i in range(6):
+                tok_d = lg.argmax(-1, keepdim=True)
+                toks.append(tok_d.cpu())
+                lg, c = make_serve_step(rc)(p_d, c, tok_d, 12 + i)
+                logits_d.append(lg.cpu())
+            got[d] = (logits_d, torch.cat(toks, 1))
+        diff = max((a - b).abs().max().item() for a, b in zip(got["cpu"][0], got["cuda"][0]))
+        same = torch.equal(got["cpu"][1], got["cuda"][1])
+        log(f"[whisper] reduced at enc_seq {rc.enc_seq}, f32, card against CPU: prefill and 6 "
+            f"decode steps' logits within {diff:.3e} (limit 1e-4), greedy tokens "
+            f"{'equal' if same else 'DIFFER'}: {got['cuda'][1].tolist()}")
+        assert diff <= 1e-4 and same, (diff, got["cpu"][1].tolist(), got["cuda"][1].tolist())
+        out["reduced_card_vs_cpu_max_abs_diff"] = diff
+        return record, cli_record, found
+
+    wcfg = get_config(WHISPER)
+    paths[WHISPER], paths[f"{WHISPER} serve CLI"], probes[WHISPER] = serve_whisper(wcfg)
     log(f"[profile] phase 3's profiler sessions: {SESSIONS}")
     SESSIONS.update(taken=0, retaken=0)
-    phase_done("3g serve kimi-1")
+    phase_done("3h serve whisper-large-v3")
 
     # -- 4. times at the serving shapes --------------------------------------
     flush = L2Flush()
@@ -3619,44 +3870,49 @@ def main() -> int:
                 lambda: rms_launch("block", x, sc, o, rows, D, 1e-6), flush)
         return res
 
-    def flash_times(acfg, Sq, Skv, q_offset, kv_pos, window, dtype=torch.bfloat16, B=BATCH):
+    def flash_times(acfg, Sq, Skv, q_offset, kv_pos, window, dtype=torch.bfloat16, B=BATCH,
+                    causal=True):
         Hq, Hkv, hd = acfg.n_heads, acfg.n_kv_heads, acfg.head_dim
         q = t(B, Sq, Hq, hd, dtype=dtype)
         k, v = t(B, Skv, Hkv, hd, dtype=dtype), t(B, Skv, Hkv, hd, dtype=dtype)
         kp = None if kv_pos is None else torch.as_tensor(kv_pos, dtype=torch.int32, device=dev)
         kpos = np.arange(Skv) if kv_pos is None else np.asarray(kv_pos)
         qpos = q_offset + np.arange(Sq)
-        valid = kpos[None, :] <= qpos[:, None]
+        valid = (kpos[None, :] <= qpos[:, None] if causal
+                 else np.broadcast_to(kpos[None, :] < INVALID, (Sq, Skv)).copy())
         if window:
             valid &= kpos[None, :] > qpos[:, None] - window
-        flops = 4 * hd * int(valid.sum()) * B * Hq
+        # per visible score: QK^T and PV (4 hd FLOPs) and one exponential
+        n_scores = int(valid.sum()) * B * Hq
+        flops = 4 * hd * n_scores
         # K/V of a slot no query attends to (unwritten, or masked for all) is
         # never read: the kernel skips such tiles before loading them
         read = int(valid.any(axis=0).sum())
         nbytes = q.element_size() * (2 * q.numel() + 2 * B * Hkv * hd * read) + (
             4 * Skv if kp is not None else 0)
-        b_ms, b_by, _ = bound(nbytes, flops, str(dtype).split(".")[-1])
+        b_ms, b_by, b_unit = bound(nbytes, flops, str(dtype).split(".")[-1], exps=n_scores)
         cap = acfg.attn_softcap
-        kw = dict(causal=True, window=window, softcap=cap, q_offset=q_offset)
+        kw = dict(causal=causal, window=window, softcap=cap, q_offset=q_offset)
         # a split-KV call is its split kernel and its combine kernel
         by_kernel = device_ms_by_kernel(lambda: flash_attention(q, k, v, kv_pos=kp, **kw),
                                         flush)
         res = {"shape": f"B{B} Sq{Sq} Skv{Skv} Hq{Hq} Hkv{Hkv} hd{hd} {dtype_name[dtype]} "
-                        f"w{window} cap{cap}",
+                        f"w{window} cap{cap}" + ("" if causal else " not causal"),
                "kernel": kernel_for(q.dtype, Sq, Hq, Hkv),
                "ms": sum(by_kernel.values()), "by_kernel_ms": by_kernel,
                "event_ms": cuda_ms(lambda: flash_attention(q, k, v, kv_pos=kp, **kw)),
                "plain_ms": device_ms(lambda: chunked_attention(q, k, v, kv_positions=kp, **kw),
                                      flush),
-               "bound_ms": b_ms, "bound_by": b_by,
+               "bound_ms": b_ms, "bound_by": b_by, "bound_unit": b_unit,
                "library_note": "SDPA without the softcap: not the same function" if cap
                else "SDPA: the same function"}
-        # SDPA, a yardstick only, without the softcap: causal at prefill; at
-        # decode a boolean mask from kv_pos (causal and window)
+        # SDPA, a yardstick only, without the softcap: is_causal as the call
+        # where no kv_pos is given; else a boolean mask from kv_pos (causal
+        # and window)
         qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
         if kp is None:
             res["library_ms"] = device_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), flush)
+                qt, kt, vt, is_causal=causal, enable_gqa=True), flush)
         else:
             mask = torch.from_numpy(valid).to(dev)[None, None]
             res["library_ms"] = device_ms(lambda: F.scaled_dot_product_attention(
@@ -3779,6 +4035,19 @@ def main() -> int:
     fa_zoo = {z.name: {"prefill": flash_times(z, PROMPT, PROMPT, 0, None, 0),
                        "decode": flash_times(z, 1, MAX_SEQ, written - 1, half_written, 0)}
               for z in (ycfg, gcfg, scfg, pcfg, kcfg)}
+    # whisper's five calls at 3h's shapes: the encoder's self attention and
+    # cross attention (prefill and decode) not causal, the decoder's self
+    # attention at prefill and against its half-written ring of 448 slots
+    w_written = WHISPER_PROMPT + NEW // 2
+    wS = wcfg.enc_seq
+    fa_whisper = {
+        "encoder_self": flash_times(wcfg, wS, wS, 0, None, 0, causal=False),
+        "cross_prefill": flash_times(wcfg, WHISPER_PROMPT, wS, 0, None, 0, causal=False),
+        "self_prefill": flash_times(wcfg, WHISPER_PROMPT, WHISPER_PROMPT, 0, None, 0),
+        "cross_decode": flash_times(wcfg, 1, wS, 0, None, 0, causal=False),
+        "self_decode": flash_times(wcfg, 1, WHISPER_MAX_SEQ, w_written - 1,
+                                   ring_pos(WHISPER_MAX_SEQ, w_written - 1, w_written), 0)}
+    log(f"[times] whisper's flash calls: {json.dumps(fa_whisper)}")
     rms_grok, rms_phi3, rms_kimi = ({"prefill": rms_times(BATCH * PROMPT, z.d_model),
                                      "decode": rms_times(BATCH, z.d_model)}
                                     for z in (gcfg, pcfg, kcfg))
@@ -4312,7 +4581,8 @@ def main() -> int:
               "search": rms_search, "slots": rms_slots}),
             ("flash_attention", "src/repro_torch/kernels/csrc/flash_prefill.cu",
              "src/repro/kernels/flash_attention/flash_attention.py:75", fa_prefill, fa_decode,
-             {"jamba": fa_jamba, "zoo": fa_zoo, "search": fa_search, "slots": fa_slots}),
+             {"jamba": fa_jamba, "zoo": fa_zoo, "whisper": fa_whisper, "search": fa_search,
+              "slots": fa_slots}),
             ("gmm", "src/repro_torch/kernels/csrc/gmm_prefill.cu",
              "src/repro/kernels/gmm/gmm.py:28", gmm_prefill, gmm_more["decode"],
              {**{k: v for k, v in gmm_more.items() if k != "decode"}, "grok": gmm_grok,

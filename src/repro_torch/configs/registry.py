@@ -30,4 +30,4 @@ def _load_all():
     # registers once, however often this runs
     from repro_torch.configs import (a3c_atari, gemma2_2b, grok_1_314b,  # noqa: F401
                                      jamba_v0_1_52b, kimi_k2_1t_a32b, phi3_mini_3_8b,
-                                     starcoder2_3b, yi_9b)
+                                     starcoder2_3b, whisper_large_v3, yi_9b)

@@ -4,7 +4,10 @@
       --requests 8 --batch 4 --prompt-len 512 --max-new 16 --max-seq 1024
 
 Runs on the GPU; ``--device cpu`` runs the plain PyTorch path (use
-``--reduced`` there).
+``--reduced`` there). Returns the served requests. As the reference's
+engine, it feeds prompts only: an encoder-decoder (``--arch
+whisper-large-v3``) runs no encoder, and its cross attention reads the
+cache's zeros.
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ def main(argv=None):
           f"{total_new} tokens in {dt:.3f}s ({total_new / dt:.1f} tok/s)")
     for r in done[:3]:
         print(f"  req {r.request_id}: {r.output[:8]}...")
+    return done
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""Norms, the MLP, and the attention block (projections + KV-cache management).
+"""Norms, the MLP, the attention block (projections + KV-cache management),
+whisper's cross attention and sinusoidal positions.
 
 Port of ``repro/models/layers.py``. RMSNorm goes through the RMSNorm op and
 attention through the flash-attention op: on CUDA tensors both launch the
@@ -88,14 +89,16 @@ def _split_heads(t, hd):
 
 
 def attn_block(cfg: ModelConfig, p, x, *, mode: str, pos: int, cache,
-               window: int):
-    """Causal self attention with an optional ring KV cache.
+               window: int, causal: bool = True):
+    """Self attention with an optional ring KV cache.
 
     mode: 'train' (no cache), 'prefill' (build cache), 'decode' (1 token).
     pos:  absolute position of x[:, 0] (python int).
     cache: {'k','v': (B, L, Hkv, hd), 'kpos': (L,) int32} or None; updated
     in place. Keys are stored RoPE'd; masking uses the absolute positions in
     'kpos' (2**30 marks an unwritten slot).
+    causal: applies where there is no cache (train mode); False is the
+    encoder's self attention. Prefill and decode are causal.
     """
     hd = cfg.head_dim
     B, S, _ = x.shape
@@ -110,7 +113,7 @@ def attn_block(cfg: ModelConfig, p, x, *, mode: str, pos: int, cache,
         k = rope(k, positions, cfg.rope_theta)
 
     if mode == "train" or cache is None:
-        out = flash_attention(q, k, v, causal=True, window=window,
+        out = flash_attention(q, k, v, causal=causal, window=window,
                               softcap=cfg.attn_softcap, q_offset=pos,
                               chunk=cfg.attn_chunk)
     elif mode == "prefill":
@@ -142,6 +145,46 @@ def attn_block(cfg: ModelConfig, p, x, *, mode: str, pos: int, cache,
         raise ValueError(f"unknown mode {mode!r}")
 
     return x + out.reshape(B, S, -1) @ p["wo"]
+
+
+def cross_attn_block(cfg: ModelConfig, p, x, *, mode: str, enc_out=None, cache=None):
+    """Whisper's cross attention from the decoder onto the encoder's states.
+
+    With ``enc_out`` (B, enc_seq, D), k and v are projected from it and, at
+    prefill, written in place into ``cache['ck']`` / ``cache['cv']`` (B,
+    enc_seq, Hkv, hd); without it they are read from the cache (decode, or a
+    prefill that was given no encoder input, which reads the cache's zeros).
+    The attention is not causal and has no positions.
+    """
+    hd = cfg.head_dim
+    B, S, _ = x.shape
+    h = norm(cfg, p, x, prefix="c_norm")
+    q = _split_heads(h @ p["c_wq"], hd)
+    if enc_out is not None:
+        k = _split_heads(enc_out @ p["c_wk"], hd)
+        v = _split_heads(enc_out @ p["c_wv"], hd)
+        if mode == "prefill" and cache is not None:
+            cache["ck"].copy_(k)
+            cache["cv"].copy_(v)
+    else:
+        k, v = cache["ck"], cache["cv"]
+    out = flash_attention(q, k, v, causal=False, softcap=cfg.attn_softcap,
+                          chunk=cfg.attn_chunk)
+    return x + out.reshape(B, S, -1) @ p["c_wo"]
+
+
+def sinusoidal_positions(seq: int, d: int, offset: int = 0, dtype=torch.float32,
+                         device=None):
+    """(seq, d) sin | cos of positions offset .. offset + seq - 1, computed in
+    f32 and then cast, as the reference's. The denominators 10000^(2i/d),
+    with the exponent 2i/d in f32, are raised in f64 and rounded once to
+    f32, so every device gets the same f32 value: an f32 ``pow`` may differ
+    by an ulp between devices, which at position 1,500 moves an angle by
+    about 1e-4."""
+    pos = (offset + torch.arange(seq, device=device)).float()[:, None]
+    expo = 2 * torch.arange(d // 2, device=device, dtype=torch.float32)[None, :] / d
+    ang = pos / torch.pow(10000.0, expo.double()).float()
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)
 
 
 def attn_block_slots(cfg: ModelConfig, p, x, *, batch: int, window: int):

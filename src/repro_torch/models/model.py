@@ -1,9 +1,11 @@
 """Model assembly: embed -> n_repeat x pattern of blocks -> final norm (+ logits).
 
 Port of ``repro/models/model.py`` for the attention, mamba, MLP and MoE
-blocks. A Python loop over the ``n_repeat`` stacked layers takes the place
-of ``lax.scan``; ``remat`` checkpoints each repetition as the reference's
-``jax.checkpoint(body)`` does.
+blocks and the encoder-decoder family (whisper: ``encode``, then cross
+attention after each decoder attention block). A Python loop over the
+``n_repeat`` stacked layers takes the place of ``lax.scan``; ``remat``
+checkpoints each repetition as the reference's ``jax.checkpoint(body)``
+does.
 Modes: 'train' (full sequence, no cache), 'prefill' (full sequence, fills
 the cache), 'decode' (one token against the cache).
 
@@ -23,8 +25,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import (attn_block, attn_block_slots, mlp_block,
-                                      mlp_block_slots, norm)
+from repro_torch.models.layers import (attn_block, attn_block_slots, cross_attn_block,
+                                      mlp_block, mlp_block_slots, norm,
+                                      sinusoidal_positions)
 from repro_torch.models.moe import moe_block, moe_block_slots
 from repro_torch.models.ssm import mamba_block, mamba_block_slots
 
@@ -35,13 +38,29 @@ def _mixer_window(cfg: ModelConfig, mixer: str) -> int:
     return cfg.window if mixer == "attn_local" else 0   # 0 = full attention
 
 
-def embed_tokens(cfg: ModelConfig, params, tokens):
+def embed_tokens(cfg: ModelConfig, params, tokens, pos: int = 0):
+    """tokens (B, S) at positions pos .. pos + S - 1 -> (B, S, D)."""
     x = params["embed"][tokens].to(getattr(torch, cfg.dtype))
     if cfg.scale_embed:
         x = x * math.sqrt(cfg.d_model)
     if cfg.abs_pos:
-        raise NotImplementedError("absolute positions are not ported")
+        x = x + sinusoidal_positions(tokens.shape[-1], cfg.d_model, offset=pos,
+                                     dtype=x.dtype, device=x.device)
     return x
+
+
+def encode(cfg: ModelConfig, params, enc_embeds):
+    """Whisper's encoder: frame embeddings (B, enc_seq, D) -> encoder states,
+    each layer non-causal self attention and the MLP, then
+    ``enc_final_norm``."""
+    x = enc_embeds.to(getattr(torch, cfg.dtype))
+    x = x + sinusoidal_positions(x.shape[1], cfg.d_model, dtype=x.dtype, device=x.device)
+    enc = params["enc"]
+    for r in range(cfg.n_enc_layers):
+        x = attn_block(cfg, _layer(enc["b0_attn"], r), x, mode="train", pos=0, cache=None,
+                       window=0, causal=False)
+        x = mlp_block(cfg, _layer(enc["b0_mlp"], r), x)
+    return norm(cfg, params, x, prefix="enc_final_norm")
 
 
 def logits_fn(cfg: ModelConfig, params, hidden):
@@ -59,9 +78,10 @@ def _layer(stack: dict, r: int) -> dict:
 
 
 def _apply_superblock(cfg: ModelConfig, dec: dict, r: int, x, *, mode: str,
-                      pos: int, cache):
+                      pos: int, cache, enc_out=None):
     """One repetition ``r`` of the pattern -> (x, its MoE layers' aux
-    losses, a list)."""
+    losses, a list). An encoder-decoder's attention block is followed by
+    its cross attention onto ``enc_out`` (or the cached encoder K/V)."""
     auxes = []
     for i, (mixer, ffn) in enumerate(cfg.pattern):
         key = f"b{i}_{mixer}"
@@ -70,6 +90,8 @@ def _apply_superblock(cfg: ModelConfig, dec: dict, r: int, x, *, mode: str,
         if mixer.startswith("attn"):
             x = attn_block(cfg, p, x, mode=mode, pos=pos, cache=c,
                            window=_mixer_window(cfg, mixer))
+            if cfg.is_encdec:
+                x = cross_attn_block(cfg, p, x, mode=mode, enc_out=enc_out, cache=c)
         elif mixer == "mamba":
             x = mamba_block(cfg, p, x, mode=mode, cache=c)
         else:
@@ -102,6 +124,11 @@ def forward(cfg: ModelConfig, params, batch: dict, *, mode: str = "train",
     layers). In prefill and decode it is None: their callers discard it, and
     summing it would add launches to every serving step.
 
+    An encoder-decoder runs ``encode`` on ``batch['enc_embeds']`` where the
+    batch has it, in every mode; prefill without it reads the cache's zero
+    ``ck`` / ``cv``, as the reference's serving engine does, and train mode
+    without it raises.
+
     ``remat`` (train mode): 'none' keeps every activation for the backward;
     'full' recomputes each repetition of the pattern in the backward
     (``torch.utils.checkpoint``), 'dots' keeps its 2-D matmul outputs and
@@ -109,11 +136,19 @@ def forward(cfg: ModelConfig, params, batch: dict, *, mode: str = "train",
     """
     if remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat {remat!r}")
-    x = embed_tokens(cfg, params, batch["tokens"])
+    enc_out = None
+    if cfg.is_encdec:
+        if "enc_embeds" in batch:
+            enc_out = encode(cfg, params, batch["enc_embeds"])
+        elif mode == "train" or cache is None:
+            raise ValueError(f"{cfg.name}: train mode (or a forward without a cache) needs "
+                             "the encoder's input, batch['enc_embeds'] (B, enc_seq, d_model)")
+    x = embed_tokens(cfg, params, batch["tokens"], pos=pos)
     dec = params["dec"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device) if mode == "train" else None
     for r in range(cfg.n_repeat):
-        body = partial(_apply_superblock, cfg, dec, r, mode=mode, pos=pos, cache=cache)
+        body = partial(_apply_superblock, cfg, dec, r, mode=mode, pos=pos, cache=cache,
+                       enc_out=enc_out)
         if remat == "none" or cache is not None or not torch.is_grad_enabled():
             x, auxes = body(x)
         elif remat == "full":
@@ -159,7 +194,7 @@ def embed_tokens_slots(cfg: ModelConfig, params, tokens):
     if cfg.scale_embed:
         x = x * math.sqrt(cfg.d_model)
     if cfg.abs_pos:
-        raise NotImplementedError("absolute positions are not ported")
+        raise NotImplementedError("absolute positions are not ported to the slot axis")
     return x
 
 
@@ -196,8 +231,10 @@ def forward_slots(cfg: ModelConfig, params, tokens):
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *,
                device="cuda"):
-    """Zero K/V and invalid kpos for every attention block, zero conv window
-    and f32 SSM state for every mamba block, stacked over n_repeat."""
+    """Zero K/V and invalid kpos for every attention block (and zero
+    encoder K/V, ``ck`` / ``cv`` (R, B, enc_seq, Hkv, hd), for an
+    encoder-decoder's), zero conv window and f32 SSM state for every mamba
+    block, stacked over n_repeat."""
     dev = resolve_device(device)
     R, B = cfg.n_repeat, batch_size
     dt = getattr(torch, cfg.dtype)
@@ -210,6 +247,10 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *,
                 "k": torch.zeros((R, B, L, cfg.n_kv_heads, cfg.head_dim), dtype=dt, device=dev),
                 "v": torch.zeros((R, B, L, cfg.n_kv_heads, cfg.head_dim), dtype=dt, device=dev),
                 "kpos": torch.full((R, L), INVALID_POS, dtype=torch.int32, device=dev)}
+            if cfg.is_encdec:
+                for n in ("ck", "cv"):
+                    ent[n] = torch.zeros((R, B, cfg.enc_seq, cfg.n_kv_heads, cfg.head_dim),
+                                         dtype=dt, device=dev)
         elif mixer == "mamba":
             di = cfg.ssm_d_inner
             ent = {

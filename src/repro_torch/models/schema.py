@@ -1,6 +1,7 @@
 """Parameter schema and init for the attention, mamba, MLP and MoE blocks.
 
-Port of the attn/mamba/mlp/moe part of ``repro/models/schema.py``: a model
+Port of the attn/mamba/mlp/moe and encoder-decoder part of
+``repro/models/schema.py``: a model
 is a nested dict of ``ParamDef`` leaves, with per-layer weights stacked on a
 leading ``n_repeat`` axis. ``init_params`` draws them with the reference's
 shapes and scales (normal x 1/sqrt(fan_in), embedding scale 1.0, norm scales
@@ -64,7 +65,9 @@ def _norm_schema(cfg: ModelConfig, name: str = "norm") -> dict:
     return d
 
 
-def attn_schema(cfg: ModelConfig, dims: Dims) -> dict:
+def attn_schema(cfg: ModelConfig, dims: Dims, cross: bool = False) -> dict:
+    """Self attention's weights; with ``cross`` (an encoder-decoder's
+    decoder layer) also the cross attention's, prefixed ``c_``."""
     hq, hkv, hd, d = dims.hq, dims.hkv, dims.hd, dims.d
     sch = {
         "wq": ParamDef((d, hq * hd)),
@@ -73,6 +76,14 @@ def attn_schema(cfg: ModelConfig, dims: Dims) -> dict:
         "wo": ParamDef((hq * hd, d)),
     }
     sch.update(_norm_schema(cfg))
+    if cross:
+        sch.update({
+            "c_wq": ParamDef((d, hq * hd)),
+            "c_wk": ParamDef((d, hkv * hd)),
+            "c_wv": ParamDef((d, hkv * hd)),
+            "c_wo": ParamDef((hq * hd, d)),
+        })
+        sch.update({f"c_{k}": v for k, v in _norm_schema(cfg).items()})
     return sch
 
 
@@ -123,7 +134,7 @@ def _stack(sch: dict, n: int) -> dict:
 
 
 def model_schema(cfg: ModelConfig) -> dict:
-    if cfg.is_encdec or cfg.family == "vlm":
+    if cfg.family == "vlm":
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported")
     dims = Dims(cfg)
     sch: dict = {
@@ -134,7 +145,7 @@ def model_schema(cfg: ModelConfig) -> dict:
     dec: dict = {}
     for i, (mixer, ffn) in enumerate(cfg.pattern):
         if mixer.startswith("attn"):
-            mixer_sch = attn_schema(cfg, dims)
+            mixer_sch = attn_schema(cfg, dims, cross=cfg.is_encdec)
         elif mixer == "mamba":
             mixer_sch = mamba_schema(cfg, dims)
         else:
@@ -145,6 +156,10 @@ def model_schema(cfg: ModelConfig) -> dict:
         elif ffn:
             raise NotImplementedError(f"ffn {ffn!r} is not ported")
     sch["dec"] = dec
+    if cfg.is_encdec:
+        sch["enc"] = {"b0_attn": _stack(attn_schema(cfg, dims), cfg.n_enc_layers),
+                      "b0_mlp": _stack(mlp_schema(cfg, dims), cfg.n_enc_layers)}
+        sch.update({f"enc_final_{k}": v for k, v in _norm_schema(cfg).items()})
     return sch
 
 

@@ -93,7 +93,9 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """(params, batch, cache) -> (next_token_logits (B, V), cache)."""
+    """(params, batch, cache) -> (next_token_logits (B, V), cache). The batch
+    is ``forward``'s: ``tokens``, and for an encoder-decoder ``enc_embeds``
+    (B, enc_seq, d_model), which runs the encoder and fills ``ck`` / ``cv``."""
 
     @torch.inference_mode()
     def prefill_step(params, batch, cache):

@@ -27,6 +27,13 @@ FLASH_CASES = [
     (2, 4, 2, 64, 64, 32, True, 0, 0.0, "bfloat16"),
     (1, 2, 1, 33, 65, 32, True, 0, 0.0, "float32"),   # ragged sizes
     (1, 4, 2, 40, 40, 256, True, 16, 50.0, "float32"),
+    # whisper's non-causal forms, MHA at head dim 64: the encoder's self
+    # attention (Sq = Skv), cross attention at prefill (Sq != Skv) and at a
+    # decode step (Sq 1), with Skv 100 not a multiple of the 32-key block
+    (2, 4, 4, 100, 100, 64, False, 0, 0.0, "float32"),
+    (2, 4, 4, 24, 100, 64, False, 0, 0.0, "float32"),
+    (2, 4, 4, 1, 100, 64, False, 0, 0.0, "float32"),
+    (2, 4, 4, 24, 100, 64, False, 0, 0.0, "bfloat16"),
 ]
 # f32: sum order only; bf16: output rounding (tests/test_kernels.py)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
