@@ -135,7 +135,11 @@ Phases, each of which passes or ends the script with a non-zero exit:
      prefill, and its tokens equal the steps' run with zero ck / cv; and the
      reduced config at enc_seq 1,500 in f32 on the card against the CPU
      from one CPU draw (the FMA kernel): prefill and 6 decode steps' logits
-     within 1e-4, the greedy tokens equal;
+     within 1e-4, the greedy tokens equal; then the same at every width as
+     published (d_model 1280, 20 heads, d_ff 5120, the 51,866-token
+     vocabulary, 1,500 frames), the depth cut to 2 encoder and 2 decoder
+     layers, batch 1, a prompt of 224 into the cache of 448 and 4 decode
+     steps: logits within 1e-4, the greedy tokens equal;
   4. times at the serving shapes, after warm-up: each kernel's, its plain
      version's and the library call's device time per call (the summed
      kernel time under the profiler, with a 256 MB scratch buffer read
@@ -179,10 +183,19 @@ Phases, each of which passes or ends the script with a non-zero exit:
      whole, the same way at lr 1e-4: 30 flash and 0 RMSNorm a step (its
      reduced config also takes the card-vs-CPU steps, as do phi3's and
      kimi's reduced configs at their real head dims, 96 and 112, whose
-     training forward runs the FMA flash kernel there). Prints step ms (CUDA
-     events, median of steps 3-10), tokens/s, peak memory, and a profiled
-     eleventh step split into the four kernels' forwards, the
-     plain-recompute backward of each op, cuBLAS and the optimizer;
+     training forward runs the FMA flash kernel there, and whisper's, whose
+     batches carry the pipeline's encoder frames). Then whisper-large-v3
+     whole at lr 3e-4, batch 4 x 448 decoder tokens (the v3 card's
+     max_target_positions) with the pipeline's (4, 1500, 1280) f32 frames:
+     96 tensor-core flash calls a step (32 encoder and 32 cross, not
+     causal; 32 self), 0 split-KV, 0 FMA, 0 RMSNorm; its 6 N T bound counts
+     the frames for the encoder's weights and the cross k / v. Prints step
+     ms (CUDA events, median of steps 3-10), tokens/s (and frames/s), peak
+     memory, and a profiled eleventh step split into the four kernels'
+     forwards, the plain-recompute backward of each op, cuBLAS and the
+     optimizer; the pipeline's draw of a batch on the host clock; for the
+     LayerNorm models, their LayerNorms' forward and backward timed apart
+     at the step's shapes;
   6. search: HyperTrick's LM search through ``repro_torch.launch.tune.main``
      (the thread backend: node threads that each train a trial phase by
      phase through ``make_lm_objective`` and report after each phase).
@@ -193,7 +206,7 @@ Phases, each of which passes or ends the script with a non-zero exit:
      (0, 1], and the launch counters at the steps taken times 3 RMSNorm
      (block kernel) and 1 flash (FMA kernel) a step. Prints wall time,
      occupancy, alpha, trial-steps/s, tokens/s and peak memory. 6b: the same
-     search cut to 2 phases on one node thread inside one CUDA-only profiler
+     search cut to 1 phase on one node thread inside one CUDA-only profiler
      session (the device's busy share): the same configurations by trial id,
      and every (trial, phase) both runs trained within
      ``SEARCH_NODES_ATOL``. 6c: one
@@ -202,8 +215,10 @@ Phases, each of which passes or ends the script with a non-zero exit:
      same trials, statuses and reports, metrics within TRAIN_ATOL +
      TRAIN_RTOL * |cpu|; a differing decision prints each report's metric
      and cut. 6d: searches of 4 workers on 2 node threads, 2 phases of 4
-     steps, at jamba (RMSNorm, flash, the prefill scan) and grok-1 (RMSNorm,
-     flash, the small gmm), their launch counts held as in 6a. Phase 2 holds
+     steps, at jamba (RMSNorm, flash, the prefill scan), grok-1 (RMSNorm,
+     flash, the small gmm) and whisper-large-v3 (3 FMA flash calls a trial
+     step: encoder, self and cross; no RMSNorm), their launch counts held
+     as in 6a. Phase 2 holds
      the block RMSNorm and the FMA flash kernel at the trial shapes, and
      phase 4 times them there beside ``F.rms_norm`` and SDPA.
      Every search here passes ``--objective lm``. Phase 2 also holds
@@ -226,7 +241,7 @@ Phases, each of which passes or ends the script with a non-zero exit:
      finite and in pong's score range [-3, 3], alpha in (0, 1]. Prints wall
      time, trial-phases, updates, env frames/s, updates/s, occupancy, alpha
      beside ``expected_alpha`` and peak memory. 7b: a search of 4 workers
-     and 2 phases of 12 episodes on one node thread in one CUDA-only
+     and 1 phase of 12 episodes on one node thread in one CUDA-only
      profiler session (busy share, kernels an update and an env step) and
      on 4 threads without it: every (trial, phase) both trained within
      ``RL_NODES_ATOL``. 7c: ``GA3CTrainer`` on boxing on the card and on the
@@ -281,7 +296,8 @@ Phases, each of which passes or ends the script with a non-zero exit:
      run without one is repeated at the next seed, up to ``PBT_SEEDS``);
      then one clone on the card under ``set_sync_debug_mode("error")``: the
      child's learner bit-equal to the parent's, its carry unchanged. 9e:
-     9a's search over jamba's reduced config (a mamba block: 5 slot RMSNorm,
+     9a's search cut to 3 phases over jamba's reduced config (a mamba
+     block: 5 slot RMSNorm,
      1 FMA flash and 1 call of the scan's slot case on the prefill kernel a
      step of the bucket) and grok-1's (a MoE block: 3 slot RMSNorm, 1 FMA
      flash and 3 small gmm over the slots' 48 (slot, expert) groups), each
@@ -305,10 +321,11 @@ Phases, each of which passes or ends the script with a non-zero exit:
      the workers' summed launches at the reported steps x (3 block RMSNorm
      + 1 FMA flash), no warp RMSNorm, gmm or scan; prints wall time,
      occupancy, trial-steps/s, tokens/s and trial-steps a busy second
-     beside 6a's. 10b: the same search with a fresh journal, its process
-     group SIGKILLed once 12 reports are journaled, then the same command
-     with --resume: no (trial, phase) journaled twice, the budget's 12
-     configurations completed or killed with 1 to 5 reports, every metric
+     beside 6a's. 10b: the same search cut to 3 phases with a fresh
+     journal, its process group SIGKILLed once 12 reports are journaled,
+     then the same command with --resume: no (trial, phase) journaled
+     twice, the budget's 12 configurations completed or killed with 1 to 3
+     reports, every metric
      equal to 6a's for the same configuration and phase (the requeued
      ones trained from phase 0 again), the resumed workers' launches held
      as 10a's; prints the time to the kill, the resumed wall time and the
@@ -319,7 +336,11 @@ Phases, each of which passes or ends the script with a non-zero exit:
      search on --backend process, 4 worker processes: 7a's checks, every
      worker counter 0; prints wall time, env frames/s, updates/s (the
      workers' trainers' counts) and env frames a busy second beside 7a's
-     (4 threads) and 7b's (1 thread).
+     (4 threads) and 7b's (1 thread). 10e: 6d's whisper-large-v3 search on
+     --backend process, 2 worker processes: 6d's checks, the same
+     configuration by trial id as 6d's, every (trial, phase) both trained
+     within ``SEARCH_NODES_ATOL``, the workers' launches at the reported
+     steps x 3 FMA flash calls.
  11. the population worker (``tune --backend process / server --slots N``:
      each worker process is ``python -m repro_torch.population.worker``,
      one population engine leasing a batch of trials), each run the CLI as
@@ -358,7 +379,7 @@ Phases, each of which passes or ends the script with a non-zero exit:
      12b: ``run_sh`` of 7a's 12 configurations over 7a's GA3C objective, 4
      node threads, 2 phases, evict 0.25: 12 and 9 trials, 5 killed and 7
      completed, equal to 7a's, every counter 0. 12c:
-     ``EvolutionaryHyperTrick(lm_space, w0 12, 3 phases, r 0.25, seed 0)``
+     ``EvolutionaryHyperTrick(lm_space, w0 12, 2 phases, r 0.25, seed 0)``
      on ``ThreadCluster`` over 12a's objective: trials 0-5 carry 6a's
      configurations and metrics, at least one mutated child trained, each
      child's parent reported before it and each child's learning rate its
@@ -452,6 +473,9 @@ ARCH, N_REQ, BATCH, PROMPT, NEW, MAX_SEQ = "gemma2-2b", 8, 4, 512, 16, 1024
 # decoder cache of max_target_positions 448, the encoder over
 # max_source_positions 1,500 frames
 WHISPER, WHISPER_PROMPT, WHISPER_MAX_SEQ = "whisper-large-v3", 224, 448
+# 3h's full-width logits, card against CPU in f32: every width as published,
+# the depth cut to 2 encoder and 2 decoder layers, batch 1, 4 decode steps
+WHISPER_FULL_LAYERS, WHISPER_FULL_DECODE = 2, 4
 # jamba at full width, one period of its 8-layer block: the 32 published
 # layers (51.6B parameters, 103 GB in bf16) do not fit one 80 GB card
 HYBRID, HYBRID_LAYERS = "jamba-v0.1-52b", 8
@@ -498,10 +522,10 @@ SEARCH_BATCH, SEARCH_SEQ = 8, 64
 # 6b: each (trial, phase) metric of the 4-thread search against the 1-thread
 # one; a trial's numbers depend on its hyperparameters alone
 SEARCH_NODES_ATOL = 0.0
-# 6b's search is cut to 2 of 6a's 5 phases (3 before whisper's phase 3h):
-# the (trial, phase) metrics both trained are held as before, and its
-# profiler session holds fewer events
-SEARCH_PROFILED_PHASES = 2
+# 6b's search is cut to 1 of 6a's 5 phases (3 before whisper's phase 3h, 2
+# before whisper's training): every trial's phase-0 metric is held as
+# before, and its profiler session holds fewer events
+SEARCH_PROFILED_PHASES = 1
 # 6c: one node, HyperTrick(lm_space, w0 4, 3 phases, r 0.25, seed 0), 4 steps
 # a phase, on the card and on the CPU from one CPU draw of the weights; each
 # phase's metric within TRAIN_ATOL + TRAIN_RTOL * |cpu|
@@ -519,11 +543,11 @@ SEARCH_KERNEL_ARGV = ["--objective", "lm", "--workers", "4", "--nodes", "2", "--
 RL_GAME, RL_W0, RL_NODES, RL_PHASES, RL_EPISODES, RL_ENVS, RL_R = "pong", 12, 4, 5, 8, 16, 0.25
 RL_ARGV = ["--objective", "rl", "--episodes-per-phase", str(RL_EPISODES)]
 RL_SCORE = 3.0
-# 7b: a smaller search, 4 workers over 2 phases of 12 episodes, on one node
+# 7b: a smaller search, 4 workers over 1 phase of 12 episodes, on one node
 # thread in one profiler session and on 4 without it: each (trial, phase)
 # metric both trained within RL_NODES_ATOL (no sum on the GA3C path depends
 # on the order of its threads: rl/network.py)
-RL_SMALL_ARGV = ["--objective", "rl", "--workers", "4", "--phases", "2",
+RL_SMALL_ARGV = ["--objective", "rl", "--workers", "4", "--phases", "1",
                  "--episodes-per-phase", "12"]
 RL_NODES_ATOL = 0.0
 # 7c: GA3CTrainer on boxing on the card and on the CPU, one CPU draw of the
@@ -567,6 +591,10 @@ POP_LM_PHASES, POP_LM_STEPS = 2, 25
 # (grok-1: a MoE block of 4 experts, top-2); kimi-k2's reduced MoE block is
 # grok-1's in shape and is held on the CPU only
 BLOCK_ARCHS = (HYBRID, GROK)
+# 9e's searches and its population worker's are cut to 3 of 9a's 5 phases
+# (5 before whisper's training); each is held as before
+BLOCK_PHASES = 3
+BLOCK_ARGV = [*POP_LM_ARGV, "--phases", str(BLOCK_PHASES)]
 # 9c: ``repro_torch.launch.population_checks``' comparison at engine seed
 # 0: its trials in one bucket against each alone, its limits
 # (``slot_faults``). Twenty seeds of it on an H100 and its coupled controls
@@ -789,19 +817,24 @@ def bound(nbytes, flops, dtype, exps=0):
     return t[unit], "bytes" if unit == "bytes" else "operations", unit
 
 
-def matmul_bound_ms(cfg, tokens):
+def matmul_bound_ms(cfg, tokens, frames=0):
     """A training step's floor: 6 N T FLOPs over the bf16 peak, with N the
     weights a token meets (every weight but the embedding table; the
-    experts' at top_k of n_experts) and T ``tokens``. Returns (ms, N)."""
+    experts' at top_k of n_experts) and T ``tokens``. An encoder-decoder's
+    encoder weights and its cross attention's k / v projections meet the
+    encoder's ``frames`` instead (the attention products are not counted).
+    Returns (ms, N, the FLOPs)."""
     from repro_torch.models.schema import _leaves, model_schema
-    n = 0.0
+    n, flops = 0.0, 0.0
     for name, d in _leaves(model_schema(cfg)):
         leaf = name.split("/")[-1]
         if leaf == "embed":
             continue
         share = cfg.top_k / cfg.n_experts if leaf in ("we_up", "we_gate", "we_down") else 1.0
         n += math.prod(d.shape) * share
-    return 6 * n * tokens / PEAK_FLOPS["bfloat16"] * 1e3, n
+        on_frames = name.startswith("enc") or leaf in ("c_wk", "c_wv")
+        flops += 6 * math.prod(d.shape) * share * (frames if on_frames else tokens)
+    return flops / PEAK_FLOPS["bfloat16"] * 1e3, n, flops
 
 
 def per_forward(cfg, encoder=False):
@@ -987,10 +1020,10 @@ def rl_phase(dev, smi, zero_counts, all_counts, phase_done):
     # on 4 without it: the same configurations by trial id, and every (trial,
     # phase) both trained within RL_NODES_ATOL
     counts, rl["7b"], res_1 = search(f"7b {RL_GAME}, 1 node", [*RL_SMALL_ARGV, "--nodes", "1"],
-                                     4, 2, 12, profiled=True)
+                                     4, 1, 12, profiled=True)
     paths[f"search rl {RL_GAME} 1 node"] = counts
     _, rl["7b 4 nodes"], res_4 = search(f"7b {RL_GAME}, 4 nodes",
-                                        [*RL_SMALL_ARGV, "--nodes", "4"], 4, 2, 12)
+                                        [*RL_SMALL_ARGV, "--nodes", "4"], 4, 1, 12)
     t1, t4 = trial_table(res_1), trial_table(res_4)
     assert [t1[i][0] for i in sorted(t1)] == [t4[i][0] for i in sorted(t4)], "configs differ"
     pairs = [(i, ph, t4[i][2][ph], t1[i][2][ph]) for i in sorted(t4)
@@ -1499,8 +1532,8 @@ def population_lm_phase(dev, smi, zero_counts, all_counts, phase_done):
     for arch in BLOCK_ARCHS:
         label = f"9e {arch}"
         path, out[label], res = lm_search(
-            f"{label}, vectorized", lambda a=arch: tune.main([*POP_LM_ARGV, "--arch", a]),
-            SEARCH_W0, SEARCH_PHASES, SEARCH_STEPS, POP_LM_BATCH, POP_LM_SEQ, arch=arch)
+            f"{label}, vectorized", lambda a=arch: tune.main([*BLOCK_ARGV, "--arch", a]),
+            SEARCH_W0, BLOCK_PHASES, SEARCH_STEPS, POP_LM_BATCH, POP_LM_SEQ, arch=arch)
         paths[f"search {arch} vectorized"] = path
         tables[arch] = trial_table(res)
         out[f"{label} card vs cpu"] = card_against_cpu(label, arch)
@@ -1528,7 +1561,8 @@ def population_lm_phase(dev, smi, zero_counts, all_counts, phase_done):
     # jamba's search on one population worker of 12 slots (a tune
     # subprocess, as 11a), held to 9e's trials as 11a is held to 9a's
     with tempfile.TemporaryDirectory() as tmp:
-        argv = [*POPW_LM_ARGV, "--arch", HYBRID, "--nodes", "1", "--slots", str(POP_SLOTS)]
+        argv = [*POPW_LM_ARGV, "--arch", HYBRID, "--phases", str(BLOCK_PHASES), "--nodes", "1",
+                "--slots", str(POP_SLOTS)]
         t0 = time.perf_counter()
         proc, out_path, jpath = tune_process(argv, tmp, "9e-worker")
         stdout = finish(proc, "9e worker")
@@ -1536,7 +1570,7 @@ def population_lm_phase(dev, smi, zero_counts, all_counts, phase_done):
         summary = json.load(open(out_path))
         table, _, _ = journal_trials(jpath)
     label = f"9e {HYBRID}, 1 population worker of {POP_SLOTS} slots"
-    hold_trials(label, table, SEARCH_PHASES, SEARCH_W0)
+    hold_trials(label, table, BLOCK_PHASES, SEARCH_W0)
     same_configs(label, table, tables[HYBRID])
     assert summary["by_status"] == out[f"9e {HYBRID}"]["by_status"], (
         label, summary["by_status"], out[f"9e {HYBRID}"]["by_status"])
@@ -1573,10 +1607,18 @@ def population_lm_phase(dev, smi, zero_counts, all_counts, phase_done):
 # process. 10d: 7a's GA3C search on --backend process, 4 worker processes
 CONTROL_NODES, CONTROL_KILL_AFTER = 4, 12
 CONTROL_LM_ARGV = ["--backend", "server", "--objective", "lm"]
+# 10b's search is 10a's cut to 3 of its 5 phases (before whisper's
+# training): killed after 12 reports as before, its metrics held to 6a's for
+# the same configuration and phase
+CONTROL_RESUME_PHASES = 3
+CONTROL_RESUME_ARGV = [*CONTROL_LM_ARGV, "--phases", str(CONTROL_RESUME_PHASES)]
 CONTROL_HB_ARGV = ["--backend", "process", "--objective", "lm", "--scheduler", "hyperband",
                    "--phases", "4", "--eta", "2", "--nodes", "10", "--steps-per-phase", "4"]
 CONTROL_HB_RUNGS = {0: [(0, 4, 2), (1, 2, 1)], 1: [(1, 3, 2)]}
 CONTROL_RL_ARGV = ["--backend", "process", *RL_ARGV]
+# 10e: 6d's whisper search on --backend process, its 2 nodes 2 worker
+# processes, each (trial, phase) both trained held to 6d's
+CONTROL_WHISPER_ARGV = ["--backend", "process", "--arch", WHISPER, *SEARCH_KERNEL_ARGV]
 CONTROL_TIMEOUT = 300
 
 
@@ -1697,8 +1739,8 @@ def hold_trials(label, table, phases, w0=None, score=None):
             label, tid, ms)
 
 
-def control_plane_phase(smi, phase_done, out_6a, table_6a, rl, kept):
-    """Phase 10: the control plane on the card (10a-10d above). Returns the
+def control_plane_phase(smi, phase_done, out_6a, table_6a, rl, kept, table_6d_whisper):
+    """Phase 10: the control plane on the card (10a-10e above). Returns the
     launch records of its searches, counted in the worker processes, its
     numbers and 10a's live tail (phase 14). 10a's and 10c's journals go
     into ``kept``."""
@@ -1764,7 +1806,7 @@ def control_plane_phase(smi, phase_done, out_6a, table_6a, rl, kept):
         # 10b: the same search killed once CONTROL_KILL_AFTER reports are
         # journaled, then resumed from its journal
         t0, spawned = time.perf_counter(), time.monotonic()
-        proc, out_path, jpath = tune_process(CONTROL_LM_ARGV, tmp, "10b")
+        proc, out_path, jpath = tune_process(CONTROL_RESUME_ARGV, tmp, "10b")
         try:
             while time.perf_counter() - t0 < CONTROL_TIMEOUT and proc.poll() is None:
                 if os.path.exists(jpath) and sum(
@@ -1778,15 +1820,16 @@ def control_plane_phase(smi, phase_done, out_6a, table_6a, rl, kept):
             proc.communicate()
         killed_s = time.perf_counter() - t0
         _, before, _ = journal_trials(jpath)
-        assert CONTROL_KILL_AFTER <= len(before) < len(reports), ("10b: kill", len(before))
+        assert CONTROL_KILL_AFTER <= len(before), ("10b: kill", len(before))
         killed_start_up = start_up(jpath, spawned)
         resumed_at = time.monotonic()
-        proc, out_path, _ = tune_process([*CONTROL_LM_ARGV, "--resume"], tmp, "10b")
+        proc, out_path, _ = tune_process([*CONTROL_RESUME_ARGV, "--resume"], tmp, "10b")
         stdout = finish(proc, "10b resume")
         summary = json.load(open(out_path))
         table, both, _ = journal_trials(jpath)
         assert len(both) == len(set(both)), "10b: a (trial, phase) journaled twice"
-        hold_trials("10b", table, SEARCH_PHASES)
+        assert len(before) < len(both), ("10b: killed after the search's end", len(before))
+        hold_trials("10b", table, CONTROL_RESUME_PHASES)
         crashed = [t for t, (_, st_, _) in table.items() if st_ == "crashed"]
         assert len(table) - len(crashed) == SEARCH_W0, ("10b", len(table), crashed)
         assert 0 < summary["alpha"] <= 1, summary
@@ -1864,6 +1907,37 @@ def control_plane_phase(smi, phase_done, out_6a, table_6a, rl, kept):
                           "wall_s", "env_frames_per_s", "updates_per_s")}}
         log(f"[control] {smi}: 10d " + json.dumps(out["10d"]))
         phase_done("10d GA3C search, process backend, 4 worker processes")
+
+        # 10e: 6d's whisper search on 2 worker processes
+        t0, spawned = time.perf_counter(), time.monotonic()
+        proc, out_path, jpath = tune_process(CONTROL_WHISPER_ARGV, tmp, "10e")
+        stdout = finish(proc, "10e")
+        summary = json.load(open(out_path))
+        table, reports, busy = journal_trials(jpath)
+        hold_trials("10e", table, 2, 4)
+        assert "crashed" not in summary["by_status"] and 0 < summary["alpha"] <= 1, summary
+        same_configs("10e", table, table_6d_whisper)
+        pairs = both_trained(table, table_6d_whisper)
+        unequal = [(t, ph, a, b) for t, ph, a, b in pairs if abs(a - b) > SEARCH_NODES_ATOL]
+        for t, ph, a, b in unequal:
+            log(f"[control] 10e trial {t} phase {ph}: processes {a!r}, 6d threads {b!r}, "
+                f"difference {a - b!r}")
+        steps = 4 * len(reports)
+        wexpect = per_forward(get_config(WHISPER).reduced(), encoder=True)
+        counts, _ = worker_counts(stdout, "10e", 2)
+        paths[f"control lm {WHISPER} 2 processes"] = hold_lm_counts("10e", counts, steps, wexpect)
+        out["10e"] = {"argv": CONTROL_WHISPER_ARGV, "trials": len(table), "processes": 2,
+                      "wall_s": summary["wall_time"], "run_s": time.perf_counter() - t0,
+                      "by_status": summary["by_status"], "trial_steps": steps,
+                      "trial_steps_per_s": steps / summary["wall_time"],
+                      "phase_busy_s": busy, "compared_with_6d": len(pairs),
+                      "unequal": len(unequal),
+                      "max_abs_diff": max(abs(a - b) for _, _, a, b in pairs),
+                      "atol": SEARCH_NODES_ATOL, "launches": counts[0],
+                      "start_up": start_up(jpath, spawned)}
+        log(f"[control] {smi}: 10e " + json.dumps(out["10e"]))
+        assert pairs and not unequal, ("10e: metrics differ from 6d's", unequal)
+        phase_done(f"10e {WHISPER} LM search, process backend, 2 worker processes")
     log("[control] summary " + json.dumps(out))
     return paths, out, tail
 
@@ -1897,7 +1971,9 @@ POPW_BRACKET = dict(spec={"kind": "rl", "game": "pong", "episodes_per_phase": 2,
 # 7), as the reference gives them on the CPU
 SH_PHASES, SH_EVICT = 2, 0.25
 SH_PER_PHASE, SH_BY_STATUS = [12, 9], {"killed": 5, "completed": 7}
-EVO_PHASES, EVO_WARMUP = 3, 6
+# 12c is cut to 2 phases (3 before whisper's training): trials 0-5 still
+# carry 6a's configurations and metrics, and the children come after them
+EVO_PHASES, EVO_WARMUP = 2, 6
 PERTURB_FACTORS = (0.5, 0.8, 1.25, 2.0)
 
 
@@ -3810,33 +3886,56 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-        # the reduced config at the encoder's 1,500 frames in f32, card
-        # against CPU on one CPU draw of the weights, frames and prompts: the
-        # FMA flash kernel (encoder 1500 x 1500, cross 12 x 1500 and 1 x 1500)
+        def card_against_cpu(label, c, batch, prompt, max_seq, steps, seed):
+            """``c`` in f32 on the card (the FMA flash kernel) against the CPU
+            from one CPU draw of the weights, frames and prompts: a prefill
+            of {"tokens", "enc_embeds"} and ``steps`` greedy decode steps.
+            Logits within 1e-4 and the greedy tokens equal, or the run
+            fails. Returns the largest |card - cpu| of the logits."""
+            cparams = init_params(c, torch.Generator().manual_seed(0), device="cpu")
+            rs = np.random.default_rng(seed)
+            ctk = torch.from_numpy(rs.integers(0, c.vocab_size, size=(batch, prompt)))
+            cfr = torch.from_numpy(rs.standard_normal((batch, c.enc_seq, c.d_model))
+                                   .astype(np.float32))
+            got = {}
+            for d in ("cpu", "cuda"):
+                p_d = cparams.to(d)
+                cache = init_cache(c, batch, max_seq, device=d)
+                lg, cache = make_prefill_step(c)(p_d, {"tokens": ctk.to(d),
+                                                       "enc_embeds": cfr.to(d)}, cache)
+                logits_d, toks = [lg.cpu()], []
+                for i in range(steps):
+                    tok_d = lg.argmax(-1, keepdim=True)
+                    toks.append(tok_d.cpu())
+                    lg, cache = make_serve_step(c)(p_d, cache, tok_d, prompt + i)
+                    logits_d.append(lg.cpu())
+                got[d] = (logits_d, torch.cat(toks, 1))
+                del p_d, cache
+            diff = max((a - b).abs().max().item() for a, b in zip(got["cpu"][0], got["cuda"][0]))
+            same = torch.equal(got["cpu"][1], got["cuda"][1])
+            log(f"[whisper] {label}, f32, card against CPU: prefill and {steps} decode steps' "
+                f"logits within {diff:.3e} (limit 1e-4; largest |logit| "
+                f"{max(x.abs().max().item() for x in got['cpu'][0]):.3f}), greedy tokens "
+                f"{'equal' if same else 'DIFFER'}: {got['cuda'][1].tolist()}")
+            assert diff <= 1e-4 and same, (label, diff, got["cpu"][1].tolist(),
+                                           got["cuda"][1].tolist())
+            return diff
+
+        # the reduced config at the encoder's 1,500 frames: the FMA flash
+        # kernel at encoder 1500 x 1500, cross 12 x 1500 and 1 x 1500
         rc = dataclasses.replace(cfg.reduced(), enc_seq=cfg.enc_seq)
-        rparams = init_params(rc, torch.Generator().manual_seed(0), device="cpu")
-        r1 = np.random.default_rng(1)
-        rtk = torch.from_numpy(r1.integers(0, rc.vocab_size, size=(2, 12)))
-        rfr = torch.from_numpy(r1.standard_normal((2, rc.enc_seq, rc.d_model)).astype(np.float32))
-        got = {}
-        for d in ("cpu", "cuda"):
-            p_d = rparams.to(d)
-            c = init_cache(rc, 2, 32, device=d)
-            lg, c = make_prefill_step(rc)(p_d, {"tokens": rtk.to(d), "enc_embeds": rfr.to(d)}, c)
-            logits_d, toks = [lg.cpu()], []
-            for i in range(6):
-                tok_d = lg.argmax(-1, keepdim=True)
-                toks.append(tok_d.cpu())
-                lg, c = make_serve_step(rc)(p_d, c, tok_d, 12 + i)
-                logits_d.append(lg.cpu())
-            got[d] = (logits_d, torch.cat(toks, 1))
-        diff = max((a - b).abs().max().item() for a, b in zip(got["cpu"][0], got["cuda"][0]))
-        same = torch.equal(got["cpu"][1], got["cuda"][1])
-        log(f"[whisper] reduced at enc_seq {rc.enc_seq}, f32, card against CPU: prefill and 6 "
-            f"decode steps' logits within {diff:.3e} (limit 1e-4), greedy tokens "
-            f"{'equal' if same else 'DIFFER'}: {got['cuda'][1].tolist()}")
-        assert diff <= 1e-4 and same, (diff, got["cpu"][1].tolist(), got["cuda"][1].tolist())
-        out["reduced_card_vs_cpu_max_abs_diff"] = diff
+        out["reduced_card_vs_cpu_max_abs_diff"] = card_against_cpu(
+            f"reduced at enc_seq {rc.enc_seq}", rc, 2, 12, 32, 6, 1)
+        # every width as published (d_model 1280, 20 heads at hd 64, d_ff
+        # 5120, the 51,866-token vocabulary, 1,500 frames), the depth cut to
+        # WHISPER_FULL_LAYERS encoder and decoder layers so that the CPU
+        # side takes seconds; a prompt of 224 into the cache of 448
+        fc = dataclasses.replace(cfg, n_layers=WHISPER_FULL_LAYERS,
+                                 n_enc_layers=WHISPER_FULL_LAYERS, dtype="float32")
+        out["full_width_card_vs_cpu_max_abs_diff"] = card_against_cpu(
+            f"full width cut to {WHISPER_FULL_LAYERS} + {WHISPER_FULL_LAYERS} layers, batch 1",
+            fc, 1, P, L, WHISPER_FULL_DECODE, 2)
+        gc.collect()
         return record, cli_record, found
 
     wcfg = get_config(WHISPER)
@@ -4193,7 +4292,7 @@ def main() -> int:
     for label, rcfg in ((ARCH, get_config(ARCH).reduced()),
                         (f"{HYBRID} {hybrid_train_pattern}", dataclasses.replace(
                             hcfg.reduced(), pattern=hybrid_train_pattern, n_layers=2)),
-                        (STARCODER, scfg.reduced()),
+                        (STARCODER, scfg.reduced()), (WHISPER, wcfg.reduced()),
                         *((f"{zname} at hd {dims['head_dim']}",
                            dataclasses.replace(get_config(zname).reduced(), **dims))
                           for zname, dims in REAL_HEAD_DIM.items())):
@@ -4260,15 +4359,45 @@ def main() -> int:
                 f"{a.key[:90]}")
         return split
 
-    def train_model(tcfg, batch, note, lr):
+    def layernorm_ms(tcfg, batch, seq):
+        """The step's plain LayerNorms, forward and backward, timed apart at
+        the step's shapes (CUDA events, the median of 5 calls of each
+        shape): ms for all of them, and their count. The profiled step's
+        split cannot tell their kernels from the other elementwise ones."""
+        from repro_torch.models.layers import _layernorm
+        dt = getattr(torch, tcfg.dtype)
+        dec_n = tcfg.n_repeat * sum(1 + bool(ffn) + tcfg.is_encdec for _, ffn in tcfg.pattern) + 1
+        enc_n = 2 * tcfg.n_enc_layers + 1 if tcfg.is_encdec else 0
+        total = 0.0
+        for rows, n in ((batch * seq, dec_n), (batch * tcfg.enc_seq, enc_n)):
+            if not n:
+                continue
+            x = torch.randn(rows, tcfg.d_model, device=dev, dtype=dt, requires_grad=True)
+            sc = torch.ones(tcfg.d_model, device=dev, dtype=dt, requires_grad=True)
+            bi = torch.zeros(tcfg.d_model, device=dev, dtype=dt, requires_grad=True)
+            g = torch.randn(rows, tcfg.d_model, device=dev, dtype=dt)
+            times = []
+            for _ in range(6):
+                st, en = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                st.record()
+                torch.autograd.grad(_layernorm(x, sc, bi), (x, sc, bi), g)
+                en.record()
+                en.synchronize()
+                times.append(st.elapsed_time(en))
+            total += n * float(np.median(times[1:]))
+        return total, dec_n + enc_n
+
+    def train_model(tcfg, batch, note, lr, seq=TRAIN_SEQ):
         """TRAIN_STEPS AdamW steps of ``Trainer`` at full width, each one
-        ``Trainer.run(1)`` between two CUDA events."""
+        ``Trainer.run(1)`` between two CUDA events. An encoder-decoder's
+        batches carry the pipeline's frames (batch, enc_seq, d_model), and
+        its forward the encoder's flash calls."""
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         trainer = Trainer(tcfg, TrainConfig(optimizer="adamw", learning_rate=lr),
-                          batch, TRAIN_SEQ, seed=0, device=dev)
+                          batch, seq, seed=0, device=dev)
         torch.cuda.synchronize()
         n_params = sum(p.numel() for p in trainer.params.parameters())
         log(f"[train] {tcfg.name}: {tcfg.n_layers} layers {tcfg.pattern} d_model "
@@ -4289,7 +4418,7 @@ def main() -> int:
         wall_s = time.perf_counter() - t0
         launches = {name: op.launches for name, op in kernel_ops.items()}
         by = (flash_counts(), gmm_counts(), rms_counts(), scan_counts())
-        expect = per_forward(tcfg)
+        expect = per_forward(tcfg, encoder=tcfg.is_encdec)
         losses = trainer.losses
         log(f"[train] {tcfg.name}: losses {losses}; launches {launches}, flash by kernel "
             f"{by[0]}, gmm by kernel {by[1]}, rmsnorm by kernel {by[2]}, selective_scan by "
@@ -4307,16 +4436,36 @@ def main() -> int:
         log(f"[train] {tcfg.name} per step: {expect} kernel launches, all in the forward")
         step_ms = [s.elapsed_time(e) for s, e in events]
         med = float(np.median(step_ms[2:]))
-        bound_ms, active = matmul_bound_ms(tcfg, batch * TRAIN_SEQ)
+        frames = batch * tcfg.enc_seq if tcfg.is_encdec else 0
+        bound_ms, active, flops = matmul_bound_ms(tcfg, batch * seq, frames)
         res = {"arch": tcfg.name, "n_layers": tcfg.n_layers, "params": n_params,
-               "batch": batch, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "lr": lr,
+               "batch": batch, "seq": seq, "steps": TRAIN_STEPS, "lr": lr,
                "step_ms": step_ms, "step_ms_median_3_10": med,
                "matmul_bound_ms": bound_ms, "matmul_bound_weights": active,
-               "tokens_per_s": batch * TRAIN_SEQ / (med / 1e3), "run_s": wall_s,
+               "matmul_bound_flops": flops,
+               "tokens_per_s": batch * seq / (med / 1e3), "run_s": wall_s,
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                "loss_first": losses[0], "loss_last3_mean": sum(losses[-3:]) / 3}
+        if frames:
+            res.update(enc_frames=frames, enc_frames_per_s=frames / (med / 1e3))
         log("[train] " + json.dumps(res))
         res["profile"] = profiled_step(tcfg, trainer)
+        draws = []
+        for _ in range(3):
+            # the pipeline's host work a step (numpy draws, the copy to the
+            # card), which the step's CUDA events enclose and no kernel shows
+            t0 = time.perf_counter()
+            next(trainer.data)
+            torch.cuda.synchronize()
+            draws.append((time.perf_counter() - t0) * 1e3)
+        res["profile"]["pipeline_draw_ms"] = float(np.median(draws))
+        log(f"[train] {tcfg.name}: the pipeline's draw of a batch, host clock, median of 3: "
+            f"{res['profile']['pipeline_draw_ms']:.2f} ms")
+        if tcfg.norm == "layernorm":
+            ln_ms, ln_n = layernorm_ms(tcfg, batch, seq)
+            res["profile"].update(layernorm_fwd_bwd_ms_timed_apart=ln_ms, layernorms=ln_n)
+            log(f"[train] {tcfg.name}: its {ln_n} LayerNorms, forward and backward timed apart "
+                f"at the step's shapes, {ln_ms:.2f} ms a step (inside the split's other_ms)")
         del trainer
         return (launches, expect, TRAIN_STEPS, *by), res
 
@@ -4327,7 +4476,10 @@ def main() -> int:
                    f"{12 * count_params(jcfg) / 1e9:.0f} GB, with RMSProp's "
                    f"{8 * count_params(jcfg) / 1e9:.0f} GB)", TRAIN_LR),
                   (scfg, "; nothing cut (LayerNorm and GELU are plain PyTorch)",
-                   STARCODER_TRAIN_LR)]
+                   STARCODER_TRAIN_LR),
+                  (wcfg, f"; nothing cut: {wcfg.n_enc_layers} encoder layers over "
+                   f"{wcfg.enc_seq} frames, {wcfg.n_layers} decoder layers at "
+                   f"{WHISPER_MAX_SEQ} tokens (LayerNorm and GELU are plain PyTorch)", TRAIN_LR)]
     # not trained here: yi-9b runs gemma2-2b's modules (and at 12 bytes a
     # weight needs 106 GB); one grok-1 layer with the embeddings is 6.53B
     # weights, 78 GB with AdamW's moments
@@ -4341,7 +4493,8 @@ def main() -> int:
         " GB with AdamW)")
     trained = {}
     for tcfg, note, lr in train_cfgs:
-        path, trained[tcfg.name] = train_model(tcfg, TRAIN_BATCH, note, lr)
+        seq = WHISPER_MAX_SEQ if tcfg.is_encdec else TRAIN_SEQ
+        path, trained[tcfg.name] = train_model(tcfg, TRAIN_BATCH, note, lr, seq)
         paths[f"train {tcfg.name}-{tcfg.n_layers}L"] = path
     phase_done("5 train")
 
@@ -4401,7 +4554,7 @@ def main() -> int:
         if bar:
             assert summary["best_metric"] > -math.log(rcfg.vocab_size), (label, summary)
         steps = steps_per_phase * sum(len(ms) for _, _, ms in table.values())
-        expect = per_forward(rcfg)
+        expect = per_forward(rcfg, encoder=rcfg.is_encdec)
         log(f"[search] {label}: {steps} trial-steps, launches {launches}, flash by kernel "
             f"{fa_by}, gmm by kernel {gmm_by}, rmsnorm by kernel {rms_by}, selective_scan by "
             f"kernel {scan_by}; per step {expect}")
@@ -4525,13 +4678,16 @@ def main() -> int:
         f"{TRAIN_ATOL:g} + {TRAIN_RTOL:g} * |cpu|) ok")
     phase_done("6c search, card against CPU")
 
-    # 6d: the scan (jamba) and the grouped matmul (grok-1) under concurrent trials
-    for arch, kernel in ((HYBRID, "selective_scan"), (GROK, "gmm")):
+    # 6d: the scan (jamba), the grouped matmul (grok-1) and the
+    # encoder-decoder (whisper: flash not causal) under concurrent trials
+    tables_6d = {}
+    for arch, kernel in ((HYBRID, "selective_scan"), (GROK, "gmm"), (WHISPER, "flash_attention")):
         assert per_forward(get_config(arch).reduced())[kernel] > 0, (arch, kernel)
-        path, searches[f"6d {arch}"], _ = search(
+        path, searches[f"6d {arch}"], res_6d = search(
             f"6d {arch}, 2 nodes", ["--arch", arch, *SEARCH_KERNEL_ARGV], arch, 4, 2, 4)
         paths[f"search {arch} 2 nodes"] = path
-    phase_done("6d search, all four kernels")
+        tables_6d[arch] = trial_table(res_6d)
+    phase_done("6d search, all four kernels and the encoder-decoder")
     log("[search] summary " + json.dumps(searches))
 
     # -- 7. the GA3C search ------------------------------------------------------
@@ -4552,7 +4708,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     control_paths, control, live = control_plane_phase(smi, phase_done, searches["6a"],
-                                                 trial_table(res_4), rl, kept)
+                                                       trial_table(res_4), rl, kept,
+                                                       tables_6d[WHISPER])
     paths.update(control_paths)
     # -- 11. the population worker: a batch of trials a worker process -------
     gc.collect()

@@ -32,21 +32,26 @@ class BigramStream:
 
 
 class DataPipeline:
-    """Yields {'tokens', 'labels'} batches, (batch, seq) int64 on ``device``.
+    """Yields {'tokens', 'labels'} batches, (batch, seq) int64 on ``device``;
+    an encoder-decoder's batch adds the encoder's stub input, ``enc_embeds``
+    (batch, enc_seq, d_model) f32 standard normal, drawn after the batch's
+    tokens from a second generator seeded ``seed + 1``, as the reference's.
+    The same seed gives the reference's numbers.
 
-    The vlm and encdec families (image and encoder stubs) and a mesh are
-    not ported: the model raises for those families, and the port trains
-    on one card."""
+    The vlm family (the image stub) and a mesh are not ported: the model
+    raises for that family, and the port trains on one card."""
 
     def __init__(self, cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
                  mesh=None, device="cuda"):
-        if cfg.family == "vlm" or cfg.is_encdec:
+        if cfg.family == "vlm":
             raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported")
         if mesh is not None:
             raise NotImplementedError("a mesh is not ported: the port trains on one card")
+        self.cfg = cfg
         self.batch = batch
         self.seq = seq
         self.stream = BigramStream(cfg.vocab_size, seed)
+        self.rng = np.random.default_rng(seed + 1)
         self.device = resolve_device(device)
 
     def __iter__(self):
@@ -55,4 +60,9 @@ class DataPipeline:
     def __next__(self):
         chain = torch.from_numpy(self.stream.sample(self.batch, self.seq).astype(np.int64))
         chain = chain.to(self.device)
-        return {"tokens": chain[:, :-1], "labels": chain[:, 1:]}
+        batch = {"tokens": chain[:, :-1], "labels": chain[:, 1:]}
+        if self.cfg.is_encdec:
+            enc = self.rng.standard_normal(
+                (self.batch, self.cfg.enc_seq, self.cfg.d_model)).astype(np.float32)
+            batch["enc_embeds"] = torch.from_numpy(enc).to(self.device)
+        return batch

@@ -4,8 +4,9 @@
       --steps 10 --batch 4 --seq 512
 
 Runs on the GPU; ``--device cpu --reduced`` runs the plain PyTorch path at
-the smoke-test size. The port trains on one card: ``--data-parallel`` and
-``--model-parallel`` above 1 raise.
+the smoke-test size. An encoder-decoder (``--arch whisper-large-v3``) trains
+on the pipeline's frame embeddings beside the tokens. The port trains on one
+card: ``--data-parallel`` and ``--model-parallel`` above 1 raise.
 """
 from __future__ import annotations
 

@@ -562,7 +562,10 @@ class PopulationEngine:
                     self.speculated += len(leases)
                     self.metrics.counter("engine.speculative_leases").inc(len(leases))
                 if leases:
-                    self._admit_grouped(leases, now - t0)
+                    # stamped after the acquire returns, so that a slot's
+                    # first phase never starts before the server granted
+                    # its lease
+                    self._admit_grouped(leases, time.monotonic() - t0)
                 elif retry is None:
                     exhausted = True
                 else:

@@ -66,11 +66,14 @@ def lm_loss_slots(cfg: ModelConfig, params, hidden, labels, chunk: int = 1024):
 def make_train_step(cfg: ModelConfig, tc: TrainConfig):
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
-    ``params`` (``ModelParams``) are updated in place and returned; every
-    weight is made to require a gradient. ``metrics`` holds ``loss``,
-    ``aux_loss`` and ``grad_norm`` as scalars on the device: the step never
-    waits on the host for them. The optimizer runs in the profiler range
-    ``optimizer``."""
+    ``batch`` is ``DataPipeline``'s: ``tokens`` and ``labels``, and for an
+    encoder-decoder ``enc_embeds``, on which ``forward`` runs the encoder
+    once, outside ``remat``'s checkpoints (the reference's ``encode`` runs
+    outside its checkpointed scan body too). ``params`` (``ModelParams``)
+    are updated in place and returned; every weight is made to require a
+    gradient. ``metrics`` holds ``loss``, ``aux_loss`` and ``grad_norm`` as
+    scalars on the device: the step never waits on the host for them. The
+    optimizer runs in the profiler range ``optimizer``."""
 
     def loss_fn(params, batch):
         h, _, aux = forward(cfg, params, batch, mode="train", remat=tc.remat)

@@ -215,12 +215,14 @@ def test_thread_cluster_four_nodes_spends_the_budget():
 
 
 # ---------------------------------------------------------------------------
-# the slice as a whole: HyperTrick over yi-9b reduced LM trials
+# the slice as a whole: HyperTrick over yi-9b and whisper reduced LM trials
 # ---------------------------------------------------------------------------
-def test_lm_search_matches_reference(monkeypatch):
+@pytest.mark.parametrize("arch", ["yi-9b", "whisper-large-v3"])
+def test_lm_search_matches_reference(arch, monkeypatch):
     """One node, HyperTrick(lm_space, w0 4, 2 phases, r 0.25, seed 0) over
-    the yi-9b reduced LM objective at 3 steps a phase, batch 2 x 16: every
-    port trial starts from the reference trial's seed-0 weights."""
+    the arch's reduced LM objective at 3 steps a phase, batch 2 x 16: every
+    port trial starts from the reference trial's seed-0 weights. whisper's
+    trials train the encoder-decoder on the pipeline's frames too."""
     import jax
     from repro.configs.registry import get_config as ref_get_config
     from repro.train import trainer as ref_trainer
@@ -229,7 +231,7 @@ def test_lm_search_matches_reference(monkeypatch):
     from repro_torch.optim.optimizers import init_opt_state
     from repro_torch.train import trainer as port_trainer
 
-    arch, kw = "yi-9b", dict(steps_per_phase=3, batch=2, seq=16)
+    kw = dict(steps_per_phase=3, batch=2, seq=16)
 
     def run(pkg, objective):
         policy = pkg.ht.HyperTrick(pkg.space.lm_space(), 4, 2, 0.25, seed=0)

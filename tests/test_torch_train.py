@@ -176,13 +176,20 @@ def test_data_pipeline_gives_the_reference_tokens():
 
 
 def test_data_pipeline_refuses_what_is_not_ported():
+    """The vlm family and a mesh are refused; an encoder-decoder is ported:
+    its batches add the reference's ``enc_embeds``, bit for bit."""
     cfg = get_config(ARCH).reduced()
-    for other in (dataclasses.replace(cfg, family="vlm"),
-                  dataclasses.replace(cfg, family="encdec", n_enc_layers=1)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            DataPipeline(other, 2, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        DataPipeline(dataclasses.replace(cfg, family="vlm"), 2, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         DataPipeline(cfg, 2, 8, mesh=object(), device="cpu")
+    kw = dict(family="encdec", n_enc_layers=1, enc_seq=6)
+    ref = next(iter(JaxDataPipeline(dataclasses.replace(jax_get_config(ARCH).reduced(), **kw),
+                                    2, 8, seed=1)))
+    out = next(iter(DataPipeline(dataclasses.replace(cfg, **kw), 2, 8, seed=1, device="cpu")))
+    assert set(out) == set(ref) == {"tokens", "labels", "enc_embeds"}
+    for key in out:
+        np.testing.assert_array_equal(out[key].numpy(), np.asarray(ref[key]))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
